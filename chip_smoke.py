@@ -6,12 +6,21 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
 
 1. prints the device and ``nvidia-smi --query-gpu=name,power.limit``;
 2. holds each kernel against its plain torch twin at the main path's
-   shapes, with the tolerance stated on each line, and times both;
+   shapes, with the tolerance stated on each line, and times both; the
+   decode-attention kernel in prefix, bitmask, window and wrapped-window
+   modes, with empty streams, for the bf16 and the int8 cache;
 3. drives ``Qwen3TTS.synthesize_batch`` at the full 0.6B widths (random
    weights from a fixed torch.Generator, an in-memory tokenizer): greedy
    and at temperature 0.9, with the bf16 and the int8 KV cache; checks that
    every request succeeds with finite audio of n_frames * 1920 samples and
-   that the main path launched every kernel.
+   that the lock-step path launched every kernel;
+4. serves 20 requests through ``ContinuousBatcher`` (8 slots, greedy,
+   bf16 and then int8 KV), 12 of them submitted mid-run: slots turn over,
+   requests retire by EOS and by the frame cap, the ring wraps. Checks
+   every result as in 3, that the serving path launched every kernel and
+   the decode-attention kernel in window mode with wrapped windows, and
+   holds the kernel against its twin on masks captured from the live ring
+   after it wrapped.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -50,6 +59,20 @@ LOGIT_TOL = 5e-2
 # at ~0.1-0.3) moves the error's RMS by several 1e-2.
 VOC_MAX_TOL = 5e-2          # max |err| / RMS
 VOC_RMS_TOL = 5e-3          # RMS(err) / RMS
+# decode attention, kernel vs twin: both f32 over the same dequantized
+# rows, summed in another order (per-warp online softmax, split merge);
+# measured <= 4e-6 on outputs of O(1). A dropped scale, a skipped block or
+# a missed slot moves the output by O(0.1-1).
+ATTN_TOL = 1e-4
+ATTN_B = (8, 32)
+ATTN_S = 1152               # required_ctx_ring(1024): the serving cache
+ATTN_READ_CTX = (512, 1024, 1152)
+# serving phase: a 96-frame cap puts the ring at 256 - 16 slots, so it
+# wraps after 6 chunks; "h" (36-frame EOS ramp) reaches EOS by frame 72
+SERVE_SLOTS = 8
+SERVE_MAX_FRAMES = 96
+SERVE_SHORT = "h"
+SERVE_LONG = "hello world hello world hello world hello world."
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -261,6 +284,230 @@ def check_snake_convt(blocks, dev, gen) -> dict:
                        plain)
 
 
+def _attn_cache(B, S, dev, gen):
+    """Random bf16 K/V [B, 8, S, 128] and their int8 rows + scales as the
+    cache stores them (stack.quantize_kv_rows)."""
+    from qwen3_tts_tpu_torch.models.stack import quantize_kv_rows
+    k, v = (torch.randn(B, 8, S, 128, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    (k8, ks), (v8, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    return {"bf16": (k, v, None, None), "int8": (k8, v8, ks, vs)}
+
+
+def _attn_cases(B, S, read_ctx, dev, gen) -> dict:
+    """Mode -> wrapper kwargs at one read_ctx. Stream 2 is empty in every
+    mode. Windows put hi - 1 on a block start with its bit set (a window
+    end read one short drops that block), keep lo >= 64 in the plain window
+    (block 0 is read for the prefill region only) and take lo > hi in the
+    wrapped one."""
+    from qwen3_tts_tpu_torch.ops.flash_decode import BLOCK
+    from qwen3_tts_tpu_torch.runtime.generate import RING_PREFILL_SLOTS as P
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    n_valid = ints(1, read_ctx + 1)
+    n_valid[0], n_valid[1], n_valid[2] = 1, read_ctx, 0
+    mask = rand(B, S) < 0.4
+    mask[2] = False
+    slot = torch.arange(S, device=dev)
+    cases = {"prefix": dict(n_valid=n_valid), "mask": dict(valid_mask=mask)}
+    for mode, hi in (("window", read_ctx - BLOCK + 1), ("wrap", 2 * BLOCK + 1)):
+        if mode == "window":
+            lo = ints(BLOCK, hi - 1)
+            inside = (slot[None] >= lo[:, None]) & (slot[None] < hi)
+        else:
+            lo = ints(hi + BLOCK, read_ctx)
+            inside = (((slot[None] >= P) & (slot[None] < hi))
+                      | ((slot[None] >= lo[:, None])
+                         & (slot[None] < read_ctx)))
+        m = inside & (rand(B, S) < 0.7)
+        m[:, :10] = True                    # prefill rows
+        m[:, hi - 1] = True
+        m[2] = False
+        cases[mode] = dict(valid_mask=m, window_lo=lo, prefill_len=P,
+                           window_hi=torch.tensor(hi, dtype=torch.int32,
+                                                  device=dev))
+    return cases
+
+
+def _attn_call(kw, q, k, v, ks, vs, read_ctx, twin):
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    if twin:
+        return fd.flash_decode_twin(q, k, v, read_ctx=read_ctx, k_scale=ks,
+                                    v_scale=vs, **kw)
+    if "n_valid" in kw:
+        return fd.flash_decode(q, k, v, kw["n_valid"], read_ctx=read_ctx,
+                               k_scale=ks, v_scale=vs)
+    kw = dict(kw)
+    return fd.flash_decode_masked(q, k, v, kw.pop("valid_mask"),
+                                  read_ctx=read_ctx, k_scale=ks, v_scale=vs,
+                                  **kw)
+
+
+def check_flash_decode(dev, gen) -> dict:
+    """The decode-attention kernel against its twin at the talker's widths
+    (16 query heads, 8 kv heads, D = 128), B = 8 and 32, S = 1,152, read_ctx
+    512 / 1,024 / 1,152: prefix (ragged, 1 and read_ctx), scattered bitmask,
+    ring window, wrapped window, each with an empty stream; bf16 and int8
+    caches. Times kernel and twin at the serving shape (window mode,
+    read_ctx 1,152)."""
+    worst, timing = 0.0, {}
+    for B in ATTN_B:
+        caches = _attn_cache(B, ATTN_S, dev, gen)
+        q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
+        for read_ctx in ATTN_READ_CTX:
+            cases = _attn_cases(B, ATTN_S, read_ctx, dev, gen)
+            for kv, (k, v, ks, vs) in caches.items():
+                errs = {}
+                for mode, kw in cases.items():
+                    got = _attn_call(kw, q, k, v, ks, vs, read_ctx, False)
+                    ref = _attn_call(kw, q, k, v, ks, vs, read_ctx, True)
+                    err = (got - ref).abs().max().item()
+                    if not torch.isfinite(got).all():
+                        err = float("inf")
+                    if got[2].abs().max().item() != 0.0:
+                        err = float("inf")          # empty stream not 0
+                    errs[mode] = err
+                log(f"flash_decode B={B} S={ATTN_S} read_ctx={read_ctx} "
+                    f"{kv}: max|err| " + ", ".join(
+                        f"{m} {e:.3e}" for m, e in errs.items())
+                    + f" (need <= {ATTN_TOL}; empty stream exactly 0)")
+                worst = max(worst, *errs.values())
+            if read_ctx == ATTN_S:
+                kw = cases["window"]
+                for kv, (k, v, ks, vs) in caches.items():
+                    timing[(B, kv)] = [cuda_time(
+                        lambda t=t: _attn_call(kw, q, k, v, ks, vs, read_ctx,
+                                               t), iters=20)
+                        for t in (False, True)]
+    for (B, kv), (ms, plain) in timing.items():
+        log(f"flash_decode window mode B={B} S={ATTN_S} read_ctx={ATTN_S} "
+            f"{kv}, one layer: kernel {ms:.4f} ms, twin {plain:.4f} ms")
+    if not worst <= ATTN_TOL:
+        raise AssertionError("flash_decode kernel disagrees with its twin")
+    ms, plain = timing[(ATTN_B[0], "bf16")]
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/flash_decode.cu",
+            "replaces": "qwen3_tts_tpu/ops/flash_decode.py:255",
+            "also_replaces": "qwen3_tts_tpu/ops/flash_decode.py:277",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+
+
+def serve_phase(engine, kv, card, counters, dev):
+    """ContinuousBatcher at the full widths: 8 requests, 8 more after the
+    second step, 4 more after the fourth, short and long texts alternating.
+    Returns (launches per counter, device copies of the ring state at each
+    step after the ring first wrapped)."""
+    from qwen3_tts_tpu_torch.models.stack import QuantKV
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.runtime.generate import RING_PREFILL_SLOTS
+    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    os.environ["QWEN3_TTS_KV"] = kv
+    cb = ContinuousBatcher(engine, n_slots=SERVE_SLOTS,
+                           params=TTSParams(temperature=0.0, seed=SEED),
+                           max_frames=SERVE_MAX_FRAMES)
+    ring = cb.ctx - RING_PREFILL_SLOTS
+    texts = [SERVE_SHORT, SERVE_LONG] * 10
+    for fn in counters:
+        fn.launches = 0
+    fd.flash_decode.launches_by_mode.update(prefix=0, mask=0, window=0)
+    fd.flash_decode.wrapped = torch.zeros(1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rids = [cb.submit(t) for t in texts[:8]]
+    results, captures, n_steps = {}, [], 0
+    while cb.pending():
+        results.update(cb.step())
+        n_steps += 1
+        if n_steps in (2, 4):
+            rids += [cb.submit(t) for t in
+                     texts[len(rids):len(rids) + (8 if n_steps == 2 else 4)]]
+        if cb._steps_done > ring and len(captures) < 3:
+            # device-side copies: no host sync in the serving loop
+            st = cb.state
+            cache = st.kv_cache
+            if isinstance(cache, QuantKV):
+                kvl = (cache.values[0, 0], cache.values[0, 1],
+                       cache.scales[0, 0], cache.scales[0, 1])
+            else:
+                kvl = (cache[0, 0], cache[0, 1], None, None)
+            captures.append(dict(
+                kv=kv, mask=st.valid_mask.clone(), lo=st.ring_lo.clone(),
+                hi=st.write_slot.clone(), done=st.done.clone(),
+                cache=tuple(None if t is None else t.clone() for t in kvl),
+                read_ctx=cb.ctx))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    ran = [fn.launches for fn in counters]
+    modes = dict(fd.flash_decode.launches_by_mode)
+    wrapped = int(fd.flash_decode.wrapped.item())
+    fd.flash_decode.wrapped = None
+    spf = engine.voc_cfg.samples_per_frame
+    frames = [results[r].n_frames for r in rids]
+    for r in rids:
+        res = results[r]
+        if not res.success:
+            raise AssertionError(f"serving request {r} failed: "
+                                 f"{res.error_msg}")
+        if not np.isfinite(res.audio).all():
+            raise AssertionError("non-finite audio")
+        if len(res.audio) != res.n_frames * spf:
+            raise AssertionError(f"{len(res.audio)} samples for "
+                                 f"{res.n_frames} frames")
+    n_cap = sum(f == cb.max_frames for f in frames)
+    n_eos = sum(f < cb.max_frames for f in frames)
+    audio_s = (sum(len(results[r].audio) for r in rids)
+               / engine.voc_cfg.sample_rate)
+    log(f"ContinuousBatcher kv={kv} slots={SERVE_SLOTS} max_frames="
+        f"{SERVE_MAX_FRAMES}: {len(rids)} requests ({len(rids) - 8} "
+        f"submitted mid-run), {n_steps} steps, frames {frames} ({n_cap} "
+        f"retired by the frame cap, {n_eos} by EOS), {sum(frames)} frames, "
+        f"{audio_s:.2f} s of audio in {wall:.2f} s wall on {card}; ring of "
+        f"{ring} slots, {cb._steps_done} ring writes; kernel launches "
+        f"codepred/res_chain/snake_convt/flash_decode {ran}, flash_decode "
+        f"by mode {modes}, streams served with a wrapped window {wrapped}")
+    if min(ran) <= 0 or modes["window"] <= 0:
+        raise AssertionError(f"a kernel was not launched in serving: {ran}")
+    if not (n_cap and n_eos and cb._steps_done > ring and wrapped > 0):
+        raise AssertionError("serving did not retire by cap and by EOS and "
+                             "wrap the ring")
+    return ran, captures
+
+
+def check_captured(captures, dev, gen) -> None:
+    """The kernel against its twin on valid_mask / ring_lo / write_slot and
+    layer-0 K/V captured from the live ring after it wrapped."""
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.runtime.generate import RING_PREFILL_SLOTS
+    n_wrapped = 0
+    for c in captures:
+        k, v, ks, vs = c["cache"]
+        B = k.shape[0]
+        q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
+        kw = dict(window_lo=c["lo"], window_hi=c["hi"],
+                  prefill_len=RING_PREFILL_SLOTS, read_ctx=c["read_ctx"],
+                  k_scale=ks, v_scale=vs)
+        got = fd.flash_decode_masked(q, k, v, c["mask"], **kw)
+        ref = fd.flash_decode_twin(q, k, v, valid_mask=c["mask"], **kw)
+        err = (got - ref).abs().max().item()
+        live_wrapped = int(((c["lo"] > c["hi"]) & ~c["done"]).sum())
+        n_wrapped += live_wrapped
+        log(f"flash_decode on a live ring after its wrap ({c['kv']}, "
+            f"write_slot {int(c['hi'])}, ring_lo {c['lo'].tolist()}, "
+            f"{live_wrapped} live streams wrapped): max|err| {err:.3e} "
+            f"(need <= {ATTN_TOL})")
+        if not err <= ATTN_TOL:
+            raise AssertionError("flash_decode disagrees on a live ring")
+    if not captures or n_wrapped == 0:
+        raise AssertionError("no live ring state with a wrapped window")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -272,6 +519,7 @@ def main() -> int:
     from qwen3_tts_tpu_torch import kernels
     from qwen3_tts_tpu_torch.models import weights as W
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
     from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
     from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
 
@@ -300,7 +548,8 @@ def main() -> int:
     blocks = decoder_blocks(vcfg, dev, gen)
     for check, args in ((check_codepred, (talker_w, cfg, dev, gen)),
                         (check_res_chain, (blocks, dev, gen)),
-                        (check_snake_convt, (blocks, dev, gen))):
+                        (check_snake_convt, (blocks, dev, gen)),
+                        (check_flash_decode, (dev, gen))):
         try:
             report.append(check(*args))
         except Exception:
@@ -320,7 +569,7 @@ def main() -> int:
     texts = ["hello world.", "hello hello world.", "world hello.",
              "hello world hello world."]
     counters = (cf.predict_codes_fused, vf.fused_residual_chain,
-                vf.fused_snake_convt)
+                vf.fused_snake_convt, fd.flash_decode)
     for fn in counters:
         fn.launches = 0
     spf = vcfg.samples_per_frame
@@ -354,9 +603,18 @@ def main() -> int:
                 f"{audio_s:.2f} s of audio in {wall:.2f} s wall "
                 f"(generate {res[0].t_generate_ms:.0f} ms, decode "
                 f"{res[0].t_decode_ms:.0f} ms) on {card}; kernel launches "
-                f"codepred/res_chain/snake_convt {ran}")
-    for entry, fn in zip(report, counters):
-        entry["launches"] = fn.launches
+                f"codepred/res_chain/snake_convt/flash_decode {ran}")
+    lockstep = [fn.launches for fn in counters]
+
+    serving, captured = [0] * len(counters), []
+    for kv in ("bf16", "int8"):
+        ran, caps = serve_phase(engine, kv, card, counters, dev)
+        serving = [a + b for a, b in zip(serving, ran)]
+        captured += caps
+    check_captured(captured, dev, gen)
+    for entry, a, b in zip(report, lockstep, serving):
+        entry.update(launches=a + b, launches_lockstep=a,
+                     launches_serving=b)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

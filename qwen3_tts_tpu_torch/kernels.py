@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +40,8 @@ _SIGNATURES = {
     "q3_sample": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I),
     "q3_res_block": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "q3_snake_convt": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "q3_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -54,9 +56,22 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; wait for all, then raise on the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into _build/ (once per source hash); return the
-    library path."""
+    """Compile csrc/*.cu into _build/ (once per source hash), one nvcc per
+    source in parallel, then link; return the library path."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
     for path in sorted(SRC_DIR.iterdir()):
@@ -66,13 +81,18 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    nvcc, tag = _nvcc(), f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(sources, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, lib)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return lib
 
 

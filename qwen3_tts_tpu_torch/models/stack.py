@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.attention import decode_attention
+from ..ops.attention import decode_attention, decode_attention_masked
 from ..ops.layers import dot, gqa_attention_prefill, rms_norm, rope_neox
 
 CACHE_DTYPE = torch.bfloat16
@@ -111,13 +111,21 @@ def write_prefill_to_cache(kv_cache, ks: torch.Tensor, vs: torch.Tensor,
 def stack_step(layers_w, x: torch.Tensor, positions: torch.Tensor, kv_cache,
                write_idx, n_valid: torch.Tensor, *, n_heads: int, n_kv: int,
                head_dim: int, eps: float, theta: float,
-               read_ctx: int | None = None):
+               read_ctx: int | None = None,
+               valid_mask: torch.Tensor | None = None,
+               window_lo: torch.Tensor | None = None,
+               window_hi: torch.Tensor | None = None,
+               prefill_len: int = 0):
     """Single-token decode step; writes the token's K/V rows into cache
     slot `write_idx` (an int or a 0-d device tensor, shared by the batch)
     in place, then attends each stream's first n_valid slots.
 
     x: [B, H]; positions: [B] int32 RoPE positions; n_valid: [B] valid
-    cache length after this token. Returns (y [B, H] f32 before the
+    cache length after this token. valid_mask: [B, S] bool, when given,
+    replaces the prefix by a bitmask (ring-slot cache, where a stream's
+    slots are not contiguous); window_lo/window_hi + prefill_len bound
+    each stream's valid slots to [0, prefill_len) U [lo, hi) so that the
+    kernel skips the other blocks. Returns (y [B, H] f32 before the
     output norm, kv_cache)."""
     idx = torch.as_tensor(write_idx, dtype=torch.long,
                           device=x.device).reshape(1)
@@ -144,9 +152,16 @@ def stack_step(layers_w, x: torch.Tensor, positions: torch.Tensor, kv_cache,
             cl[1].index_copy_(2, idx, v[:, 0, :, None].to(cl.dtype))
             k_l, v_l = cl[0], cl[1]
             k_scale = v_scale = None
-        attn = decode_attention(q[:, 0].to(CACHE_DTYPE), k_l, v_l, n_valid,
-                                read_ctx=read_ctx, k_scale=k_scale,
-                                v_scale=v_scale)
+        q_l = q[:, 0].to(CACHE_DTYPE)
+        if valid_mask is not None:
+            attn = decode_attention_masked(
+                q_l, k_l, v_l, valid_mask, read_ctx=read_ctx,
+                window_lo=window_lo, window_hi=window_hi,
+                prefill_len=prefill_len, k_scale=k_scale, v_scale=v_scale)
+        else:
+            attn = decode_attention(q_l, k_l, v_l, n_valid,
+                                    read_ctx=read_ctx, k_scale=k_scale,
+                                    v_scale=v_scale)
         x = x + dot(attn, wl["wo"])
         x = x + _ffn(wl, x, eps)
     return x, kv_cache

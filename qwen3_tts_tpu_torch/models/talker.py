@@ -122,16 +122,23 @@ def talker_prefill(w, cfg: TalkerConfig, prefill_embd: torch.Tensor, kv_cache):
 
 
 def talker_step(w, cfg: TalkerConfig, step_embd: torch.Tensor, kv_cache,
-                n_past: torch.Tensor, write_idx, read_ctx: int | None = None):
-    """Single-frame decode step of a lock-step batch. step_embd: [B, H];
-    n_past: [B] int32 tokens already in each stream's cache (the RoPE
-    position); write_idx: the cache slot all streams write (int or 0-d
-    tensor). Returns (hidden [B, H] f32, logits [B, codec_vocab] f32,
-    kv_cache)."""
+                n_past: torch.Tensor, write_idx, read_ctx: int | None = None,
+                valid_mask: torch.Tensor | None = None,
+                window_lo: torch.Tensor | None = None,
+                window_hi: torch.Tensor | None = None,
+                prefill_len: int = 0):
+    """Single-frame decode step. step_embd: [B, H]; n_past: [B] int32
+    tokens already in each stream's cache (the RoPE position); write_idx:
+    the cache slot all streams write (int or 0-d tensor). Lock-step
+    batches attend each stream's first n_past + 1 slots; ring mode passes
+    valid_mask [B, S] and the lifetime window (window_lo [B], window_hi,
+    prefill_len) instead. Returns (hidden [B, H] f32, logits
+    [B, codec_vocab] f32, kv_cache)."""
     y, kv_cache = stack_step(
         w["layers"], step_embd, n_past, kv_cache, write_idx, n_past + 1,
         n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
         head_dim=cfg.head_dim, eps=cfg.rms_norm_eps, theta=cfg.rope_theta,
-        read_ctx=read_ctx)
+        read_ctx=read_ctx, valid_mask=valid_mask, window_lo=window_lo,
+        window_hi=window_hi, prefill_len=prefill_len)
     h, logits = _head(w, cfg, y)
     return h, logits, kv_cache

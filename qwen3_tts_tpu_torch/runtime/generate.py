@@ -1,10 +1,12 @@
-"""Batched lock-step generation (port of qwen3_tts_tpu/runtime/generate.py,
-lock-step mode only).
+"""Batched generation (port of qwen3_tts_tpu/runtime/generate.py): the
+lock-step frame loop and the ring-slot mode of continuous batching.
 
 One frame: sample CB0 (suppression / penalty / EOS ramp / top-k) -> code
-predictor -> next-step embedding -> talker decode step. All streams of a
-lock-step batch share one cache write slot, taken on the device as
-max(n_past), so no host sync happens per frame.
+predictor -> next-step embedding -> talker decode step. All streams share
+one cache write slot per frame, kept on the device, so no host sync
+happens per frame: in lock-step mode it is max(n_past); in ring mode it
+is ``GenState.write_slot``, which walks the ring past the prefill region
+and wraps back to its start.
 
 ``GenState`` is updated in place by ``generate_chunk`` (the torch
 counterpart of JAX's donated state): the KV cache and the per-stream
@@ -21,8 +23,15 @@ import torch
 from qwen3_tts_tpu.config import TalkerConfig
 
 from ..models import code_predictor, talker
-from ..models.stack import init_kv_cache
+from ..models.stack import (QuantKV, init_kv_cache, quantize_kv_rows,
+                            stack_prefill)
+from ..ops.layers import dot, rms_norm
 from ..ops.sampling import sample_cb0
+
+# Ring-slot cache: rows [0, RING_PREFILL_SLOTS) of each stream are its
+# prefill region (admissions write there); rows beyond are the shared ring
+# written at GenState.write_slot. Must be >= any prefill length.
+RING_PREFILL_SLOTS = 16
 
 
 def kv_quant_enabled() -> bool:
@@ -41,6 +50,12 @@ class GenState:
     seen_mask: torch.Tensor       # [B, codec_vocab] bool emitted CB0 ids
     done: torch.Tensor            # [B] bool hit EOS (or inactive)
     generator: torch.Generator | None
+    # ring-slot cache (continuous batching; unused in lock-step):
+    valid_mask: torch.Tensor      # [B, S] bool slots each stream may attend
+    write_slot: torch.Tensor      # 0-d int32 next ring slot to write
+    ring_lo: torch.Tensor         # [B] int32 ring slot at admission: a
+    #                               stream's ring slots lie in the modular
+    #                               window [ring_lo, write_slot]
 
 
 @dataclass
@@ -56,8 +71,11 @@ class GenConsts:
 
 def init_state(w, cfg: TalkerConfig, prefill: talker.PrefillInputs,
                max_ctx: int, generator: torch.Generator | None,
+               active: torch.Tensor | None = None,
                kv_quant: bool = False) -> GenState:
-    """Run the talker prefill into a fresh cache of max_ctx slots."""
+    """Run the talker prefill into a fresh cache of max_ctx slots.
+    active: [B] bool streams that hold a request (partly filled serving
+    batches); the others start done."""
     B, P, _ = prefill.prefill_embd.shape
     dev = prefill.prefill_embd.device
     cache = init_kv_cache(cfg.n_layers, B, max_ctx, cfg.n_key_value_heads,
@@ -71,8 +89,15 @@ def init_state(w, cfg: TalkerConfig, prefill: talker.PrefillInputs,
         last_hidden=hidden, logits=logits,
         seen_mask=torch.zeros(B, cfg.codec_vocab_size, dtype=torch.bool,
                               device=dev),
-        done=torch.zeros(B, dtype=torch.bool, device=dev),
-        generator=generator)
+        done=(torch.zeros(B, dtype=torch.bool, device=dev) if active is None
+              else ~active.to(dev)),
+        generator=generator,
+        valid_mask=(torch.arange(max_ctx, device=dev) < P).expand(
+            B, max_ctx).contiguous(),
+        write_slot=torch.tensor(max(P, RING_PREFILL_SLOTS),
+                                dtype=torch.int32, device=dev),
+        ring_lo=torch.full((B,), max(P, RING_PREFILL_SLOTS),
+                           dtype=torch.int32, device=dev))
 
 
 def expected_frames(n_text_tokens: torch.Tensor) -> torch.Tensor:
@@ -95,10 +120,19 @@ def generate_chunk(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
                    top_k: int, chunk_frames: int = 40, greedy: bool = False,
                    read_ctx: int | None = None, top_p: float = 1.0,
                    cb0_gumbel: torch.Tensor | None = None,
-                   codes_gumbel: torch.Tensor | None = None):
-    """Generate `chunk_frames` lock-step frames for every stream, updating
-    `state` in place. read_ctx: attention reads only that many cache rows
-    (the caller guarantees max(n_past) + chunk_frames <= read_ctx).
+                   codes_gumbel: torch.Tensor | None = None,
+                   ring: bool = False):
+    """Generate `chunk_frames` frames for every stream, updating `state`
+    in place. read_ctx: attention reads only that many cache rows (the
+    caller guarantees max(n_past) + chunk_frames <= read_ctx; in ring mode
+    write_slot + chunk_frames <= read_ctx instead).
+
+    ring: ring-slot cache mode for continuous batching. Every stream
+    writes the shared write_slot; the slot's bit in valid_mask is set to
+    the stream's liveness before the step, and attention reads the
+    bitmask inside each stream's lifetime window [ring_lo, slot + 1) plus
+    the prefill region. Cache slots are then not position-ordered; RoPE
+    keeps each stream's logical position.
 
     cb0_gumbel [chunk, B, codec_vocab] / codes_gumbel [chunk, 15, B, V]:
     optional explicit noise for the sampled mode (tests); otherwise drawn
@@ -138,9 +172,23 @@ def generate_chunk(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
             consts.trailing_hidden[rows, row_idx], consts.tts_pad_embed)
         step_embd = code_predictor.frame_step_embedding(w, cfg, frame_codes,
                                                         trail_row)
-        hidden, logits, _ = talker.talker_step(
-            w, cfg, step_embd, state.kv_cache, state.n_past,
-            state.n_past.max(), read_ctx=read_ctx)
+        if ring:
+            # dead lanes write a garbage row whose bit is cleared
+            slot = state.write_slot
+            state.valid_mask.index_copy_(1, slot.long().reshape(1),
+                                         (~done)[:, None])
+            hidden, logits, _ = talker.talker_step(
+                w, cfg, step_embd, state.kv_cache, state.n_past, slot,
+                read_ctx=read_ctx, valid_mask=state.valid_mask,
+                window_lo=state.ring_lo, window_hi=slot + 1,
+                prefill_len=RING_PREFILL_SLOTS)
+            state.write_slot = torch.where(
+                slot + 1 >= state.valid_mask.shape[1],
+                torch.full_like(slot, RING_PREFILL_SLOTS), slot + 1)
+        else:
+            hidden, logits, _ = talker.talker_step(
+                w, cfg, step_embd, state.kv_cache, state.n_past,
+                state.n_past.max(), read_ctx=read_ctx)
 
         # done streams freeze their position
         advance = (~done).to(torch.int32)
@@ -152,12 +200,92 @@ def generate_chunk(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
     return state, torch.stack(all_codes), torch.stack(all_valid)
 
 
+def admit_slots(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
+                slots: torch.Tensor, prefill: talker.PrefillInputs) -> None:
+    """Splice K new requests into slots `slots` of a live serving batch,
+    in place: one batched K-row prefill, then every request's K/V rows
+    [0, P) and per-slot state and consts rows.
+
+    slots: [K] int (duplicates allowed: the later entry wins, so callers
+    may pad K to a fixed size by repeating the last real admission).
+    prefill: PrefillInputs with leading dim K, trailing_hidden already
+    padded or cut to consts.trailing_hidden.shape[1]."""
+    K, P = prefill.prefill_embd.shape[:2]
+    # admissions write rows [0, P): a longer prefill would overwrite the
+    # shared ring, whose slots >= RING_PREFILL_SLOTS are rewritten each step
+    if P > RING_PREFILL_SLOTS:
+        raise ValueError(f"prefill length {P} exceeds RING_PREFILL_SLOTS "
+                         f"{RING_PREFILL_SLOTS}")
+    dev = state.n_past.device
+    slots = torch.as_tensor(slots, device=dev).long()
+    positions = torch.arange(P, dtype=torch.int32, device=dev).expand(K, P)
+    y, ks, vs = stack_prefill(
+        w["layers"], prefill.prefill_embd, positions,
+        n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
+        head_dim=cfg.head_dim, eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+    h = rms_norm(y[:, -1], w["output_norm"], cfg.rms_norm_eps)
+    logits = dot(h, w["codec_head"])
+
+    # Duplicate indices make index_put_ order unspecified (on the card as
+    # under XLA), so every entry carries its slot's LAST payload: colliding
+    # writes are then identical and any order gives last-wins.
+    k_idx = torch.arange(K, device=dev)
+    last = torch.where(slots[:, None] == slots[None, :], k_idx[None, :],
+                       -1).amax(dim=1)
+    kv = torch.stack([ks, vs], dim=1).transpose(3, 4)[:, :, last]
+    cache = state.kv_cache                       # kv: [L, 2, K, kv, P, D]
+    if isinstance(cache, QuantKV):
+        qv, qs = quantize_kv_rows(kv)
+        cache.values[:, :, slots, :, :P] = qv
+        cache.scales[:, :, slots, :, :P] = qs
+    else:
+        cache[:, :, slots, :, :P] = kv.to(cache.dtype)
+
+    S = state.valid_mask.shape[1]
+    state.n_past[slots] = P
+    state.frame_idx[slots] = 0
+    state.last_hidden[slots] = h[last]
+    state.logits[slots] = logits[last]
+    state.seen_mask[slots] = False
+    state.done[slots] = False
+    state.valid_mask[slots] = torch.arange(S, device=dev) < P
+    state.ring_lo[slots] = state.write_slot
+    consts.trailing_hidden[slots] = prefill.trailing_hidden[last]
+    consts.trailing_len[slots] = prefill.trailing_len[last]
+    consts.tts_pad_embed[slots] = prefill.tts_pad_embed[last]
+    consts.expected_frames[slots] = expected_frames(
+        prefill.n_text_tokens)[last]
+
+
+def admit_slot(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
+               slot: int, prefill: talker.PrefillInputs) -> None:
+    """Single-request admission (K = 1 admit_slots)."""
+    admit_slots(w, cfg, state, consts, torch.tensor([slot]), prefill)
+
+
+def park_slot(state: GenState, slot: int) -> None:
+    """Mark a slot done on the device (a request retired by its frame cap
+    rather than by sampling EOS), so that the stream stops advancing until
+    a new request is admitted."""
+    state.done[slot] = True
+
+
 def required_ctx(prefill_len: int, max_frames: int, chunk: int = 40,
                  align: int = 128) -> int:
     """Talker cache size: prefill + frames rounded up to whole chunks +
     slack, aligned."""
     n_chunks = -(-max_frames // chunk)
     need = prefill_len + n_chunks * chunk + 8
+    return -(-need // align) * align
+
+
+def required_ctx_ring(max_frames: int, chunk: int = 40,
+                      align: int = 128) -> int:
+    """Cache size for ring mode: prefill region + ring capacity. A stream
+    may take up to max_frames + chunk - 1 ring slots before its frame cap
+    retires it at a chunk boundary, and must never wrap into its own
+    rows."""
+    need = RING_PREFILL_SLOTS + max_frames + chunk + 8
     return -(-need // align) * align
 
 

@@ -1,11 +1,17 @@
 """Synthesis pipeline: text -> 24 kHz waveform for a batch of streams in
 lock-step, with the streaming 40-frame vocoder decode (slim port of
-qwen3_tts_tpu/runtime/pipeline.py).
+qwen3_tts_tpu/runtime/pipeline.py). runtime/serve.py builds continuous
+batching on this engine.
+
+Audio leaves the card as int16 PCM through ``readback_submit``: a
+non-blocking copy into pinned host memory whose end a CUDA event marks,
+the torch counterpart of the JAX package's readback thread. ``PCMRef``
+names one stream's row of such a copy and resolves it lazily.
 
 Not ported yet: GGUF loading (``load_models``), the speaker encoder and
-voice cloning. Left out by design: the AOT executable cache, the
-background audio readback pool, the device mesh and the profiler hooks.
-Engines are assembled with ``from_components``.
+voice cloning. Left out by design: the AOT executable cache, the device
+mesh and the profiler hooks. Engines are assembled with
+``from_components``.
 """
 
 from __future__ import annotations
@@ -25,6 +31,50 @@ from .generate import (ctx_bucket, generate_chunk, init_state,
                        kv_quant_enabled, make_consts, required_ctx)
 
 CHUNK_FRAMES = 40  # streaming vocoder interval
+
+
+class Readback:
+    """A device -> host copy in flight. A CUDA tensor is copied
+    non-blocking into pinned host memory and an event marks the copy's
+    end: done() polls the event, result() waits on it. A CPU tensor is
+    copied at once."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t.clone()
+            self.event = None
+
+    def done(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class PCMRef:
+    """One stream's row of a batch audio readback still in flight: the
+    whole [nb, T] int16 copy, this stream's row and its valid sample
+    count. One copy serves every stream of the batch."""
+
+    __slots__ = ("fut", "row", "valid")
+
+    def __init__(self, fut: Readback, row: int, valid: int | None = None):
+        self.fut = fut
+        self.row = row
+        self.valid = valid
+
+    def resolve(self) -> np.ndarray:
+        arr = self.fut.result()[self.row]
+        return arr[:self.valid] if self.valid is not None else arr
 
 
 @dataclass
@@ -51,6 +101,9 @@ class TTSResult:
     t_generate_ms: float = 0.0
     t_decode_ms: float = 0.0
     t_total_ms: float = 0.0
+    # serving only (ContinuousBatcher): wall time from submit to admission;
+    # t_total_ms counts from admission, so a client waits the sum
+    t_queue_ms: float = 0.0
     device_mem_bytes: int = 0
 
 
@@ -195,8 +248,7 @@ class Qwen3TTS:
                     continue
                 if p.streaming_vocoder:
                     self._flush_streaming(b, frames, audio_parts, on_chunk)
-                    results[b].audio = (np.concatenate(audio_parts[b])
-                                        .astype(np.float32) / 32767.0)
+                    results[b].audio = self._pcm_parts_to_f32(audio_parts[b])
                 else:
                     results[b].audio = self.decode_codes(fr)
                 results[b].sample_rate = self.voc_cfg.sample_rate
@@ -248,21 +300,61 @@ class Qwen3TTS:
                 return b
         return cap
 
-    def _decode_chunk_batch(self, codes: np.ndarray) -> np.ndarray:
-        """[n, CHUNK, 16] -> int16 PCM [n, CHUNK*1920] (causal trim), the
-        tail in sub-batches of at most VOC_MAX_BATCH."""
-        n, cap = len(codes), self.VOC_MAX_BATCH
+    def _decode_chunk_batch(self, codes: np.ndarray, pcm16: bool = False,
+                            max_batch: int | None = None):
+        """[n, CHUNK, 16] -> [n, CHUNK*1920] audio (causal trim), the tail
+        in sub-batches of at most max_batch (default VOC_MAX_BATCH; the
+        continuous batcher passes its own cap per call). pcm16: return
+        int16 PCM as a tensor on the engine's device, for readback_submit;
+        otherwise host f32."""
+        n = len(codes)
+        cap = self.VOC_MAX_BATCH if max_batch is None else max_batch
         sub = next(d for d in (cap, 32, 16, 8, 4, 2, 1)
                    if d <= cap and n % d == 0)
         codes_t = torch.as_tensor(codes, dtype=torch.int32, device=self.device)
         audio = vocoder.vocoder_decode_subbatched(
-            self.voc_w, self.voc_cfg, codes_t, trim="causal", pcm16=True,
+            self.voc_w, self.voc_cfg, codes_t, trim="causal", pcm16=pcm16,
             sub=sub)
-        return audio.cpu().numpy()
+        return audio if pcm16 else audio.cpu().numpy()
+
+    def readback_submit(self, dev_audio: torch.Tensor) -> Readback:
+        """Start ONE whole-batch [nb, T] copy to the host; returns it."""
+        return Readback(dev_audio)
+
+    @staticmethod
+    def _pcm_parts_to_f32(parts) -> np.ndarray:
+        """Resolve deferred chunk readbacks -> one host f32 waveform
+        (value = i / 32767, inverting the vocoder's pcm16)."""
+        if not parts:
+            return np.zeros(0, np.float32)
+        rows = [p.resolve() if isinstance(p, PCMRef) else np.asarray(p)
+                for p in parts]
+        return np.concatenate(rows).astype(np.float32) / 32767.0
+
+    @staticmethod
+    def _pcm_to_f32(part) -> np.ndarray:
+        part = part.resolve() if isinstance(part, PCMRef) else np.asarray(part)
+        return part.astype(np.float32) / 32767.0
+
+    @staticmethod
+    def _slice_pieces(pieces, start: int, count: int) -> np.ndarray:
+        """Rows [start, start + count) of the concatenation of `pieces`,
+        without concatenating a stream's whole history every wave."""
+        out, seen, end = [], 0, start + count
+        for arr in pieces:
+            a0, a1 = seen, seen + len(arr)
+            seen = a1
+            if a1 <= start:
+                continue
+            if a0 >= end:
+                break
+            out.append(arr[max(0, start - a0):end - a0])
+        return out[0] if len(out) == 1 else np.concatenate(out)
 
     def _decode_streaming(self, frames, audio_parts, on_chunk) -> None:
         """Decode every stream holding a full undecoded 40-frame chunk, as
-        one [n, 40] vocoder batch per wave."""
+        one [n, 40] vocoder batch per wave; the audio stays on the device
+        until a consumer resolves it."""
         n_cb = self.talker_cfg.n_codebooks
         while True:
             ready = []
@@ -270,19 +362,21 @@ class Qwen3TTS:
                 total = sum(len(f) for f in frames[b])
                 done = len(audio_parts[b]) * CHUNK_FRAMES
                 if total - done >= CHUNK_FRAMES:
-                    ready.append((b, np.concatenate(frames[b])[
-                        done:done + CHUNK_FRAMES]))
+                    ready.append((b, self._slice_pieces(frames[b], done,
+                                                        CHUNK_FRAMES)))
             if not ready:
                 return
             nb = self.voc_bucket(len(ready), len(frames))
             batch = np.zeros((nb, CHUNK_FRAMES, n_cb), np.int32)
             for i, (_, part) in enumerate(ready):
                 batch[i] = part
-            audio = self._decode_chunk_batch(batch)
+            fut = self.readback_submit(
+                self._decode_chunk_batch(batch, pcm16=True))
             for i, (b, _) in enumerate(ready):
-                audio_parts[b].append(audio[i])
+                ref = PCMRef(fut, i)
+                audio_parts[b].append(ref)
                 if on_chunk:
-                    on_chunk(b, audio[i].astype(np.float32) / 32767.0)
+                    on_chunk(b, self._pcm_to_f32(ref))
 
     def _flush_streaming(self, b, frames, audio_parts, on_chunk) -> None:
         """Decode the ragged tail (< 40 frames) of stream b, zero-padded
@@ -299,7 +393,8 @@ class Qwen3TTS:
         batch[0, :len(part)] = part
         valid = vocoder.vocoder_output_length(self.voc_w, self.voc_cfg,
                                               len(part), trim="causal")
-        audio = self._decode_chunk_batch(batch)[0, :valid]
-        audio_parts[b].append(audio)
+        ref = PCMRef(self.readback_submit(
+            self._decode_chunk_batch(batch, pcm16=True)), 0, valid)
+        audio_parts[b].append(ref)
         if on_chunk:
-            on_chunk(b, audio.astype(np.float32) / 32767.0)
+            on_chunk(b, self._pcm_to_f32(ref))

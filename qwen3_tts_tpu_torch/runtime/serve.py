@@ -1,0 +1,455 @@
+"""Continuous-batching serving engine (port of
+qwen3_tts_tpu/runtime/serve.py, ring-slot cache).
+
+A fixed pool of B stream slots generates in 40-frame chunks; finished
+slots take new requests at chunk boundaries (admission waits at most one
+chunk) while the other streams keep producing audio. All streams write the
+shared ring slot of the KV cache (runtime/generate.py, ring mode), and
+decode attention reads each stream's bitmask inside its lifetime window
+(ops/flash_decode.py on the card).
+
+Dispatch is pipelined: the next chunk is enqueued before this chunk's
+codes are decoded, and chunk codes and audio come back through
+non-blocking copies into pinned memory (pipeline.Readback), so the host
+waits on the card only where it needs a value.
+
+Failure isolation covers host-side failures: a poisoned text or
+embedding, or a raising on_audio callback, fails its request only; any
+other exception inside a step fails the in-flight requests, rebuilds the
+device state and keeps serving the queue. A CUDA device-side fault (an
+illegal address, a trapped kernel) poisons the CUDA context of the
+process: the rebuild then fails too, and only a new process recovers.
+
+Not ported: the AOT executable cache and ``warmup()``, ``profile_trace``
+and the per-step timing print, mesh sharding, and the per-stream scatter
+mode (``QWEN3_TTS_RING=0``, which raises NotImplementedError here).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+import traceback
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..models import talker, vocoder
+from .generate import (RING_PREFILL_SLOTS, admit_slots, ctx_bucket,
+                       generate_chunk, init_state, kv_quant_enabled,
+                       make_consts, park_slot, required_ctx_ring)
+from .pipeline import (CHUNK_FRAMES, PCMRef, Qwen3TTS, Readback, TTSParams,
+                       TTSResult)
+
+
+@dataclass
+class _Slot:
+    busy: bool = False
+    request_id: int = -1
+    # preallocated [max_frames, n_codebooks] frame buffer: appends and chunk
+    # reads are O(1) slices
+    buf: np.ndarray | None = None
+    n_frames: int = 0      # frames generated into buf
+    n_decoded: int = 0     # frames already sent to the vocoder
+    audio: list = field(default_factory=list)
+    max_frames: int = 0
+    t_start: float = 0.0
+    t_queue_ms: float = 0.0    # submit -> admission wall time
+    on_audio: Callable[[np.ndarray, bool], None] | None = None
+    final_sent: bool = False   # a final=True on_audio callback fired
+    error: str = ""
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over the ring-mode generation chunk.
+
+    Usage:
+        cb = ContinuousBatcher(engine, n_slots=16, params=TTSParams(...))
+        rid = cb.submit("hello world.", embedding=None)
+        while cb.pending():
+            done = cb.step()          # one 40-frame chunk for all slots
+            for rid, result in done.items(): ...
+    """
+
+    def __init__(self, engine: Qwen3TTS, n_slots: int = 16,
+                 params: TTSParams | None = None,
+                 max_frames: int = 1024, trailing_buf: int = 256):
+        if os.environ.get("QWEN3_TTS_RING", "1") == "0":
+            raise NotImplementedError(
+                "QWEN3_TTS_RING=0 (per-stream scatter KV writes) is not "
+                "ported; the port serves with the ring-slot cache only")
+        self.engine = engine
+        self.params = params or TTSParams()
+        self.n_slots = n_slots
+        # the per-request cap (params.max_audio_tokens) binds as well
+        self.max_frames = min(max_frames, self.params.max_audio_tokens)
+        self.trailing_buf = trailing_buf
+        self.cfg = engine.talker_cfg
+        self.device = engine.device
+        self.slots = [_Slot() for _ in range(n_slots)]
+        self._queue: list[tuple[int, str, np.ndarray | None,
+                                Callable | None, float]] = []
+        self._next_id = 0
+        self._failed: dict[int, TTSResult] = {}
+        self._retiring: list[_Slot] = []
+        # retired slots whose audio copies are still in flight: a later
+        # step() emits their results once the copies have landed
+        self._finalizing: list[_Slot] = []
+        self.ctx = required_ctx_ring(max_frames, CHUNK_FRAMES)
+        # vocoder decode cap, local to this batcher (passed per call): the
+        # talker cache and an in-flight chunk share the card with it
+        self.voc_max_batch = (48 if n_slots <= 96 else
+                              32 if n_slots <= 128 else
+                              16 if n_slots <= 192 else 8)
+        self._reset_state()
+
+    def _reset_state(self) -> None:
+        """(Re)build the device state: dummy prefill, every slot parked."""
+        cfg, n = self.cfg, self.n_slots
+        dev = self.device
+        with torch.inference_mode():
+            prefill = talker.build_prefill_inputs(
+                self.engine.talker_w, cfg,
+                torch.zeros(n, 16, dtype=torch.int32, device=dev),
+                torch.full((n,), 16, dtype=torch.int32, device=dev),
+                torch.zeros(n, cfg.hidden_size, device=dev))
+            prefill = prefill._replace(
+                trailing_hidden=self._pad_trailing(prefill.trailing_hidden))
+            self._steps_done = 0
+            self._inflight = None   # (codes, valid, done) copies of a chunk
+            # a prefill past the reserved region would put write_slot past
+            # RING_PREFILL_SLOTS and the ring wrap would overwrite live
+            # prefill rows
+            P = prefill.prefill_embd.shape[1]
+            if P > RING_PREFILL_SLOTS:
+                raise ValueError(f"prefill length {P} exceeds "
+                                 f"RING_PREFILL_SLOTS {RING_PREFILL_SLOTS}")
+            seed = self.params.seed if self.params.seed is not None else 0
+            self.state = init_state(
+                self.engine.talker_w, cfg, prefill, self.ctx,
+                torch.Generator(device=dev).manual_seed(seed),
+                active=torch.zeros(n, dtype=torch.bool, device=dev),
+                kv_quant=kv_quant_enabled())
+            self.consts = make_consts(prefill, self.params.temperature,
+                                      self.params.repetition_penalty)
+
+    # ------------------------------------------------------------------
+    def _ensure_trailing_capacity(self, n_rows: int) -> None:
+        """Grow the shared trailing-text buffer to a power-of-two bucket
+        covering n_rows, so that long texts are never cut. Rows past
+        max_frames are never read (the frame cap retires the stream
+        first), so capacity stops there."""
+        n_rows = min(n_rows, self.max_frames)
+        if n_rows <= self.trailing_buf:
+            return
+        new = self.trailing_buf
+        while new < n_rows:
+            new *= 2
+        grow = new - self.trailing_buf
+        self.trailing_buf = new
+        self.consts.trailing_hidden = torch.nn.functional.pad(
+            self.consts.trailing_hidden, (0, 0, 0, grow))
+
+    def _pad_trailing(self, trailing: torch.Tensor) -> torch.Tensor:
+        t = trailing.shape[1]
+        if t < self.trailing_buf:
+            return torch.nn.functional.pad(
+                trailing, (0, 0, 0, self.trailing_buf - t))
+        if t > self.trailing_buf and self.trailing_buf < self.max_frames:
+            # only rows the frame cap makes unreachable may be dropped
+            raise RuntimeError(
+                f"trailing schedule ({t} rows) exceeds the buffer "
+                f"({self.trailing_buf}) below max_frames ({self.max_frames})")
+        return trailing[:, :self.trailing_buf]
+
+    def submit(self, text: str, embedding: np.ndarray | None = None,
+               on_audio: Callable[[np.ndarray, bool], None] | None = None,
+               ) -> int:
+        """Queue a request; returns its id. on_audio(samples, final) fires
+        per decoded chunk. Submission only enqueues: every device action
+        happens inside step(), under its failure isolation."""
+        rid = self._next_id
+        self._next_id += 1
+        self._queue.append((rid, text, embedding, on_audio,
+                            time.monotonic()))
+        return rid
+
+    def pending(self) -> bool:
+        return (bool(self._queue) or any(s.busy for s in self.slots)
+                or bool(self._finalizing))
+
+    def _admit_pending(self) -> None:
+        """Admit every queued request that has a free slot, in ONE batched
+        admit_slots call of K = n_slots rows (pad rows repeat the last real
+        admission). Token arrays pad to 16-token buckets."""
+        cfg, dev = self.cfg, self.device
+        free = [i for i, s in enumerate(self.slots) if not s.busy]
+        take = min(len(free), len(self._queue))
+        if take == 0:
+            return
+        batch, token_lists = [], []
+        while len(batch) < take and self._queue:
+            item = self._queue.pop(0)
+            try:  # a poisoned text or embedding fails its request only
+                toks = self.engine.tokenizer.encode_for_tts(item[1])
+                if item[2] is not None:
+                    emb = np.asarray(item[2], np.float32).reshape(-1)
+                    if emb.shape != (cfg.hidden_size,):
+                        raise ValueError(
+                            f"speaker embedding shape {emb.shape} != "
+                            f"({cfg.hidden_size},)")
+                    item = (item[0], item[1], emb, item[3], item[4])
+                token_lists.append(toks)
+                batch.append(item)
+            except Exception as e:
+                self._failed[item[0]] = self._error_result(
+                    f"bad request: {type(e).__name__}: {e}")
+        take = len(batch)
+        if take == 0:
+            return
+        slot_ids = free[:take]
+
+        K = self.n_slots
+        t_max = max(-(-max(len(t) for t in token_lists) // 16) * 16, 16)
+        tokens = np.zeros((K, t_max), np.int32)
+        lens = np.zeros((K,), np.int32)
+        spk = np.zeros((K, cfg.hidden_size), np.float32)
+        slots_arr = np.zeros((K,), np.int64)
+        for j in range(K):
+            src = min(j, take - 1)       # pad rows duplicate the last one
+            toks = token_lists[src]
+            tokens[j, :len(toks)] = toks
+            lens[j] = len(toks)
+            if batch[src][2] is not None:
+                spk[j] = batch[src][2]
+            slots_arr[j] = slot_ids[src]
+
+        prefill = talker.build_prefill_inputs(
+            self.engine.talker_w, cfg, torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(lens, device=dev),
+            torch.as_tensor(spk, device=dev),
+            language_id=torch.full((K,), self.params.language_id,
+                                   dtype=torch.int32, device=dev))
+        self._ensure_trailing_capacity(prefill.trailing_hidden.shape[1])
+        prefill = prefill._replace(
+            trailing_hidden=self._pad_trailing(prefill.trailing_hidden))
+        admit_slots(self.engine.talker_w, cfg, self.state, self.consts,
+                    torch.as_tensor(slots_arr, device=dev), prefill)
+        t_admit = time.monotonic()
+        for j in range(take):
+            rid, _, _, on_audio, t_submit = batch[j]
+            self.slots[slot_ids[j]] = _Slot(
+                busy=True, request_id=rid, max_frames=self.max_frames,
+                buf=np.empty((self.max_frames, cfg.n_codebooks), np.int32),
+                t_start=t_admit, on_audio=on_audio,
+                t_queue_ms=(t_admit - t_submit) * 1e3)
+
+    # ------------------------------------------------------------------
+    def _dispatch_chunk(self) -> None:
+        """Enqueue one 40-frame generation chunk on the device."""
+        # attention reads the prefill region + every ring slot written so
+        # far (bucketed; the whole cache once the ring has wrapped), known
+        # on the host without reading the device
+        covered = RING_PREFILL_SLOTS + self._steps_done + CHUNK_FRAMES
+        read_ctx = ctx_bucket(min(covered, self.ctx), 0, self.ctx)
+        p = self.params
+        _, codes, valid = generate_chunk(
+            self.engine.talker_w, self.cfg, self.state, self.consts, p.top_k,
+            CHUNK_FRAMES, greedy=p.temperature <= 0.0, read_ctx=read_ctx,
+            top_p=p.top_p, ring=True)
+        self._steps_done += CHUNK_FRAMES
+        # start the host copies now, with `done` as of this chunk: the live
+        # state moves on (admissions, parks, the next chunk) before step()
+        # reads them
+        self._inflight = tuple(Readback(t) for t in
+                               (codes, valid, self.state.done))
+
+    def step(self) -> dict[int, TTSResult]:
+        """Process one 40-frame chunk across all slots; admit queued
+        requests into freed slots; return results of finished requests.
+
+        The next chunk is enqueued before this chunk's vocoder decode runs,
+        so the card always has queued work; requests admitted into slots
+        freed this step join that next chunk. Failure isolation as in the
+        module docstring."""
+        with torch.inference_mode():
+            try:
+                out = self._step_impl()
+            except Exception as e:
+                out = self._fail_inflight(e)
+        if self._failed:
+            out = {**self._failed, **out}
+            self._failed = {}
+        return out
+
+    def _error_result(self, msg: str, t_start: float | None = None
+                      ) -> TTSResult:
+        r = TTSResult(success=False, error_msg=msg)
+        if t_start:
+            r.t_total_ms = (time.monotonic() - t_start) * 1e3
+        return r
+
+    def _fail_inflight(self, exc: Exception) -> dict[int, TTSResult]:
+        """Fail every in-flight request and rebuild the device state,
+        which cannot be trusted after a failure mid-step. Queued requests
+        stay queued and admit on the next step."""
+        traceback.print_exc(file=sys.stderr)
+        msg = f"serving step failed: {type(exc).__name__}: {exc}"
+        out: dict[int, TTSResult] = {}
+        for slot in self._retiring:  # freed mid-step, not yet finalized
+            out[slot.request_id] = self._error_result(msg, slot.t_start)
+        self._retiring = []
+        for b, slot in enumerate(self.slots):
+            if slot.busy:
+                out[slot.request_id] = self._error_result(msg, slot.t_start)
+                self.slots[b] = _Slot()
+        try:
+            self._reset_state()
+        except Exception:
+            traceback.print_exc(file=sys.stderr)
+        return out
+
+    def _step_impl(self) -> dict[int, TTSResult]:
+        if self._inflight is None:
+            self._admit_pending()
+            if not any(s.busy for s in self.slots):
+                # nothing generating: only in-flight readbacks remain
+                return self._drain_finalizing(block=True)
+            self._dispatch_chunk()
+        codes_h, valid_h, done_h = (r.result() for r in self._inflight)
+        self._inflight = None
+
+        live: list[_Slot] = []
+        retired: list[_Slot] = []
+        self._retiring = retired  # visible to _fail_inflight: slots freed
+        #                           below must still fail loudly if the
+        #                           decode or finalize raises
+        for b, slot in enumerate(self.slots):
+            if not slot.busy:
+                continue
+            got = codes_h[valid_h[:, b], b]
+            got = got[:slot.max_frames - slot.n_frames]
+            if len(got):
+                slot.buf[slot.n_frames:slot.n_frames + len(got)] = got
+                slot.n_frames += len(got)
+            if bool(done_h[b]) or slot.n_frames >= slot.max_frames:
+                if not bool(done_h[b]):
+                    # retired by the frame cap, not EOS: stop the device
+                    # stream so its cache position freezes
+                    park_slot(self.state, b)
+                retired.append(slot)
+                self.slots[b] = _Slot()  # free before admissions
+            else:
+                live.append(slot)
+
+        # admissions first so that freed slots join the very next chunk,
+        # then enqueue that chunk BEFORE this chunk's vocoder decode
+        self._admit_pending()
+        if any(s.busy for s in self.slots):
+            self._dispatch_chunk()
+        self._decode_slots(live, retired)
+        # retired slots wait for their audio copies; emit those (earlier
+        # or current) whose copies have landed. Block only when no device
+        # work is left to overlap with.
+        self._finalizing.extend(retired)
+        self._retiring = []
+        return self._drain_finalizing(
+            block=not (any(s.busy for s in self.slots) or self._queue))
+
+    def _drain_finalizing(self, block: bool) -> dict[int, TTSResult]:
+        """Finalize retired slots whose audio copies have landed (polled,
+        never waited on); with block=True, finalize all of them."""
+        out: dict[int, TTSResult] = {}
+        still: list[_Slot] = []
+        for slot in self._finalizing:
+            if block or all(p.fut.done() for p in slot.audio):
+                out[slot.request_id] = self._finalize(slot)
+            else:
+                still.append(slot)
+        self._finalizing = still
+        return out
+
+    def _decode_slots(self, live: list[_Slot], retired: list[_Slot]) -> None:
+        """Vocoder-decode every slot's ready 40-frame chunks, batched
+        across slots (one [n, 40] call per wave), plus the ragged final
+        tail of retired slots."""
+        n_cb = self.cfg.n_codebooks
+        eng = self.engine
+        targets = [(s, False) for s in live] + [(s, True) for s in retired]
+        while True:
+            work: list[tuple[_Slot, np.ndarray, int, bool]] = []
+            for slot, is_retired in targets:
+                remaining = slot.n_frames - slot.n_decoded
+                if remaining >= CHUNK_FRAMES:
+                    # a retired stream's last FULL chunk is its final audio
+                    # too: streaming consumers close on final=True
+                    work.append((slot, slot.buf[slot.n_decoded:
+                                                slot.n_decoded + CHUNK_FRAMES],
+                                 CHUNK_FRAMES,
+                                 is_retired and remaining == CHUNK_FRAMES))
+                elif remaining > 0 and is_retired:
+                    part = np.zeros((CHUNK_FRAMES, n_cb), np.int32)
+                    part[:remaining] = slot.buf[slot.n_decoded:slot.n_frames]
+                    work.append((slot, part, remaining, True))
+            if not work:
+                return
+            nb = eng.voc_bucket(len(work), len(self.slots))
+            batch = np.zeros((nb, CHUNK_FRAMES, n_cb), np.int32)
+            for i, (_, chunk, _, _) in enumerate(work):
+                batch[i] = chunk
+            # int16 PCM on the device; ONE whole-batch copy per decode
+            fut = eng.readback_submit(eng._decode_chunk_batch(
+                batch, pcm16=True, max_batch=self.voc_max_batch))
+            for i, (slot, _, k, is_tail) in enumerate(work):
+                slot.n_decoded += k
+                valid = None
+                if k < CHUNK_FRAMES:
+                    valid = vocoder.vocoder_output_length(
+                        eng.voc_w, eng.voc_cfg, k, trim="causal")
+                ref = PCMRef(fut, i, valid)
+                slot.audio.append(ref)
+                if slot.on_audio:
+                    try:
+                        slot.on_audio(Qwen3TTS._pcm_to_f32(ref), is_tail)
+                        slot.final_sent = slot.final_sent or is_tail
+                    except Exception as e:
+                        # a raising sink fails ITS request, not the batch
+                        slot.error = (f"on_audio callback failed: "
+                                      f"{type(e).__name__}: {e}")
+                        slot.on_audio = None
+
+    def _finalize(self, slot: _Slot) -> TTSResult:
+        if slot.on_audio and not slot.final_sent and not slot.error:
+            # the stream's audio all went out while it was live (it retired
+            # at a decoded chunk boundary): close it with an empty chunk
+            try:
+                slot.on_audio(np.zeros(0, np.float32), True)
+            except Exception as e:
+                slot.error = (f"on_audio callback failed: "
+                              f"{type(e).__name__}: {e}")
+            slot.final_sent = True
+        r = TTSResult(n_frames=slot.n_frames,
+                      sample_rate=self.engine.voc_cfg.sample_rate)
+        try:
+            r.audio = Qwen3TTS._pcm_parts_to_f32(slot.audio)
+        except Exception as e:  # a readback failure is per request too
+            slot.error = slot.error or (f"audio readback failed: "
+                                        f"{type(e).__name__}: {e}")
+        r.success = r.n_frames > 0 and not slot.error
+        if slot.error:
+            r.error_msg = slot.error
+        elif not r.success:
+            r.error_msg = "No speech codes generated"
+        r.t_total_ms = (time.monotonic() - slot.t_start) * 1e3
+        r.t_queue_ms = slot.t_queue_ms
+        return r
+
+    def run_all(self) -> dict[int, TTSResult]:
+        """Drive step() until every queued and running request is done."""
+        out: dict[int, TTSResult] = {}
+        while self.pending():
+            out.update(self.step())
+        return out

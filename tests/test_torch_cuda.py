@@ -5,6 +5,7 @@ imports no JAX; on a GPU machine without JAX, skip tests/conftest.py
 (which imports it): ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -139,3 +140,118 @@ def test_vocoder_wrappers_refuse_unserved_shapes(dev):
     with pytest.raises(ValueError):                 # not packed
         vf.fused_residual_chain(x, {k: v for k, v in blk.items()
                                     if k != "kernel"})
+
+
+# decode attention, kernel vs twin: both f32 over the same dequantized
+# rows in another summation order; measured <= 4e-6 on outputs of O(1)
+# on an H100 (chip_smoke.py)
+ATTN_TOL = 1e-4
+
+
+def _attn_inputs(mode, kv, dev, B=8, S=1152, read_ctx=1024):
+    """Talker widths. Stream 2 is empty; windows keep hi - 1 on a block
+    start with its bit set, lo >= 64 (plain) or lo > hi (wrapped)."""
+    from qwen3_tts_tpu_torch.models.stack import quantize_kv_rows
+    gen = torch.Generator(device=dev).manual_seed(
+        ["prefix", "mask", "window", "wrap"].index(mode) * 2 + (kv == "int8"))
+    q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, 8, S, 128, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    ks = vs = None
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    slot = torch.arange(S, device=dev)[None]
+    if mode == "prefix":
+        kw = dict(n_valid=torch.tensor([1, read_ctx, 0, 5, 64, 65, 700, 999],
+                                       dtype=torch.int32, device=dev))
+    elif mode == "mask":
+        m = torch.rand(B, S, generator=gen, device=dev) < 0.4
+        m[2] = False
+        kw = dict(valid_mask=m)
+    else:
+        hi = 961 if mode == "window" else 129
+        lo = torch.randint(64, 959, (B,), device=dev, generator=gen,
+                           dtype=torch.int32)
+        if mode == "window":
+            inside = (slot >= lo[:, None]) & (slot < hi)
+        else:
+            lo = lo.clamp_min(hi + 64)
+            inside = ((slot >= 16) & (slot < hi)) | (
+                (slot >= lo[:, None]) & (slot < read_ctx))
+        m = inside & (torch.rand(B, S, generator=gen, device=dev) < 0.7)
+        m[:, :10] = True
+        m[:, hi - 1] = True
+        m[2] = False
+        kw = dict(valid_mask=m, window_lo=lo, prefill_len=16,
+                  window_hi=torch.tensor(hi, dtype=torch.int32, device=dev))
+    return q, k, v, ks, vs, kw, read_ctx
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["prefix", "mask", "window", "wrap"])
+def test_flash_decode_matches_twin(dev, mode, kv):
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    q, k, v, ks, vs, kw, rc = _attn_inputs(mode, kv, dev)
+    before = fd.flash_decode.launches
+    if mode == "prefix":
+        got = fd.flash_decode(q, k, v, kw["n_valid"], read_ctx=rc,
+                              k_scale=ks, v_scale=vs)
+    else:
+        rest = {n: a for n, a in kw.items() if n != "valid_mask"}
+        got = fd.flash_decode_masked(q, k, v, kw["valid_mask"], read_ctx=rc,
+                                     k_scale=ks, v_scale=vs, **rest)
+    ref = fd.flash_decode_twin(q, k, v, read_ctx=rc, k_scale=ks, v_scale=vs,
+                               **kw)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == before + 1
+    assert got[2].abs().max().item() == 0.0          # empty stream
+    assert (got - ref).abs().max().item() <= ATTN_TOL
+
+
+def test_flash_decode_refuses_unserved_calls(dev):
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    q = torch.zeros(2, 8, 64, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(2, 4, 128, 64, dtype=torch.bfloat16, device=dev)
+    n64 = torch.ones(2, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):                 # D != 128
+        fd.flash_decode(q, k, k, n64.int())
+    q = torch.zeros(2, 16, 128, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(2, 8, 128, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):                 # int64 n_valid
+        fd.flash_decode(q, k, k, n64)
+    with pytest.raises(ValueError):                 # int8 without scales
+        fd.flash_decode(q, k.to(torch.int8), k.to(torch.int8), n64.int())
+    with pytest.raises(ValueError):                 # not contiguous
+        fd.flash_decode(q, k.transpose(2, 3), k, n64.int())
+
+
+def test_continuous_batcher_on_card(dev):
+    """A small serving run on the card: the full-width code predictor and
+    vocoder, a 2-layer talker; every request completes, and the serving
+    path launched the decode-attention kernel in window mode."""
+    from qwen3_tts_tpu.config import TokenizerSpecialTokens
+    from qwen3_tts_tpu.tokenizer import TextTokenizer
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    tokens = ["<|im_start|>", "<|im_end|>", "assistant", "Ċ", "h", "e", "l",
+              "o", "Ġ", "w", "r", "d", "."]
+    tok = TextTokenizer(tokens, [], TokenizerSpecialTokens(
+        bos_token_id=0, eos_token_id=1, pad_token_id=1))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cfg, vcfg = TalkerConfig(n_layers=2), VocoderConfig()
+    eng = Qwen3TTS.from_components(
+        tok, cfg, W.init_talker_weights(cfg, gen, dev), vcfg,
+        W.init_vocoder_weights(vcfg, gen, dev), dev)
+    before = fd.flash_decode.launches_by_mode["window"]
+    cb = ContinuousBatcher(eng, n_slots=2,
+                           params=TTSParams(temperature=0.0, seed=0),
+                           max_frames=8)
+    rids = [cb.submit(t) for t in ("hello.", "world.", "he")]
+    results = cb.run_all()
+    for r in rids:
+        res = results[r]
+        assert res.success, res.error_msg
+        assert np.isfinite(res.audio).all()
+        assert len(res.audio) == res.n_frames * vcfg.samples_per_frame
+    assert fd.flash_decode.launches_by_mode["window"] > before

@@ -115,3 +115,94 @@ def test_kv_env(monkeypatch):
     assert tgen.kv_quant_enabled() is False
     monkeypatch.setenv("QWEN3_TTS_KV", "int8")
     assert tgen.kv_quant_enabled() is True
+
+
+def _prefill_pair(jw, tw, tokens, lens):
+    spk = np.zeros((len(tokens), CFG.hidden_size), np.float32)
+    jp = jtalker.build_prefill_inputs(jw, CFG, jnp.asarray(tokens),
+                                      jnp.asarray(lens), jnp.asarray(spk))
+    tp = ttalker.build_prefill_inputs(tw, CFG, torch.from_numpy(tokens),
+                                      torch.from_numpy(lens),
+                                      torch.from_numpy(spk))
+    return jp, tp
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_ring_mode_matches_jax(setup, kv_quant):
+    """Continuous batching's device primitives, greedy: admit_slots with a
+    duplicated slot (the later row wins) -> ring-mode chunks over a 16-slot
+    ring that wraps -> park_slot by frame cap -> a late admission. Codes,
+    valid frames and the ring state match the JAX package exactly."""
+    jw, tw, _, _ = setup
+    n_slots, ctx = 3, 32
+    rng = np.random.default_rng(31)
+    jd, td = _prefill_pair(jw, tw, np.zeros((n_slots, 16), np.int32),
+                           np.full(n_slots, 16, np.int32))
+    js = jgen.init_state(jw, CFG, jd, ctx, jax.random.PRNGKey(0),
+                         active=jnp.zeros(n_slots, bool), kv_quant=kv_quant)
+    jc = jgen.make_consts(jd, 0.0, 1.05)
+    ts = tgen.init_state(tw, CFG, td, ctx, None,
+                         active=torch.zeros(n_slots, dtype=torch.bool),
+                         kv_quant=kv_quant)
+    tc = tgen.make_consts(td, 0.0, 1.05)
+
+    def admit(slots):
+        nonlocal js, jc
+        toks = rng.integers(0, CFG.text_vocab_size,
+                            (len(slots), 16)).astype(np.int32)
+        lens = rng.integers(12, 17, len(slots)).astype(np.int32)
+        jp, tp = _prefill_pair(jw, tw, toks, lens)
+        if len(slots) == 1:        # the single-request wrapper
+            js, jc = jgen.admit_slot(jw, CFG, js, jc, slots[0], jp)
+            tgen.admit_slot(tw, CFG, ts, tc, slots[0], tp)
+        else:
+            js, jc = jgen.admit_slots(jw, CFG, js, jc, jnp.asarray(slots),
+                                      jp)
+            tgen.admit_slots(tw, CFG, ts, tc, torch.tensor(slots), tp)
+
+    def check_state():
+        for name in ("n_past", "valid_mask", "write_slot", "ring_lo", "done"):
+            np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                          np.asarray(getattr(js, name)), name)
+
+    admit([0, 2, 1, 2])            # slot 2 takes the last row
+    check_state()
+    lo_gt_hi = False
+    for chunk in range(5):
+        covered = tgen.RING_PREFILL_SLOTS + chunk * CHUNK + CHUNK
+        read_ctx = tgen.ctx_bucket(min(covered, ctx), 0, ctx, bucket=16)
+        js, jcodes, jvalid = jgen.generate_chunk(
+            jw, CFG, js, jc, 50, CHUNK, greedy=True, read_ctx=read_ctx,
+            ring=True)
+        _, tcodes, tvalid = tgen.generate_chunk(
+            tw, CFG, ts, tc, 50, CHUNK, greedy=True, read_ctx=read_ctx,
+            ring=True)
+        np.testing.assert_array_equal(tcodes.numpy(), np.asarray(jcodes))
+        np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+        check_state()
+        lo_gt_hi |= bool((ts.ring_lo > ts.write_slot).any())
+        if chunk == 1:
+            # slot 0 retires by its frame cap; a late request takes it at
+            # ring slot 28, so the ring wraps below its ring_lo next chunk
+            js = jgen.park_slot(js, jnp.int32(0))
+            tgen.park_slot(ts, 0)
+            check_state()
+            admit([0])
+            check_state()
+    assert lo_gt_hi, "the ring never wrapped past a live stream's ring_lo"
+
+
+def test_ring_ctx_helper_and_prefill_guard(setup):
+    """required_ctx_ring matches the JAX helper; an admission whose
+    prefill is longer than the reserved region raises instead of
+    overwriting the shared ring."""
+    _, tw, _, tp = setup
+    for args in ((4, 40), (1024, 40), (100, 8)):
+        assert tgen.required_ctx_ring(*args) == jgen.required_ctx_ring(*args)
+    assert tgen.RING_PREFILL_SLOTS == jgen.RING_PREFILL_SLOTS
+    ts = tgen.init_state(tw, CFG, tp, 64, None)
+    tc = tgen.make_consts(tp, 0.0, 1.05)
+    long = tp._replace(prefill_embd=torch.zeros(
+        2, tgen.RING_PREFILL_SLOTS + 1, CFG.hidden_size))
+    with pytest.raises(ValueError, match="RING_PREFILL_SLOTS"):
+        tgen.admit_slots(tw, CFG, ts, tc, torch.tensor([0, 1]), long)
