@@ -73,9 +73,63 @@ SERVE_SLOTS = 8
 SERVE_MAX_FRAMES = 96
 SERVE_SHORT = "h"
 SERVE_LONG = "hello world hello world hello world hello world."
+LOCKSTEP_TEXTS = ["hello world.", "hello hello world.", "world hello.",
+                  "hello world hello world."]
+LOCKSTEP_TOKENS = 120
+# (QWEN3_TTS_TALKER, KV cache[, temperature]) of each main-path run: auto
+# takes the megakernel; one bf16 run of each path takes the per-layer
+# talker step, so that the decode-attention kernel runs on a real path too
+LOCKSTEP_RUNS = (("auto", "bf16", 0.0), ("auto", "bf16", 0.9),
+                 ("auto", "int8", 0.0), ("auto", "int8", 0.9),
+                 ("xla", "bf16", 0.0))
+SERVE_RUNS = (("auto", "bf16"), ("auto", "int8"), ("xla", "bf16"))
+
+# talker megakernel vs twin, relative to the twin's RMS: y, and the K/V
+# rows the step wrote (dequantized for int8) less one rounding step of
+# the stored value (a bf16 ulp, at most |value| * 2^-7, or the int8 row's
+# scale). Both sum in f32 in other orders, so a value rounded to bf16 (xn,
+# the attention output, silu(g) * u) can land one ulp apart, and 28 layers
+# carry each flip on into the residual stream. Measured on an H100 over
+# every case: y RMS(err) 4.1-4.8e-3 and max 1.5-2.4e-2 of the RMS, the
+# size of the gap between the twin and the per-layer xla path (2.8-3.9e-3,
+# 1.3-2.1e-2), which differs from it only by bf16 attention probabilities
+# and is logged beside each case. A stored row flips by one rounding step
+# where a value sits at a boundary, hence the slack. A skipped norm, a
+# wrong RoPE sign, a dropped scale or a skipped layer moves the error by
+# 1e-1 or more.
+TF_MAX_TOL = 5e-2           # max |err| / RMS
+TF_RMS_TOL = 1e-2           # RMS(err) / RMS
+TF_B = (8, 32)
+TF_S = 1152                 # required_ctx_ring(1024): the serving cache
+TF_READ_CTX = (256, 1152)
+# least-time bounds (H100 SXM datasheet peaks, dense)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def nbytes(*trees) -> int:
+    """Bytes of every tensor in nested dicts / lists / tuples."""
+    total = 0
+    for t in trees:
+        if isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes moved over the HBM rate
+    or bf16 operations over the tensor-core peak, whichever is larger."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return {"bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
 def cuda_time(fn, iters: int, warmup: int = 1) -> float:
@@ -193,12 +247,25 @@ def check_codepred(w, cfg, dev, gen) -> dict:
         w, cfg, hidden, cb0, 0.9, 50, gumbel=noise), iters=5)
     plain = cuda_time(lambda: cf.predict_codes_twin(
         w, cfg, hidden, cb0, 0.9, 50, gumbel=noise), iters=3)
-    log(f"codepred B={B} one frame: kernels {ms:.3f} ms, twin {plain:.3f} ms")
+    cp = w["code_pred"]
+    H = cfg.code_pred_hidden_size
+    layer_params = sum(t[0].numel() for t in cp["layers"].values())
+    # every layer weight, head and norm once; the gathered embedding rows;
+    # hidden, cb0, the noise, codes and logits
+    moved = (nbytes(cp["layers"], cp["heads"], cp["output_norm"])
+             + 16 * B * H * 2 + nbytes(hidden, cb0, noise)
+             + B * 15 * (4 + V * 4))
+    flops = 2 * B * (cf.CTX * layer_params + 15 * H * V)
+    b = bound(moved, flops)
+    log(f"codepred B={B} one frame: kernels {ms:.3f} ms, twin {plain:.3f} "
+        f"ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+        f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     return {"name": "codepred", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/codepred.cu",
             "replaces": "qwen3_tts_tpu/ops/codepred_fused.py:425",
             "max_abs_err": worst, "code_agreement": min(rates[:2]), "ms": ms,
-            "plain_ms": plain}
+            "plain_ms": plain, **b, "library_ms": None,
+            "shape": f"B={B}, one frame"}
 
 
 def decoder_blocks(vcfg, dev, gen) -> list:
@@ -230,22 +297,29 @@ def _rms_check(name, got, ref, shape_txt) -> tuple[float, float, float]:
     return err, err / rms, err_rms / rms
 
 
-def _voc_report(name, source, replaces, errs, ms, plain) -> dict:
+def _voc_report(name, source, replaces, errs, ms, plain, moved,
+                flops) -> dict:
     """The kernel's report line; raises when any shape is out of
     tolerance (after every shape was checked and logged)."""
     worst = [max(e[i] for e in errs) for i in range(3)]
+    b = bound(moved, flops)
+    log(f"{name}, 4 decoder blocks of one 40-frame chunk at B={VOC_B}: "
+        f"kernel {ms:.3f} ms, twin {plain:.3f} ms; bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {moved / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP)")
     if not (worst[1] <= VOC_MAX_TOL and worst[2] <= VOC_RMS_TOL):
         raise AssertionError(f"{name} kernel disagrees with its twin")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": worst[0],
             "max_err_over_rms": worst[1], "rms_err_over_rms": worst[2],
-            "ms": ms, "plain_ms": plain}
+            "ms": ms, "plain_ms": plain, **b, "library_ms": None,
+            "shape": f"4 decoder blocks, one 40-frame chunk, B={VOC_B}"}
 
 
 def check_res_chain(blocks, dev, gen) -> dict:
     """The residual chain at the four decoder blocks' shapes."""
     from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
-    ms = plain = 0.0
+    ms = plain = moved = flops = 0.0
     errs = []
     for blk, (c, t) in zip(blocks, CHAIN_SHAPES):
         x = torch.randn(VOC_B, t, c, generator=gen, device=dev)
@@ -255,17 +329,18 @@ def check_res_chain(blocks, dev, gen) -> dict:
                                f"B={VOC_B} T={t} C={c}"))
         ms += cuda_time(lambda: vf.fused_residual_chain(x, blk), iters=5)
         plain += cuda_time(lambda: vf.residual_chain_twin(x, blk), iters=5)
-    log(f"res_chain, 4 decoder blocks of one 40-frame chunk at B={VOC_B}: "
-        f"kernel {ms:.3f} ms, twin {plain:.3f} ms")
+        # x in, y out, the three units' packed parameters; 3 units x 8 taps
+        moved += nbytes(x, got, blk["kernel"]["res"])
+        flops += 3 * 8 * 2 * VOC_B * t * c * c
     return _voc_report("res_chain", "qwen3_tts_tpu_torch/csrc/vocoder.cu",
                        "qwen3_tts_tpu/ops/vocoder_fused.py:233", errs, ms,
-                       plain)
+                       plain, moved, flops)
 
 
 def check_snake_convt(blocks, dev, gen) -> dict:
     """The Snake + convT head at the four decoder blocks' shapes."""
     from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
-    ms = plain = 0.0
+    ms = plain = moved = flops = 0.0
     errs = []
     for blk, (c, c2, r, t) in zip(blocks, HEAD_SHAPES):
         x = torch.randn(VOC_B, t, c, generator=gen, device=dev)
@@ -277,11 +352,12 @@ def check_snake_convt(blocks, dev, gen) -> dict:
                                f"B={VOC_B} T={t} C={c} rate={r}"))
         ms += cuda_time(lambda: vf.fused_snake_convt(x, blk, r), iters=5)
         plain += cuda_time(lambda: vf.snake_convt_twin(x, blk, r), iters=5)
-    log(f"snake_convt, 4 decoder blocks of one 40-frame chunk at B={VOC_B}: "
-        f"kernel {ms:.3f} ms, twin {plain:.3f} ms")
+        # x in, y out, [Whi; Wlo] and its vectors; one K = 2C product a row
+        moved += nbytes(x, got, blk["kernel"]["head"])
+        flops += 2 * VOC_B * t * (2 * c) * (r * c2)
     return _voc_report("snake_convt", "qwen3_tts_tpu_torch/csrc/vocoder.cu",
                        "qwen3_tts_tpu/ops/vocoder_fused.py:151", errs, ms,
-                       plain)
+                       plain, moved, flops)
 
 
 def _attn_cache(B, S, dev, gen):
@@ -385,125 +461,463 @@ def check_flash_decode(dev, gen) -> dict:
                         lambda t=t: _attn_call(kw, q, k, v, ks, vs, read_ctx,
                                                t), iters=20)
                         for t in (False, True)]
-    for (B, kv), (ms, plain) in timing.items():
+                    timing[(B, kv)] += [_attn_bound(kw, q, ks, read_ctx)]
+                # the yardstick: one PyTorch call, bf16, the same slots
+                timing[(B, "bf16")].append(_sdpa_ms(kw, q, *caches["bf16"][:2],
+                                                    read_ctx))
+    for (B, kv), (ms, plain, b, *lib) in timing.items():
+        sdpa = f"scaled_dot_product_attention {lib[0]:.4f} ms, " if lib else ""
         log(f"flash_decode window mode B={B} S={ATTN_S} read_ctx={ATTN_S} "
-            f"{kv}, one layer: kernel {ms:.4f} ms, twin {plain:.4f} ms")
+            f"{kv}, one layer: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
+            f"{sdpa}bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     if not worst <= ATTN_TOL:
         raise AssertionError("flash_decode kernel disagrees with its twin")
-    ms, plain = timing[(ATTN_B[0], "bf16")]
+    ms, plain, b, lib = timing[(ATTN_B[0], "bf16")]
     return {"name": "flash_decode", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/flash_decode.cu",
             "replaces": "qwen3_tts_tpu/ops/flash_decode.py:255",
             "also_replaces": "qwen3_tts_tpu/ops/flash_decode.py:277",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain, **b,
+            "library_ms": lib,
+            "shape": f"B={ATTN_B[0]} bf16 window mode, read_ctx={ATTN_S}, "
+                     "one layer"}
 
 
-def serve_phase(engine, kv, card, counters, dev):
-    """ContinuousBatcher at the full widths: 8 requests, 8 more after the
-    second step, 4 more after the fourth, short and long texts alternating.
-    Returns (launches per counter, device copies of the ring state at each
-    step after the ring first wrapped)."""
-    from qwen3_tts_tpu_torch.models.stack import QuantKV
+def _attn_counted(kw, q, read_ctx):
+    """[B, read_ctx] bool: the slots this case counts."""
     from qwen3_tts_tpu_torch.ops import flash_decode as fd
-    from qwen3_tts_tpu_torch.runtime.generate import RING_PREFILL_SLOTS
-    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
-    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
-    os.environ["QWEN3_TTS_KV"] = kv
-    cb = ContinuousBatcher(engine, n_slots=SERVE_SLOTS,
-                           params=TTSParams(temperature=0.0, seed=SEED),
-                           max_frames=SERVE_MAX_FRAMES)
-    ring = cb.ctx - RING_PREFILL_SLOTS
-    texts = [SERVE_SHORT, SERVE_LONG] * 10
-    for fn in counters:
-        fn.launches = 0
-    fd.flash_decode.launches_by_mode.update(prefix=0, mask=0, window=0)
-    fd.flash_decode.wrapped = torch.zeros(1, dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    rids = [cb.submit(t) for t in texts[:8]]
-    results, captures, n_steps = {}, [], 0
-    while cb.pending():
-        results.update(cb.step())
-        n_steps += 1
-        if n_steps in (2, 4):
-            rids += [cb.submit(t) for t in
-                     texts[len(rids):len(rids) + (8 if n_steps == 2 else 4)]]
-        if cb._steps_done > ring and len(captures) < 3:
-            # device-side copies: no host sync in the serving loop
-            st = cb.state
-            cache = st.kv_cache
-            if isinstance(cache, QuantKV):
-                kvl = (cache.values[0, 0], cache.values[0, 1],
-                       cache.scales[0, 0], cache.scales[0, 1])
-            else:
-                kvl = (cache[0, 0], cache[0, 1], None, None)
-            captures.append(dict(
-                kv=kv, mask=st.valid_mask.clone(), lo=st.ring_lo.clone(),
-                hi=st.write_slot.clone(), done=st.done.clone(),
-                cache=tuple(None if t is None else t.clone() for t in kvl),
-                read_ctx=cb.ctx))
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    ran = [fn.launches for fn in counters]
-    modes = dict(fd.flash_decode.launches_by_mode)
-    wrapped = int(fd.flash_decode.wrapped.item())
-    fd.flash_decode.wrapped = None
+    kw = dict(kw)
+    hi = kw.pop("window_hi", None)
+    return fd._slots_read(q.shape[0], read_ctx, q.device, window_hi=hi, **kw)
+
+
+def _attn_bound(kw, q, k_scale, read_ctx) -> dict:
+    """One layer's decode attention must read q, the mask and the K/V rows
+    (with scales) of the counted slots, and write the output; 4 flops per
+    query head, dim and counted slot."""
+    slots = int(_attn_counted(kw, q, read_ctx).sum())
+    B, n_heads, D = q.shape
+    row = 8 * D * (1 if k_scale is not None else 2) + (
+        8 * 4 if k_scale is not None else 0)
+    moved = (nbytes(q) + B * read_ctx + 2 * slots * row + B * n_heads * D * 4)
+    return bound(moved, 4 * slots * n_heads * D)
+
+
+def _sdpa_ms(kw, q, k, v, read_ctx) -> float:
+    """ms of torch's scaled_dot_product_attention (GQA, bool mask of the
+    counted slots) on the same bf16 inputs: a yardstick, unused by the
+    port."""
+    import torch.nn.functional as F
+    mask = _attn_counted(kw, q, read_ctx)[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k[:, :, :read_ctx], v[:, :, :read_ctx]
+    return cuda_time(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=20)
+
+
+def _tf_cache(L, B, kv, read_ctx, dev, gen):
+    """A random [L, 2, B, 8, TF_S, 128] cache (bf16, or int8 rows and
+    scales as stack.quantize_kv_rows stores them) with NaN planted at and
+    past read_ctx (values for bf16, scales for int8)."""
+    from qwen3_tts_tpu_torch.models.stack import QuantKV, quantize_kv_rows
+    shape = (L, 2, B, 8, TF_S, 128)
+    vals = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    for l in range(L):
+        vals[l] = torch.randn(shape[1:], generator=gen, device=dev) * 0.5
+    if kv == "bf16":
+        vals[..., read_ctx:, :] = float("nan")
+        return vals
+    q = torch.empty(shape, dtype=torch.int8, device=dev)
+    sc = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+    for l in range(L):
+        q[l], sc[l] = quantize_kv_rows(vals[l])
+    sc[..., read_ctx:] = float("nan")
+    return QuantKV(q, sc)
+
+
+def _tf_case(mode, B, read_ctx, dev, gen):
+    """(positions, n_valid, valid_mask, widx) of one talker check. Prefix:
+    stream 0 live at widx, 1 and 2 frozen below it, 3 empty, 4 claims
+    more than read_ctx (only read_ctx slots count), the rest ragged. Mask:
+    ring validity in each lane's window [lo, widx] plus the prefill rows;
+    even lanes wrapped (lo > widx: [16, widx] U [lo, read_ctx)), lane 1
+    dead at widx, bits set past read_ctx (never read)."""
+    from qwen3_tts_tpu_torch.runtime.generate import RING_PREFILL_SLOTS as P
+    widx = read_ctx - 9 if mode == "prefix" else read_ctx // 4
+    positions = torch.randint(0, 2000, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    if mode == "prefix":
+        n_valid = torch.randint(1, widx + 1, (B,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        special = [widx + 1, widx, 37, 0, TF_S][:B]
+        n_valid[:len(special)] = torch.tensor(special, device=dev)
+        return positions, n_valid, None, widx
+    slot = torch.arange(TF_S, device=dev)[None]
+    lo = torch.randint(P, widx, (B,), generator=gen, device=dev)
+    lo[0::2] = torch.randint(widx + 2, read_ctx, (len(lo[0::2]),),
+                             generator=gen, device=dev)
+    inside = torch.where((lo > widx)[:, None],
+                         ((slot >= P) & (slot <= widx))
+                         | ((slot >= lo[:, None]) & (slot < read_ctx)),
+                         (slot >= lo[:, None]) & (slot <= widx))
+    mask = inside & (torch.rand(B, TF_S, generator=gen, device=dev) < 0.7)
+    mask[:, :10] = True                             # prefill rows
+    mask[:, widx] = True
+    mask[1, widx] = False                           # a lane dead this step
+    mask[:, read_ctx:] = torch.rand(B, TF_S - read_ctx, generator=gen,
+                                    device=dev) < 0.5
+    return positions, None, mask, widx
+
+
+def _cache_parts(c):
+    return (c.values, c.scales) if hasattr(c, "scales") else (c,)
+
+
+def _bits(t):
+    """A bit-exact view (NaN compares equal to itself)."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
+        t.view(torch.int32) if t.dtype == torch.float32 else t)
+
+
+def _tf_row(c, widx):
+    """The rows the step wrote, every layer, dequantized for int8, and the
+    per-element slack of one rounding step of the stored value: the int8
+    row's scale, or |value| * 2^-7 (at least a bf16 ulp)."""
+    if hasattr(c, "scales"):
+        scale = c.scales[..., widx, None]
+        return c.values[..., widx, :].float() * scale, scale
+    row = c[..., widx, :].float()
+    return row, row.abs() * 2.0 ** -7
+
+
+def _rel_err(got, ref, slack=0.0) -> list:
+    """[max |err| / RMS, RMS(err) / RMS] of got against ref, `slack` taken
+    off each |err|; inf where got is not finite."""
+    if not torch.isfinite(got).all():
+        return [float("inf")] * 2
+    diff = ((got - ref).abs() - slack).clamp_min(0.0)
+    rms = ref.float().square().mean().sqrt().item()
+    return [diff.max().item() / rms, diff.square().mean().sqrt().item() / rms]
+
+
+def _tf_bytes_flops(lw, B, kv, rc, n_valid, mask):
+    """What one step must move and compute: every weight and norm once,
+    x and y, the written rows, and the K/V rows (with scales) of the slots
+    this case counts."""
+    L, H = lw["wqkv"].shape[:2]
+    if mask is not None:
+        slots = int(mask[:, :rc].sum())
+    else:
+        slots = int(n_valid.clamp(0, rc).sum())
+    row = 8 * 128 * (1 if kv == "int8" else 2) + (8 * 4 if kv == "int8" else 0)
+    moved = (nbytes(lw) + 2 * B * H * 4 + 2 * L * B * row
+             + 2 * L * slots * row)
+    params = sum(lw[n][0].numel() for n in ("wqkv", "wo", "w_gu", "w_down"))
+    flops = 2 * B * L * params + 4 * L * 16 * 128 * slots
+    return moved, flops
+
+
+def check_talker_fused(talker_w, cfg, dev, gen) -> dict:
+    """The megakernel against its twin at the full widths (28 layers, H
+    1024, 16/8 heads, D 128, I 3072), B = 8 and 32, bf16 and int8, read_ctx
+    256 and 1,152 in a cache of 1,152 slots with NaN at and past read_ctx,
+    prefix mode (ragged, frozen, empty streams) and mask mode (scattered
+    ring bits, a dead lane, wrapped windows): y and the written rows within
+    TF_*_TOL of the twin's RMS, every other cache row bit-identical, y
+    finite. Times kernel, twin and the xla path's talker_step (layers,
+    output norm and codec head) on the prefix case of each shape."""
+    from qwen3_tts_tpu_torch.models import stack, talker
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    lw = talker_w["layers"]
+    kw = dict(n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
+              head_dim=cfg.head_dim, eps=cfg.rms_norm_eps,
+              theta=cfg.rope_theta)
+    worst, failed, timing = [0.0, 0.0, 0.0], [], {}
+    for B in TF_B:
+        for kv in ("bf16", "int8"):
+            for rc in TF_READ_CTX:
+                orig = _tf_cache(cfg.n_layers, B, kv, rc, dev, gen)
+                x = torch.randn(B, cfg.hidden_size, generator=gen, device=dev)
+                for mode in ("prefix", "mask"):
+                    pos, n_valid, mask, widx = _tf_case(mode, B, rc, dev, gen)
+                    widx_t = torch.tensor(widx, dtype=torch.int32, device=dev)
+                    ck, ct = _clone_cache(orig), _clone_cache(orig)
+                    args = (x, pos)
+                    y_k, _ = tf.talker_step_fused(
+                        lw, *args, ck, widx_t, n_valid, read_ctx=rc,
+                        valid_mask=mask, **kw)
+                    y_t, _ = tf.talker_step_fused_twin(
+                        lw, *args, ct, widx_t, n_valid, read_ctx=rc,
+                        valid_mask=mask, **kw)
+                    cx = _clone_cache(orig)
+                    y_x, _ = stack.stack_step(
+                        lw, *args, cx, widx_t, n_valid, read_ctx=rc,
+                        valid_mask=mask, **kw)
+                    del cx
+                    torch.cuda.synchronize()
+                    (row_k, _), (row_t, slack) = (_tf_row(ck, widx),
+                                                  _tf_row(ct, widx))
+                    errs = [_rel_err(y_k, y_t), _rel_err(row_k, row_t, slack)]
+                    yard = _rel_err(y_x, y_t)
+                    keep = torch.ones(TF_S, dtype=torch.bool, device=dev)
+                    keep[widx] = False
+                    same = all(
+                        torch.equal(_bits(a)[..., keep, :] if a.dim() == 6
+                                    else _bits(a)[..., keep],
+                                    _bits(b)[..., keep, :] if b.dim() == 6
+                                    else _bits(b)[..., keep])
+                        for a, b in zip(_cache_parts(ck), _cache_parts(orig)))
+                    abs_err = (y_k - y_t).abs().max().item()
+                    ok = same and all(e[0] <= TF_MAX_TOL
+                                      and e[1] <= TF_RMS_TOL for e in errs)
+                    log(f"talker_fused B={B} {kv} read_ctx={rc} {mode}: y "
+                        f"max|err|/RMS {errs[0][0]:.3e}, RMS(err)/RMS "
+                        f"{errs[0][1]:.3e} (max|err| {abs_err:.3e}); written "
+                        f"rows {errs[1][0]:.3e}, {errs[1][1]:.3e} (need <= "
+                        f"{TF_MAX_TOL}, {TF_RMS_TOL}); other rows "
+                        f"{'bit-identical' if same else 'CHANGED'}; xla path "
+                        f"vs twin {yard[0]:.3e}, {yard[1]:.3e}")
+                    if not ok:
+                        failed.append((B, kv, rc, mode))
+                    worst = [max(worst[0], abs_err), max(worst[1], errs[0][0]),
+                             max(worst[2], errs[0][1])]
+                    if mode == "prefix":
+                        timing[(B, kv, rc)] = (
+                            cuda_time(lambda: tf.talker_step_fused(
+                                lw, *args, ck, widx_t, n_valid, read_ctx=rc,
+                                **kw), iters=10),
+                            cuda_time(lambda: tf.talker_step_fused_twin(
+                                lw, *args, ct, widx_t, n_valid, read_ctx=rc,
+                                **kw), iters=2),
+                            _xla_step_ms(talker, talker_w, cfg, x, pos, ct,
+                                         widx_t, rc),
+                            _tf_bytes_flops(lw, B, kv, rc, n_valid, None))
+                    del ck, ct
+                del orig
+                torch.cuda.empty_cache()
+    for (B, kv, rc), (ms, plain, xla, (moved, flops)) in timing.items():
+        b = bound(moved, flops)
+        log(f"talker_fused step B={B} {kv} read_ctx={rc} ({cfg.n_layers} "
+            f"layers): kernel {ms:.3f} ms, twin {plain:.3f} ms, xla "
+            f"talker_step {xla:.3f} ms; "
+            f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
+            f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    if failed:
+        raise AssertionError(f"talker_fused disagrees with its twin: {failed}")
+    ms, plain, xla, (moved, flops) = timing[(TF_B[0], "bf16", TF_READ_CTX[0])]
+    return {"name": "talker_fused", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/talker_fused.cu",
+            "replaces": "qwen3_tts_tpu/ops/talker_fused.py:548",
+            "max_abs_err": worst[0], "max_err_over_rms": worst[1],
+            "rms_err_over_rms": worst[2], "ms": ms, "plain_ms": plain,
+            "xla_path_ms": xla, **bound(moved, flops), "library_ms": None,
+            "shape": f"B={TF_B[0]} bf16 read_ctx={TF_READ_CTX[0]}, one step"}
+
+
+def _xla_step_ms(talker, w, cfg, x, positions, cache, widx, read_ctx):
+    """ms of the per-layer talker_step (QWEN3_TTS_TALKER=xla)."""
+    talker.set_talker_step_impl("xla")
+    try:
+        return cuda_time(lambda: talker.talker_step(
+            w, cfg, x, cache, positions, widx, read_ctx=read_ctx), iters=2)
+    finally:
+        talker.set_talker_step_impl(None)
+
+
+def _check_results(results, engine) -> None:
     spf = engine.voc_cfg.samples_per_frame
-    frames = [results[r].n_frames for r in rids]
-    for r in rids:
-        res = results[r]
+    for res in results:
         if not res.success:
-            raise AssertionError(f"serving request {r} failed: "
-                                 f"{res.error_msg}")
+            raise AssertionError(f"request failed: {res.error_msg}")
         if not np.isfinite(res.audio).all():
             raise AssertionError("non-finite audio")
         if len(res.audio) != res.n_frames * spf:
             raise AssertionError(f"{len(res.audio)} samples for "
                                  f"{res.n_frames} frames")
+
+
+def _expect_launches(ran: dict, impl: str, what: str) -> None:
+    """Every kernel of the path launched; the other talker path did not."""
+    path = {"auto": "talker_fused", "xla": "flash_decode"}
+    other = {"auto": "flash_decode", "xla": "talker_fused"}[impl]
+    need = ("codepred", "res_chain", "snake_convt", path[impl])
+    if min(ran[k] for k in need) <= 0 or ran[other] != 0:
+        raise AssertionError(f"{what} ({impl}): kernel launches {ran}")
+
+
+def _talker_steps(ran: dict, cfg) -> int:
+    """Talker decode steps of a run, from the launch counts."""
+    return ran["talker_fused"] + ran["flash_decode"] // cfg.n_layers
+
+
+def lockstep_run(engine, impl, kv, temperature, card, counters, dev) -> dict:
+    """One synthesize_batch of 4 requests at the full widths under
+    QWEN3_TTS_TALKER=impl; returns its kernel launches."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
+    os.environ["QWEN3_TTS_KV"] = kv
+    talker.set_talker_step_impl(impl)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    try:
+        res = engine.synthesize_batch(
+            LOCKSTEP_TEXTS, params=TTSParams(
+                max_audio_tokens=LOCKSTEP_TOKENS, temperature=temperature,
+                seed=SEED),
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+    finally:
+        talker.set_talker_step_impl(None)
+    wall = time.monotonic() - t0
+    ran = {k: fn.launches for k, fn in counters.items()}
+    _check_results(res, engine)
+    steps = _talker_steps(ran, engine.talker_cfg)
+    audio_s = sum(len(r.audio) for r in res) / engine.voc_cfg.sample_rate
+    log(f"synthesize_batch talker={impl} kv={kv} temperature={temperature}: "
+        f"{len(res)} requests, frames {[r.n_frames for r in res]}, "
+        f"{audio_s:.2f} s of audio in {wall:.2f} s wall (generate "
+        f"{res[0].t_generate_ms:.0f} ms, decode {res[0].t_decode_ms:.0f} ms)"
+        f"; generate {res[0].t_generate_ms / steps:.2f} ms per lock-step "
+        f"frame ({steps} frames) on {card}; kernel launches {ran}")
+    _expect_launches(ran, impl, "synthesize_batch")
+    return ran
+
+
+def _clone_cache(cache):
+    from qwen3_tts_tpu_torch.models.stack import QuantKV
+    if isinstance(cache, QuantKV):
+        return QuantKV(cache.values.clone(), cache.scales.clone())
+    return cache.clone()
+
+
+def serve_run(engine, impl, kv, card, counters, dev):
+    """ContinuousBatcher at the full widths under QWEN3_TTS_TALKER=impl: 8
+    requests, 8 more after the second step, 4 more after the fourth,
+    short and long texts alternating. Returns (kernel launches, device
+    copies of the ring state at steps after the ring first wrapped)."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.runtime.generate import RING_PREFILL_SLOTS
+    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    os.environ["QWEN3_TTS_KV"] = kv
+    talker.set_talker_step_impl(impl)
+    cb = ContinuousBatcher(engine, n_slots=SERVE_SLOTS,
+                           params=TTSParams(temperature=0.0, seed=SEED),
+                           max_frames=SERVE_MAX_FRAMES)
+    ring = cb.ctx - RING_PREFILL_SLOTS
+    texts = [SERVE_SHORT, SERVE_LONG] * 10
+    for fn in counters.values():
+        fn.launches = 0
+    fd.flash_decode.launches_by_mode.update(prefix=0, mask=0, window=0)
+    fd.flash_decode.wrapped = torch.zeros(1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    try:
+        rids = [cb.submit(t) for t in texts[:8]]
+        results, captures, n_steps = {}, [], 0
+        while cb.pending():
+            results.update(cb.step())
+            n_steps += 1
+            if n_steps in (2, 4):
+                rids += [cb.submit(t) for t in texts[
+                    len(rids):len(rids) + (8 if n_steps == 2 else 4)]]
+            if cb._steps_done > ring and len(captures) < 2:
+                # device-side copies: no host sync in the serving loop
+                st = cb.state
+                captures.append(dict(
+                    kv=kv, mask=st.valid_mask.clone(), lo=st.ring_lo.clone(),
+                    hi=st.write_slot.clone(), done=st.done.clone(),
+                    n_past=st.n_past.clone(),
+                    cache=_clone_cache(st.kv_cache), read_ctx=cb.ctx))
+        torch.cuda.synchronize()
+    finally:
+        talker.set_talker_step_impl(None)
+    wall = time.monotonic() - t0
+    ran = {k: fn.launches for k, fn in counters.items()}
+    modes = dict(fd.flash_decode.launches_by_mode)
+    wrapped = int(fd.flash_decode.wrapped.item())
+    fd.flash_decode.wrapped = None
+    _check_results([results[r] for r in rids], engine)
+    frames = [results[r].n_frames for r in rids]
     n_cap = sum(f == cb.max_frames for f in frames)
     n_eos = sum(f < cb.max_frames for f in frames)
     audio_s = (sum(len(results[r].audio) for r in rids)
                / engine.voc_cfg.sample_rate)
-    log(f"ContinuousBatcher kv={kv} slots={SERVE_SLOTS} max_frames="
-        f"{SERVE_MAX_FRAMES}: {len(rids)} requests ({len(rids) - 8} "
-        f"submitted mid-run), {n_steps} steps, frames {frames} ({n_cap} "
-        f"retired by the frame cap, {n_eos} by EOS), {sum(frames)} frames, "
-        f"{audio_s:.2f} s of audio in {wall:.2f} s wall on {card}; ring of "
-        f"{ring} slots, {cb._steps_done} ring writes; kernel launches "
-        f"codepred/res_chain/snake_convt/flash_decode {ran}, flash_decode "
-        f"by mode {modes}, streams served with a wrapped window {wrapped}")
-    if min(ran) <= 0 or modes["window"] <= 0:
-        raise AssertionError(f"a kernel was not launched in serving: {ran}")
-    if not (n_cap and n_eos and cb._steps_done > ring and wrapped > 0):
+    steps = _talker_steps(ran, engine.talker_cfg)
+    log(f"ContinuousBatcher talker={impl} kv={kv} slots={SERVE_SLOTS} "
+        f"max_frames={SERVE_MAX_FRAMES}: {len(rids)} requests "
+        f"({len(rids) - 8} submitted mid-run), {n_steps} steps, frames "
+        f"{frames} ({n_cap} retired by the frame cap, {n_eos} by EOS), "
+        f"{sum(frames)} frames, {audio_s:.2f} s of audio in {wall:.2f} s "
+        f"wall, {wall * 1e3 / steps:.2f} ms of wall per {SERVE_SLOTS}-slot "
+        f"frame ({steps} talker steps) on {card}; ring of {ring} slots, "
+        f"{cb._steps_done} ring writes; kernel launches {ran}, "
+        f"flash_decode by mode {modes}, streams served with a wrapped "
+        f"window {wrapped}")
+    _expect_launches(ran, impl, "serving")
+    if impl == "xla" and (modes["window"] <= 0 or wrapped <= 0):
+        raise AssertionError("serving did not run window mode on a wrapped "
+                             "window")
+    if not (n_cap and n_eos and cb._steps_done > ring):
         raise AssertionError("serving did not retire by cap and by EOS and "
                              "wrap the ring")
     return ran, captures
 
 
-def check_captured(captures, dev, gen) -> None:
-    """The kernel against its twin on valid_mask / ring_lo / write_slot and
-    layer-0 K/V captured from the live ring after it wrapped."""
+def check_captured(captures, talker_w, cfg, dev, gen) -> None:
+    """Both attention kernels against their twins on ring states captured
+    from live serving after the ring wrapped: decode attention on layer 0
+    with the ring window; the megakernel on the whole cache with the next
+    step's mask (bit write_slot set to liveness) and random inputs."""
     from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
     from qwen3_tts_tpu_torch.runtime.generate import RING_PREFILL_SLOTS
     n_wrapped = 0
+    kw = dict(n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
+              head_dim=cfg.head_dim, eps=cfg.rms_norm_eps,
+              theta=cfg.rope_theta)
     for c in captures:
-        k, v, ks, vs = c["cache"]
+        cache = c["cache"]
+        parts = _cache_parts(cache)
+        k, v = parts[0][0, 0], parts[0][0, 1]
+        ks, vs = (parts[1][0, 0], parts[1][0, 1]) if len(parts) == 2 \
+            else (None, None)
         B = k.shape[0]
         q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
-        kw = dict(window_lo=c["lo"], window_hi=c["hi"],
-                  prefill_len=RING_PREFILL_SLOTS, read_ctx=c["read_ctx"],
-                  k_scale=ks, v_scale=vs)
-        got = fd.flash_decode_masked(q, k, v, c["mask"], **kw)
-        ref = fd.flash_decode_twin(q, k, v, valid_mask=c["mask"], **kw)
+        akw = dict(window_lo=c["lo"], window_hi=c["hi"],
+                   prefill_len=RING_PREFILL_SLOTS, read_ctx=c["read_ctx"],
+                   k_scale=ks, v_scale=vs)
+        got = fd.flash_decode_masked(q, k, v, c["mask"], **akw)
+        ref = fd.flash_decode_twin(q, k, v, valid_mask=c["mask"], **akw)
         err = (got - ref).abs().max().item()
+        mask = c["mask"].clone()
+        widx = c["hi"]
+        mask[:, widx.long()] = ~c["done"]
+        x = torch.randn(B, cfg.hidden_size, generator=gen, device=dev)
+        ck, ct = _clone_cache(cache), _clone_cache(cache)
+        y_k, _ = tf.talker_step_fused(talker_w["layers"], x, c["n_past"], ck,
+                                      widx, None, read_ctx=c["read_ctx"],
+                                      valid_mask=mask, **kw)
+        y_t, _ = tf.talker_step_fused_twin(
+            talker_w["layers"], x, c["n_past"], ct, widx, None,
+            read_ctx=c["read_ctx"], valid_mask=mask, **kw)
+        diff = y_k - y_t
+        rms = y_t.square().mean().sqrt().item()
+        tf_err = (diff.abs().max().item() / rms,
+                  diff.square().mean().sqrt().item() / rms)
         live_wrapped = int(((c["lo"] > c["hi"]) & ~c["done"]).sum())
         n_wrapped += live_wrapped
-        log(f"flash_decode on a live ring after its wrap ({c['kv']}, "
-            f"write_slot {int(c['hi'])}, ring_lo {c['lo'].tolist()}, "
-            f"{live_wrapped} live streams wrapped): max|err| {err:.3e} "
-            f"(need <= {ATTN_TOL})")
-        if not err <= ATTN_TOL:
-            raise AssertionError("flash_decode disagrees on a live ring")
+        log(f"on a live ring after its wrap ({c['kv']}, write_slot "
+            f"{int(c['hi'])}, ring_lo {c['lo'].tolist()}, {live_wrapped} live "
+            f"streams wrapped): flash_decode max|err| {err:.3e} (need <= "
+            f"{ATTN_TOL}); talker_fused y max|err|/RMS {tf_err[0]:.3e}, "
+            f"RMS(err)/RMS {tf_err[1]:.3e} (need <= {TF_MAX_TOL}, "
+            f"{TF_RMS_TOL})")
+        if not (err <= ATTN_TOL and tf_err[0] <= TF_MAX_TOL
+                and tf_err[1] <= TF_RMS_TOL):
+            raise AssertionError("a kernel disagrees on a live ring")
     if not captures or n_wrapped == 0:
         raise AssertionError("no live ring state with a wrapped window")
 
@@ -513,15 +927,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 2
-    from qwen3_tts_tpu.config import (TalkerConfig, TokenizerSpecialTokens,
-                                      VocoderConfig)
-    from qwen3_tts_tpu.tokenizer import TextTokenizer
     from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.config import (TalkerConfig,
+                                            TokenizerSpecialTokens,
+                                            VocoderConfig)
     from qwen3_tts_tpu_torch.models import weights as W
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
     from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
     from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
-    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS
+    from qwen3_tts_tpu_torch.tokenizer import TextTokenizer
 
     # the twins hold f32 products of bf16 values: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -542,14 +958,15 @@ def main() -> int:
     log(f"random full-width weights on the card in "
         f"{time.monotonic() - t0:.1f} s")
 
-    # phase 2: every kernel against its twin; all run, then any failure
-    # stops the script before the synthesis phase
+    # every kernel against its twin; all run, then any failure stops the
+    # script before the main paths
     report, failed = [], []
     blocks = decoder_blocks(vcfg, dev, gen)
     for check, args in ((check_codepred, (talker_w, cfg, dev, gen)),
                         (check_res_chain, (blocks, dev, gen)),
                         (check_snake_convt, (blocks, dev, gen)),
-                        (check_flash_decode, (dev, gen))):
+                        (check_flash_decode, (dev, gen)),
+                        (check_talker_fused, (talker_w, cfg, dev, gen))):
         try:
             report.append(check(*args))
         except Exception:
@@ -558,7 +975,7 @@ def main() -> int:
     if failed:
         raise SystemExit(f"kernel checks failed: {failed}")
 
-    # full-width synthesis through the user's entry point
+    # the main paths through the user's entry points, at the full widths
     tokens = ["<|im_start|>", "<|im_end|>", "assistant", "Ċ", "h", "e", "l",
               "o", "Ġ", "w", "r", "d", ".", "he", "ll", "hell", "hello",
               "Ġw", "Ġwo"]
@@ -566,55 +983,27 @@ def main() -> int:
     tok = TextTokenizer(tokens, merges, TokenizerSpecialTokens(
         bos_token_id=0, eos_token_id=1, pad_token_id=1))
     engine = Qwen3TTS.from_components(tok, cfg, talker_w, vcfg, voc_w, dev)
-    texts = ["hello world.", "hello hello world.", "world hello.",
-             "hello world hello world."]
-    counters = (cf.predict_codes_fused, vf.fused_residual_chain,
-                vf.fused_snake_convt, fd.flash_decode)
-    for fn in counters:
-        fn.launches = 0
-    spf = vcfg.samples_per_frame
-    for kv in ("bf16", "int8"):
-        os.environ["QWEN3_TTS_KV"] = kv
-        for temperature in (0.0, 0.9):
-            before = [fn.launches for fn in counters]
-            params = TTSParams(max_audio_tokens=120, temperature=temperature,
-                               seed=SEED)
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            res = engine.synthesize_batch(
-                texts, params=params,
-                generator=torch.Generator(device=dev).manual_seed(SEED))
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            for r in res:
-                if not r.success:
-                    raise AssertionError(f"synthesis failed: {r.error_msg}")
-                if not np.isfinite(r.audio).all():
-                    raise AssertionError("non-finite audio")
-                if len(r.audio) != r.n_frames * spf:
-                    raise AssertionError(f"{len(r.audio)} samples for "
-                                         f"{r.n_frames} frames")
-            ran = [fn.launches - b for fn, b in zip(counters, before)]
-            if min(ran) <= 0:
-                raise AssertionError(f"a kernel was not launched: {ran}")
-            audio_s = sum(len(r.audio) for r in res) / vcfg.sample_rate
-            log(f"synthesize_batch kv={kv} temperature={temperature}: "
-                f"{len(res)} requests, frames {[r.n_frames for r in res]}, "
-                f"{audio_s:.2f} s of audio in {wall:.2f} s wall "
-                f"(generate {res[0].t_generate_ms:.0f} ms, decode "
-                f"{res[0].t_decode_ms:.0f} ms) on {card}; kernel launches "
-                f"codepred/res_chain/snake_convt/flash_decode {ran}")
-    lockstep = [fn.launches for fn in counters]
-
-    serving, captured = [0] * len(counters), []
-    for kv in ("bf16", "int8"):
-        ran, caps = serve_phase(engine, kv, card, counters, dev)
-        serving = [a + b for a, b in zip(serving, ran)]
+    counters = {"codepred": cf.predict_codes_fused,
+                "res_chain": vf.fused_residual_chain,
+                "snake_convt": vf.fused_snake_convt,
+                "flash_decode": fd.flash_decode,
+                "talker_fused": tf.talker_step_fused}
+    lockstep = dict.fromkeys(counters, 0)
+    for impl, kv, temperature in LOCKSTEP_RUNS:
+        ran = lockstep_run(engine, impl, kv, temperature, card, counters, dev)
+        lockstep = {k: lockstep[k] + ran[k] for k in counters}
+    serving, captured = dict.fromkeys(counters, 0), []
+    for impl, kv in SERVE_RUNS:
+        ran, caps = serve_run(engine, impl, kv, card, counters, dev)
+        serving = {k: serving[k] + ran[k] for k in counters}
         captured += caps
-    check_captured(captured, dev, gen)
-    for entry, a, b in zip(report, lockstep, serving):
+    check_captured(captured, talker_w, cfg, dev, gen)
+    for entry in report:
+        a, b = lockstep[entry["name"]], serving[entry["name"]]
         entry.update(launches=a + b, launches_lockstep=a,
                      launches_serving=b)
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']} never ran on a main path")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

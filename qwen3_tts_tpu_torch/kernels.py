@@ -42,6 +42,7 @@ _SIGNATURES = {
     "q3_snake_convt": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "q3_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+    "q3_talker_step": (_P,) * 21 + (_I,) * 7 + (_F,) * 3,
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from qwen3_tts_tpu.config import TalkerConfig
-
+from ..config import TalkerConfig
 from ..ops import codepred_fused
 from ..ops.layers import dot, rms_norm
 from ..ops.sampling import sample_codes

@@ -37,8 +37,9 @@ def quantize_kv_rows(x: torch.Tensor):
 
 
 def init_kv_cache(n_layers: int, batch: int, max_ctx: int, n_kv: int,
-                  head_dim: int, quant: bool = False, device=None):
-    """Allocate the stacked decode cache (QuantKV when `quant`)."""
+                  head_dim: int, device, quant: bool = False):
+    """Allocate the stacked decode cache on `device` (QuantKV when
+    `quant`)."""
     shape = (n_layers, 2, batch, n_kv, max_ctx, head_dim)
     if quant:
         return QuantKV(
@@ -108,6 +109,55 @@ def write_prefill_to_cache(kv_cache, ks: torch.Tensor, vs: torch.Tensor,
     return kv_cache
 
 
+def write_kv_rows(kv_cache, l: int, idx: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> None:
+    """Write one token's K/V rows (k, v: [B, n_kv, D]) into cache slot
+    `idx` ([1] long) of layer l, in place; an int8 cache takes them
+    quantized (quantize_kv_rows) with their scales."""
+    if isinstance(kv_cache, QuantKV):
+        for i, rows in enumerate((k, v)):
+            q, s = quantize_kv_rows(rows)
+            kv_cache.values[l, i].index_copy_(2, idx, q[:, :, None])
+            kv_cache.scales[l, i].index_copy_(2, idx, s[:, :, None])
+    else:
+        for i, rows in enumerate((k, v)):
+            kv_cache[l, i].index_copy_(2, idx,
+                                       rows[:, :, None].to(kv_cache.dtype))
+
+
+def layer_kv(kv_cache, l: int):
+    """Layer l's views (k, v [B, n_kv, S, D], k_scale, v_scale [B, n_kv, S]
+    or None) of the stacked cache, in place."""
+    if isinstance(kv_cache, QuantKV):
+        return (kv_cache.values[l, 0], kv_cache.values[l, 1],
+                kv_cache.scales[l, 0], kv_cache.scales[l, 1])
+    return kv_cache[l, 0], kv_cache[l, 1], None, None
+
+
+def decode_layers(layers_w, x: torch.Tensor, positions: torch.Tensor,
+                  kv_cache, write_idx, attend, *, n_heads: int, n_kv: int,
+                  head_dim: int, eps: float, theta: float):
+    """The single-token decode loop of stack_step and of the talker
+    megakernel's twin: per layer, the K/V rows go into cache slot
+    `write_idx` (an int or a 0-d tensor) in place, then
+    ``attend(q, k, v, k_scale, v_scale)`` (q [B, n_heads, D] bf16, the
+    layer_kv views) gives [B, n_heads*D] f32. Returns (y [B, H] f32 before
+    the output norm, kv_cache)."""
+    idx = torch.as_tensor(write_idx, dtype=torch.long,
+                          device=x.device).reshape(1)
+    x = x.float()
+    for l in range(layers_w["wqkv"].shape[0]):
+        wl = layer_weights(layers_w, l)
+        h = rms_norm(x, wl["attn_norm"], eps)[:, None, :]
+        q, k, v = _qkv(wl, h, n_heads, n_kv, head_dim, eps, theta,
+                       positions[:, None])
+        write_kv_rows(kv_cache, l, idx, k[:, 0], v[:, 0])
+        attn = attend(q[:, 0].to(CACHE_DTYPE), *layer_kv(kv_cache, l))
+        x = x + dot(attn, wl["wo"])
+        x = x + _ffn(wl, x, eps)
+    return x, kv_cache
+
+
 def stack_step(layers_w, x: torch.Tensor, positions: torch.Tensor, kv_cache,
                write_idx, n_valid: torch.Tensor, *, n_heads: int, n_kv: int,
                head_dim: int, eps: float, theta: float,
@@ -127,41 +177,15 @@ def stack_step(layers_w, x: torch.Tensor, positions: torch.Tensor, kv_cache,
     each stream's valid slots to [0, prefill_len) U [lo, hi) so that the
     kernel skips the other blocks. Returns (y [B, H] f32 before the
     output norm, kv_cache)."""
-    idx = torch.as_tensor(write_idx, dtype=torch.long,
-                          device=x.device).reshape(1)
-    quant = isinstance(kv_cache, QuantKV)
-    x = x.float()
-    for l in range(layers_w["wqkv"].shape[0]):
-        wl = layer_weights(layers_w, l)
-        h = rms_norm(x, wl["attn_norm"], eps)[:, None, :]
-        q, k, v = _qkv(wl, h, n_heads, n_kv, head_dim, eps, theta,
-                       positions[:, None])
-        if quant:
-            k_row, k_s = quantize_kv_rows(k[:, 0])
-            v_row, v_s = quantize_kv_rows(v[:, 0])
-            values, scales = kv_cache.values[l], kv_cache.scales[l]
-            values[0].index_copy_(2, idx, k_row[:, :, None])
-            values[1].index_copy_(2, idx, v_row[:, :, None])
-            scales[0].index_copy_(2, idx, k_s[:, :, None])
-            scales[1].index_copy_(2, idx, v_s[:, :, None])
-            k_l, v_l = values[0], values[1]
-            k_scale, v_scale = scales[0], scales[1]
-        else:
-            cl = kv_cache[l]
-            cl[0].index_copy_(2, idx, k[:, 0, :, None].to(cl.dtype))
-            cl[1].index_copy_(2, idx, v[:, 0, :, None].to(cl.dtype))
-            k_l, v_l = cl[0], cl[1]
-            k_scale = v_scale = None
-        q_l = q[:, 0].to(CACHE_DTYPE)
+    def attend(q, k, v, k_scale, v_scale):
         if valid_mask is not None:
-            attn = decode_attention_masked(
-                q_l, k_l, v_l, valid_mask, read_ctx=read_ctx,
-                window_lo=window_lo, window_hi=window_hi,
-                prefill_len=prefill_len, k_scale=k_scale, v_scale=v_scale)
-        else:
-            attn = decode_attention(q_l, k_l, v_l, n_valid,
-                                    read_ctx=read_ctx, k_scale=k_scale,
-                                    v_scale=v_scale)
-        x = x + dot(attn, wl["wo"])
-        x = x + _ffn(wl, x, eps)
-    return x, kv_cache
+            return decode_attention_masked(
+                q, k, v, valid_mask, read_ctx=read_ctx, window_lo=window_lo,
+                window_hi=window_hi, prefill_len=prefill_len,
+                k_scale=k_scale, v_scale=v_scale)
+        return decode_attention(q, k, v, n_valid, read_ctx=read_ctx,
+                                k_scale=k_scale, v_scale=v_scale)
+
+    return decode_layers(layers_w, x, positions, kv_cache, write_idx, attend,
+                         n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+                         eps=eps, theta=theta)

@@ -1,20 +1,63 @@
 """Talker decoder: prefill-embedding construction, prefill, decode step
-(port of qwen3_tts_tpu/models/talker.py, on the stack_step path).
+(port of qwen3_tts_tpu/models/talker.py).
+
+The decode step has two implementations, chosen per call by
+``QWEN3_TTS_TALKER`` (or ``set_talker_step_impl``):
+- ``fused``: ops/talker_fused.py, all layers of the step in one CUDA
+  kernel on a CUDA tensor, its torch twin on a CPU tensor; raises when
+  ``talker_fused.supported`` does not hold;
+- ``xla``: ``stack_step``, the per-layer torch path with the
+  decode-attention kernel on the card;
+- ``auto`` (the default): ``fused`` on a CUDA tensor whenever
+  ``supported`` holds, in lock-step and ring mode alike, else ``xla``;
+  on the CPU always ``xla``.
+The JAX package's ``fused_interpret`` (Pallas interpret mode) has no
+counterpart: ``fused`` on CPU tensors runs the twin.
 
 Every tensor carries a batch dimension over concurrent streams.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from qwen3_tts_tpu.config import TalkerConfig
-
+from ..config import TalkerConfig
+from ..ops import talker_fused
 from ..ops.layers import dot, rms_norm
 from .stack import stack_prefill, stack_step, write_prefill_to_cache
+
+_IMPL = None
+_IMPL_VALID = (None, "auto", "fused", "xla")
+
+
+def set_talker_step_impl(impl: str | None) -> None:
+    """Select the decode step's implementation for every later call
+    (None: read QWEN3_TTS_TALKER, default "auto")."""
+    global _IMPL
+    _check_impl(impl)
+    _IMPL = impl
+
+
+def _check_impl(impl) -> None:
+    if impl == "fused_interpret":
+        raise ValueError("QWEN3_TTS_TALKER=fused_interpret is not ported: "
+                         "use 'fused', which runs the kernel's torch twin "
+                         "on CPU tensors")
+    if impl not in _IMPL_VALID:
+        raise ValueError(f"impl must be one of {_IMPL_VALID}")
+
+
+def _resolve_impl() -> str:
+    if _IMPL is not None:
+        return _IMPL
+    impl = os.environ.get("QWEN3_TTS_TALKER", "auto")
+    if impl == "fused_interpret":
+        _check_impl(impl)
+    return impl if impl in _IMPL_VALID else "auto"
 
 
 def project_text_tokens(w, tokens: torch.Tensor) -> torch.Tensor:
@@ -132,13 +175,32 @@ def talker_step(w, cfg: TalkerConfig, step_embd: torch.Tensor, kv_cache,
     the cache slot all streams write (int or 0-d tensor). Lock-step
     batches attend each stream's first n_past + 1 slots; ring mode passes
     valid_mask [B, S] and the lifetime window (window_lo [B], window_hi,
-    prefill_len) instead. Returns (hidden [B, H] f32, logits
-    [B, codec_vocab] f32, kv_cache)."""
-    y, kv_cache = stack_step(
-        w["layers"], step_embd, n_past, kv_cache, write_idx, n_past + 1,
-        n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
-        head_dim=cfg.head_dim, eps=cfg.rms_norm_eps, theta=cfg.rope_theta,
-        read_ctx=read_ctx, valid_mask=valid_mask, window_lo=window_lo,
-        window_hi=window_hi, prefill_len=prefill_len)
+    prefill_len) instead, which only the xla path's decode-attention
+    kernel uses to skip blocks. The implementation follows
+    QWEN3_TTS_TALKER (module docstring). Returns (hidden [B, H] f32,
+    logits [B, codec_vocab] f32, kv_cache), the cache updated in place."""
+    impl = _resolve_impl()
+    B = step_embd.shape[0]
+    n_valid = n_past + 1 if valid_mask is None else None
+    kw = dict(n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
+              head_dim=cfg.head_dim, eps=cfg.rms_norm_eps,
+              theta=cfg.rope_theta, read_ctx=read_ctx, valid_mask=valid_mask)
+    fused = impl == "fused" or (impl == "auto" and step_embd.is_cuda)
+    if fused and not talker_fused.supported(cfg, B, w, kv_cache, write_idx,
+                                            valid_mask, read_ctx):
+        if impl == "fused":
+            raise ValueError(
+                "QWEN3_TTS_TALKER=fused but the fused step does not support "
+                "this config/batch/cache (see ops/talker_fused.supported)")
+        fused = False
+    if fused:
+        y, kv_cache = talker_fused.talker_step_fused(
+            w["layers"], step_embd, n_past, kv_cache, write_idx, n_valid,
+            **kw)
+    else:
+        y, kv_cache = stack_step(
+            w["layers"], step_embd, n_past, kv_cache, write_idx, n_valid,
+            window_lo=window_lo, window_hi=window_hi, prefill_len=prefill_len,
+            **kw)
     h, logits = _head(w, cfg, y)
     return h, logits, kv_cache

@@ -18,8 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from qwen3_tts_tpu.config import VocoderConfig
-
+from ..config import VocoderConfig
 from ..ops.layers import NEG_INF, dot, fast_sin2, rms_norm, rope_neox
 from ..ops.vocoder_fused import (fused_residual_chain, fused_snake_convt,
                                  pack_block)

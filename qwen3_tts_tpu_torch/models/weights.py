@@ -19,7 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from qwen3_tts_tpu.config import TalkerConfig, VocoderConfig
+from ..config import TalkerConfig, VocoderConfig
 
 MATMUL_DTYPE = torch.bfloat16
 NORM_DTYPE = torch.float32
@@ -33,9 +33,10 @@ def _from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def tree_from_numpy(tree, device="cpu"):
+def tree_from_numpy(tree, device):
     """Map a nested dict/list of numpy arrays (e.g. a JAX parameter pytree
-    passed through np.asarray) to tensors of the same dtype and layout."""
+    passed through np.asarray) to tensors of the same dtype and layout on
+    `device`."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

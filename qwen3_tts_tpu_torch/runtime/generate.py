@@ -20,8 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from qwen3_tts_tpu.config import TalkerConfig
-
+from ..config import TalkerConfig
 from ..models import code_predictor, talker
 from ..models.stack import (QuantKV, init_kv_cache, quantize_kv_rows,
                             stack_prefill)

@@ -23,10 +23,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from qwen3_tts_tpu.config import TalkerConfig, VocoderConfig
-from qwen3_tts_tpu.tokenizer import TextTokenizer
-
+from ..config import TalkerConfig, VocoderConfig
 from ..models import talker, vocoder
+from ..tokenizer import TextTokenizer
 from .generate import (ctx_bucket, generate_chunk, init_state,
                        kv_quant_enabled, make_consts, required_ctx)
 

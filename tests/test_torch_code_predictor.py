@@ -24,7 +24,10 @@ from qwen3_tts_tpu_torch.models import code_predictor as tcp  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.ops import codepred_fused as tcf  # noqa: E402
 
+from .test_torch_config import port_cfg  # noqa: E402
+
 CFG = tiny_talker_config()
+TCFG = port_cfg(CFG)
 B = 4
 # logit margin that counts as a bf16 near-tie between two implementations
 NEAR_TIE = 5e-2
@@ -33,7 +36,7 @@ NEAR_TIE = 5e-2
 @pytest.fixture(scope="module")
 def tiny():
     jw = init_talker_weights(np.random.default_rng(2024), CFG)
-    tw = W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw))
+    tw = W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw), "cpu")
     rng = np.random.default_rng(11)
     hidden = (rng.standard_normal((B, CFG.hidden_size))).astype(np.float32)
     cb0 = rng.integers(0, CFG.codec_vocab_size - 1024, B).astype(np.int32)
@@ -58,7 +61,7 @@ def test_predict_codes_matches_xla_path(tiny, greedy):
                              jnp.float32(0.8), 20, key, greedy=greedy)
     noise = _xla_path_noise(key, CFG.n_codebooks - 1,
                             (B, CFG.code_pred_vocab_size))
-    got = tcp.predict_codes(tw, CFG, torch.from_numpy(hidden),
+    got = tcp.predict_codes(tw, TCFG, torch.from_numpy(hidden),
                             torch.from_numpy(cb0), 0.8, 20, greedy=greedy,
                             gumbel=torch.from_numpy(noise))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -74,7 +77,7 @@ def test_frame_step_embedding(tiny):
     trail = rng.standard_normal((B, CFG.hidden_size)).astype(np.float32)
     want = jcp.frame_step_embedding(jw, CFG, jnp.asarray(codes),
                                     jnp.asarray(trail))
-    got = tcp.frame_step_embedding(tw, CFG, torch.from_numpy(codes),
+    got = tcp.frame_step_embedding(tw, TCFG, torch.from_numpy(codes),
                                    torch.from_numpy(trail))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
@@ -83,7 +86,8 @@ def test_twin_greedy_equals_xla_path_at_tiny_dims(tiny):
     """The twin keeps attention probabilities in f32 where the XLA path
     rounds them to bf16; at tiny dims that moves no argmax."""
     _, tw, hidden, cb0 = tiny
-    args = (tw, CFG, torch.from_numpy(hidden), torch.from_numpy(cb0), 0.8, 20)
+    args = (tw, TCFG, torch.from_numpy(hidden), torch.from_numpy(cb0), 0.8,
+            20)
     np.testing.assert_array_equal(
         tcf.predict_codes_twin(*args, greedy=True).numpy(),
         tcp.predict_codes(*args, greedy=True).numpy())
@@ -131,7 +135,7 @@ def test_twin_matches_pallas_kernel_interpret():
     greedy: codes agree, and a stream that differs does so first at a
     bf16 near-tie of the twin's logits."""
     cfg, jw = _real_code_pred_weights()
-    tw = W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw))
+    tw = W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw), "cpu")
     rng = np.random.default_rng(1)
     hidden = (rng.standard_normal((8, cfg.hidden_size)) * 0.5).astype(
         np.float32)
@@ -140,7 +144,8 @@ def test_twin_matches_pallas_kernel_interpret():
         jw, cfg, jnp.asarray(hidden), jnp.asarray(cb0), jnp.float32(0.9), 50,
         jax.random.PRNGKey(3), greedy=True, interpret=True))
     logits = torch.empty(15, 8, cfg.code_pred_vocab_size)
-    got = tcf.predict_codes_twin(tw, cfg, torch.from_numpy(hidden),
+    got = tcf.predict_codes_twin(tw, port_cfg(cfg),
+                                 torch.from_numpy(hidden),
                                  torch.from_numpy(cb0), 0.9, 50, greedy=True,
                                  logits_out=logits).numpy()
     margins = _near_tie_divergences(want, got, logits.numpy())
@@ -150,7 +155,8 @@ def test_twin_matches_pallas_kernel_interpret():
 
 def test_cpu_wrapper_runs_twin(tiny):
     _, tw, hidden, cb0 = tiny
-    args = (tw, CFG, torch.from_numpy(hidden), torch.from_numpy(cb0), 0.8, 20)
+    args = (tw, TCFG, torch.from_numpy(hidden), torch.from_numpy(cb0), 0.8,
+            20)
     np.testing.assert_array_equal(
         tcf.predict_codes_fused(*args, greedy=True).numpy(),
         tcf.predict_codes_twin(*args, greedy=True).numpy())

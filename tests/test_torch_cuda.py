@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain torch twins, on a card.
 
 Marked ``cuda``: they skip where torch sees no CUDA device. This file
-imports no JAX; on a GPU machine without JAX, skip tests/conftest.py
-(which imports it): ``python -m pytest --noconftest tests/test_torch_cuda.py``.
+imports no JAX and nothing of the JAX package; on a GPU machine without
+JAX, skip tests/conftest.py (which imports it):
+``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -10,11 +11,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from qwen3_tts_tpu.config import TalkerConfig, VocoderConfig  # noqa: E402
+from qwen3_tts_tpu_torch.config import (  # noqa: E402
+    TalkerConfig, TokenizerSpecialTokens, VocoderConfig)
 from qwen3_tts_tpu_torch.models import vocoder  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.ops import codepred_fused as cf  # noqa: E402
 from qwen3_tts_tpu_torch.ops import vocoder_fused as vf  # noqa: E402
+from qwen3_tts_tpu_torch.runtime.pipeline import (  # noqa: E402
+    Qwen3TTS, TTSParams)
+from qwen3_tts_tpu_torch.tokenizer import TextTokenizer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -229,29 +234,161 @@ def test_continuous_batcher_on_card(dev):
     """A small serving run on the card: the full-width code predictor and
     vocoder, a 2-layer talker; every request completes, and the serving
     path launched the decode-attention kernel in window mode."""
-    from qwen3_tts_tpu.config import TokenizerSpecialTokens
-    from qwen3_tts_tpu.tokenizer import TextTokenizer
     from qwen3_tts_tpu_torch.ops import flash_decode as fd
-    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
     from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    eng = _engine(dev, 7)
+    before = fd.flash_decode.launches_by_mode["window"]
+    talker.set_talker_step_impl("xla")
+    try:
+        cb = ContinuousBatcher(eng, n_slots=2,
+                               params=TTSParams(temperature=0.0, seed=0),
+                               max_frames=8)
+        rids = [cb.submit(t) for t in ("hello.", "world.", "he")]
+        results = cb.run_all()
+    finally:
+        talker.set_talker_step_impl(None)
+    _check_results([results[r] for r in rids], eng)
+    assert fd.flash_decode.launches_by_mode["window"] > before
+
+
+def _engine(dev, seed):
+    """Full-width code predictor and vocoder (their kernels need the real
+    widths), a 2-layer talker, an in-memory vocabulary."""
     tokens = ["<|im_start|>", "<|im_end|>", "assistant", "Ċ", "h", "e", "l",
               "o", "Ġ", "w", "r", "d", "."]
     tok = TextTokenizer(tokens, [], TokenizerSpecialTokens(
         bos_token_id=0, eos_token_id=1, pad_token_id=1))
-    gen = torch.Generator(device=dev).manual_seed(7)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     cfg, vcfg = TalkerConfig(n_layers=2), VocoderConfig()
-    eng = Qwen3TTS.from_components(
+    return Qwen3TTS.from_components(
         tok, cfg, W.init_talker_weights(cfg, gen, dev), vcfg,
         W.init_vocoder_weights(vcfg, gen, dev), dev)
-    before = fd.flash_decode.launches_by_mode["window"]
-    cb = ContinuousBatcher(eng, n_slots=2,
-                           params=TTSParams(temperature=0.0, seed=0),
-                           max_frames=8)
-    rids = [cb.submit(t) for t in ("hello.", "world.", "he")]
-    results = cb.run_all()
-    for r in rids:
-        res = results[r]
+
+
+def _check_results(results, eng):
+    for res in results:
         assert res.success, res.error_msg
         assert np.isfinite(res.audio).all()
-        assert len(res.audio) == res.n_frames * vcfg.samples_per_frame
-    assert fd.flash_decode.launches_by_mode["window"] > before
+        assert len(res.audio) == res.n_frames * eng.voc_cfg.samples_per_frame
+
+
+# talker megakernel vs twin, relative to the twin's RMS, as chip_smoke.py
+# (there, 28 layers stay under 4.8e-3 RMS and 2.4e-2 at most): both sum in
+# f32 in other orders, so a value rounded to bf16 (or an int8 row) can
+# land one step apart
+TF_MAX_TOL = 5e-2           # max |err| / RMS
+TF_RMS_TOL = 1e-2           # RMS(err) / RMS
+
+
+def _tf_inputs(mode, kv, dev, B=4, S=256, read_ctx=192, widx=150):
+    """A small talker (H 256, 4/2 heads, D 128, I 768, 2 layers) and a
+    cache with NaN at and past read_ctx. Prefix: stream 0 live at widx,
+    1 frozen below it, 2 empty, 3 claims S slots (only read_ctx count).
+    Mask: scattered bits up to widx, lane 1 dead at widx, bits set past
+    read_ctx. B < 4 keeps the first B streams."""
+    from qwen3_tts_tpu_torch.models.stack import QuantKV, quantize_kv_rows
+    cfg = TalkerConfig(hidden_size=256, n_layers=2, n_attention_heads=4,
+                       n_key_value_heads=2, intermediate_size=768,
+                       head_dim=128, text_vocab_size=16, codec_vocab_size=64)
+    gen = torch.Generator(device=dev).manual_seed(
+        ["prefix", "mask"].index(mode) * 2 + (kv == "int8"))
+    lw = W.init_talker_weights(cfg, gen, dev)["layers"]
+    cache = (torch.randn(2, 2, B, 2, S, 128, generator=gen, device=dev)
+             * 0.5).bfloat16()
+    if kv == "int8":
+        cache = QuantKV(*quantize_kv_rows(cache))
+        cache.scales[..., read_ctx:] = float("nan")
+    else:
+        cache[..., read_ctx:, :] = float("nan")
+    x = torch.randn(B, 256, generator=gen, device=dev)
+    pos = torch.tensor([widx, 40, 7, 300][:B], dtype=torch.int32,
+                       device=dev)
+    n_valid, mask = None, None
+    if mode == "prefix":
+        n_valid = torch.tensor([widx + 1, 90, 0, S][:B], dtype=torch.int32,
+                               device=dev)
+    else:
+        mask = torch.rand(B, S, generator=gen, device=dev) < 0.4
+        mask[:, widx + 1:read_ctx] = False
+        mask[:, widx] = True
+        mask[1:2, widx] = False
+    kw = dict(n_heads=4, n_kv=2, head_dim=128, eps=cfg.rms_norm_eps,
+              theta=cfg.rope_theta, read_ctx=read_ctx, valid_mask=mask)
+    return lw, x, pos, cache, widx, n_valid, kw
+
+
+def _parts(c):
+    return (c.values, c.scales) if hasattr(c, "scales") else (c,)
+
+
+def _clone(c):
+    return type(c)(*[t.clone() for t in c]) if hasattr(c, "scales") \
+        else c.clone()
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["prefix", "mask"])
+def test_talker_fused_matches_twin(dev, mode, kv, B):
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    lw, x, pos, cache, widx, n_valid, kw = _tf_inputs(mode, kv, dev, B=B)
+    ck, ct = _clone(cache), _clone(cache)
+    widx_t = torch.tensor(widx, dtype=torch.int32, device=dev)
+    before = tf.talker_step_fused.launches
+    y, out = tf.talker_step_fused(lw, x, pos, ck, widx_t, n_valid, **kw)
+    ref, _ = tf.talker_step_fused_twin(lw, x, pos, ct, widx_t, n_valid,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert out is ck and tf.talker_step_fused.launches == before + 1
+    assert torch.isfinite(y).all()
+    rms = ref.square().mean().sqrt()
+    assert (y - ref).abs().max() <= TF_MAX_TOL * rms
+    assert (y - ref).square().mean().sqrt() <= TF_RMS_TOL * rms
+    keep = torch.ones(256, dtype=torch.bool, device=dev)
+    keep[widx] = False
+    for a, b, c in zip(_parts(ck), _parts(ct), _parts(cache)):
+        a, b, c = (t.float()[..., keep, :] if t.dim() == 6
+                   else t[..., keep] for t in (a, b, c))
+        assert torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+        assert torch.equal(b.nan_to_num(7.0), c.nan_to_num(7.0))
+    # the written rows, less one rounding step of the stored value (the
+    # int8 row's scale, or a bf16 ulp <= |value| * 2^-7)
+    if kv == "int8":
+        step = ct.scales[..., widx, None]
+        rk = ck.values[..., widx, :].float() * ck.scales[..., widx, None]
+        rt = ct.values[..., widx, :].float() * step
+    else:
+        rk, rt = ck[..., widx, :].float(), ct[..., widx, :].float()
+        step = rt.abs() * 2.0 ** -7
+    err = ((rk - rt).abs() - step).clamp_min(0.0)
+    assert err.max() <= TF_MAX_TOL * rt.square().mean().sqrt()
+
+
+def test_talker_fused_refuses_unserved_calls(dev):
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    lw, x, pos, cache, widx, n_valid, kw = _tf_inputs("prefix", "bf16", dev)
+    with pytest.raises(ValueError):                 # int64 write slot
+        tf.talker_step_fused(lw, x, pos, cache, torch.tensor(
+            widx, device=dev), n_valid, **kw)
+    with pytest.raises(ValueError):                 # head_dim 64
+        tf.talker_step_fused(lw, x, pos, cache, widx, n_valid,
+                             **dict(kw, head_dim=64, n_kv=4, n_heads=8))
+    with pytest.raises(ValueError):                 # f32 weights
+        tf.talker_step_fused(dict(lw, wo=lw["wo"].float()), x, pos, cache,
+                             widx, n_valid, **kw)
+
+
+def test_synthesize_batch_auto_runs_talker_kernel(dev):
+    """QWEN3_TTS_TALKER=auto on the card: lock-step synthesis goes through
+    the megakernel (and not the per-layer decode attention)."""
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    eng = _engine(dev, 3)
+    before = tf.talker_step_fused.launches, fd.flash_decode.launches
+    res = eng.synthesize_batch(["hello world.", "he"], params=TTSParams(
+        max_audio_tokens=16, temperature=0.0, seed=0))
+    _check_results(res, eng)
+    assert tf.talker_step_fused.launches > before[0]
+    assert fd.flash_decode.launches == before[1]

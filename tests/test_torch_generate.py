@@ -17,14 +17,17 @@ from qwen3_tts_tpu_torch.models import talker as ttalker  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import generate as tgen  # noqa: E402
 
+from .test_torch_config import port_cfg  # noqa: E402
+
 CFG = tiny_talker_config()
+TCFG = port_cfg(CFG)
 B, CHUNK = 2, 6
 
 
 @pytest.fixture(scope="module")
 def setup():
     jw = init_talker_weights(np.random.default_rng(2024), CFG)
-    tw = W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw))
+    tw = W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw), "cpu")
     rng = np.random.default_rng(8)
     tokens = rng.integers(0, CFG.text_vocab_size, (B, 16)).astype(np.int32)
     lens = np.array([16, 13], np.int32)
@@ -32,7 +35,7 @@ def setup():
         np.float32)
     jp = jtalker.build_prefill_inputs(jw, CFG, jnp.asarray(tokens),
                                       jnp.asarray(lens), jnp.asarray(spk))
-    tp = ttalker.build_prefill_inputs(tw, CFG, torch.from_numpy(tokens),
+    tp = ttalker.build_prefill_inputs(tw, TCFG, torch.from_numpy(tokens),
                                       torch.from_numpy(lens),
                                       torch.from_numpy(spk))
     return jw, tw, jp, tp
@@ -65,7 +68,7 @@ def test_generate_chunk_lockstep(setup, kv_quant, temperature):
     key = jax.random.PRNGKey(21)
     js = jgen.init_state(jw, CFG, jp, ctx, key, kv_quant=kv_quant)
     jc = jgen.make_consts(jp, temperature, 1.05)
-    ts = tgen.init_state(tw, CFG, tp, ctx, None, kv_quant=kv_quant)
+    ts = tgen.init_state(tw, TCFG, tp, ctx, None, kv_quant=kv_quant)
     tc = tgen.make_consts(tp, temperature, 1.05)
     for chunk in range(2):
         read_ctx = jgen.ctx_bucket(jp.prefill_embd.shape[1] + chunk * CHUNK,
@@ -75,7 +78,7 @@ def test_generate_chunk_lockstep(setup, kv_quant, temperature):
             jw, CFG, js, jc, 50, CHUNK, greedy=greedy, read_ctx=read_ctx,
             lockstep=True)
         ts, tcodes, tvalid = tgen.generate_chunk(
-            tw, CFG, ts, tc, 50, CHUNK, greedy=greedy, read_ctx=read_ctx,
+            tw, TCFG, ts, tc, 50, CHUNK, greedy=greedy, read_ctx=read_ctx,
             cb0_gumbel=draws[0], codes_gumbel=draws[1])
         np.testing.assert_array_equal(tcodes.numpy(), np.asarray(jcodes))
         np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
@@ -89,11 +92,11 @@ def test_generate_chunk_lockstep(setup, kv_quant, temperature):
 
 def test_state_updates_in_place(setup):
     _, tw, _, tp = setup
-    ts = tgen.init_state(tw, CFG, tp, 64, None)
+    ts = tgen.init_state(tw, TCFG, tp, 64, None)
     cache, n_past = ts.kv_cache, ts.n_past
     before = n_past.clone()
     out, codes, valid = tgen.generate_chunk(
-        tw, CFG, ts, tgen.make_consts(tp, 0.0, 1.05), 50, 3, greedy=True)
+        tw, TCFG, ts, tgen.make_consts(tp, 0.0, 1.05), 50, 3, greedy=True)
     assert out is ts and out.kv_cache is cache and out.n_past is n_past
     assert (n_past == before + 3).all()
     assert codes.shape == (3, B, 16) and valid.dtype == torch.bool
@@ -121,7 +124,7 @@ def _prefill_pair(jw, tw, tokens, lens):
     spk = np.zeros((len(tokens), CFG.hidden_size), np.float32)
     jp = jtalker.build_prefill_inputs(jw, CFG, jnp.asarray(tokens),
                                       jnp.asarray(lens), jnp.asarray(spk))
-    tp = ttalker.build_prefill_inputs(tw, CFG, torch.from_numpy(tokens),
+    tp = ttalker.build_prefill_inputs(tw, TCFG, torch.from_numpy(tokens),
                                       torch.from_numpy(lens),
                                       torch.from_numpy(spk))
     return jp, tp
@@ -141,7 +144,7 @@ def test_ring_mode_matches_jax(setup, kv_quant):
     js = jgen.init_state(jw, CFG, jd, ctx, jax.random.PRNGKey(0),
                          active=jnp.zeros(n_slots, bool), kv_quant=kv_quant)
     jc = jgen.make_consts(jd, 0.0, 1.05)
-    ts = tgen.init_state(tw, CFG, td, ctx, None,
+    ts = tgen.init_state(tw, TCFG, td, ctx, None,
                          active=torch.zeros(n_slots, dtype=torch.bool),
                          kv_quant=kv_quant)
     tc = tgen.make_consts(td, 0.0, 1.05)
@@ -154,11 +157,11 @@ def test_ring_mode_matches_jax(setup, kv_quant):
         jp, tp = _prefill_pair(jw, tw, toks, lens)
         if len(slots) == 1:        # the single-request wrapper
             js, jc = jgen.admit_slot(jw, CFG, js, jc, slots[0], jp)
-            tgen.admit_slot(tw, CFG, ts, tc, slots[0], tp)
+            tgen.admit_slot(tw, TCFG, ts, tc, slots[0], tp)
         else:
             js, jc = jgen.admit_slots(jw, CFG, js, jc, jnp.asarray(slots),
                                       jp)
-            tgen.admit_slots(tw, CFG, ts, tc, torch.tensor(slots), tp)
+            tgen.admit_slots(tw, TCFG, ts, tc, torch.tensor(slots), tp)
 
     def check_state():
         for name in ("n_past", "valid_mask", "write_slot", "ring_lo", "done"):
@@ -175,7 +178,7 @@ def test_ring_mode_matches_jax(setup, kv_quant):
             jw, CFG, js, jc, 50, CHUNK, greedy=True, read_ctx=read_ctx,
             ring=True)
         _, tcodes, tvalid = tgen.generate_chunk(
-            tw, CFG, ts, tc, 50, CHUNK, greedy=True, read_ctx=read_ctx,
+            tw, TCFG, ts, tc, 50, CHUNK, greedy=True, read_ctx=read_ctx,
             ring=True)
         np.testing.assert_array_equal(tcodes.numpy(), np.asarray(jcodes))
         np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
@@ -200,9 +203,9 @@ def test_ring_ctx_helper_and_prefill_guard(setup):
     for args in ((4, 40), (1024, 40), (100, 8)):
         assert tgen.required_ctx_ring(*args) == jgen.required_ctx_ring(*args)
     assert tgen.RING_PREFILL_SLOTS == jgen.RING_PREFILL_SLOTS
-    ts = tgen.init_state(tw, CFG, tp, 64, None)
+    ts = tgen.init_state(tw, TCFG, tp, 64, None)
     tc = tgen.make_consts(tp, 0.0, 1.05)
     long = tp._replace(prefill_embd=torch.zeros(
         2, tgen.RING_PREFILL_SLOTS + 1, CFG.hidden_size))
     with pytest.raises(ValueError, match="RING_PREFILL_SLOTS"):
-        tgen.admit_slots(tw, CFG, ts, tc, torch.tensor([0, 1]), long)
+        tgen.admit_slots(tw, TCFG, ts, tc, torch.tensor([0, 1]), long)

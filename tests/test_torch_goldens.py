@@ -23,6 +23,8 @@ from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.runtime.generate import (  # noqa: E402
     generate_chunk, init_state, make_consts, required_ctx)
 
+from .test_torch_config import port_cfg  # noqa: E402
+
 GOLDEN = Path(__file__).parent / "golden" / "tiny_activations.npz"
 
 
@@ -34,9 +36,11 @@ def golden():
 @pytest.fixture(scope="module")
 def current():
     out = {}
-    cfg = tiny_talker_config()
+    jcfg = tiny_talker_config()
+    cfg = port_cfg(jcfg)
     w = W.talker_weights_from_numpy(jax.tree.map(
-        np.asarray, init_talker_weights(np.random.default_rng(2024), cfg)))
+        np.asarray, init_talker_weights(np.random.default_rng(2024), jcfg)),
+        "cpu")
     B = 2
     rng = np.random.default_rng(7)
     tokens = torch.as_tensor(rng.integers(0, cfg.text_vocab_size, (B, 16)),
@@ -62,11 +66,12 @@ def current():
         w, cfg, state.last_hidden, torch.tensor([3, 99], dtype=torch.int32),
         0.0, 50).numpy()
 
-    vcfg = dataclasses.replace(jvoc.tiny_vocoder_config(),
-                               codebook_size=2048)
+    jvcfg = dataclasses.replace(jvoc.tiny_vocoder_config(),
+                                codebook_size=2048)
+    vcfg = port_cfg(jvcfg)
     vw = W.vocoder_weights_from_numpy(jax.tree.map(
         np.asarray, jvoc.init_vocoder_weights(np.random.default_rng(2025),
-                                              vcfg)))
+                                              jvcfg)), "cpu")
     vcodes = torch.as_tensor(rng.integers(0, 2048, (1, 6, 16)),
                              dtype=torch.int32)
     out["vocoder_audio"] = vocoder.vocoder_decode(vw, vcfg, vcodes).numpy()

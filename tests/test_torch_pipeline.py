@@ -26,6 +26,7 @@ from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import pipeline as tpipe  # noqa: E402
 
 from .test_tokenizer import make_tiny_tokenizer  # noqa: E402
+from .test_torch_config import port_cfg, port_tokenizer  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 TEXTS = ["hello world.", "hello hello world hello.", "world."]
@@ -45,8 +46,10 @@ def engines():
     tok = make_tiny_tokenizer()
     jeng = jpipe.Qwen3TTS.from_components(tok, cfg, jw, vcfg, jvw)
     teng = tpipe.Qwen3TTS.from_components(
-        tok, cfg, W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw)),
-        vcfg, W.vocoder_weights_from_numpy(jax.tree.map(np.asarray, jvw)),
+        port_tokenizer(tok), port_cfg(cfg),
+        W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw), "cpu"),
+        port_cfg(vcfg),
+        W.vocoder_weights_from_numpy(jax.tree.map(np.asarray, jvw), "cpu"),
         "cpu")
     return jeng, teng
 
@@ -91,17 +94,19 @@ def test_decode_codes_chunked_length(engines):
 
 def test_port_imports_no_jax():
     """Every module of the port imports, and a tiny synthesis runs, in a
-    process where importing jax fails."""
+    process where importing jax or anything of the JAX package fails; no
+    module of either is loaded afterwards."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["qwen3_tts_tpu"] = None
         import importlib, pkgutil, dataclasses
         import qwen3_tts_tpu_torch as P
         for m in pkgutil.walk_packages(P.__path__, P.__name__ + "."):
             importlib.import_module(m.name)
         import torch
-        from qwen3_tts_tpu.config import TokenizerSpecialTokens
-        from qwen3_tts_tpu.tokenizer import TextTokenizer
+        from qwen3_tts_tpu_torch.config import TokenizerSpecialTokens
+        from qwen3_tts_tpu_torch.tokenizer import TextTokenizer
         from qwen3_tts_tpu_torch.models import weights as W
         from qwen3_tts_tpu_torch.models.vocoder import tiny_vocoder_config
         from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
@@ -117,8 +122,9 @@ def test_port_imports_no_jax():
             W.init_vocoder_weights(vcfg, gen, "cpu"), "cpu")
         r = eng.synthesize("aaa", TTSParams(max_audio_tokens=8, seed=1))
         assert r.success and len(r.audio) == r.n_frames * 64, r.error_msg
-        assert not any(k == "jax" or k.startswith("jax.")
-                       for k, v in sys.modules.items() if v is not None)
+        loaded = [k for k, v in sys.modules.items() if v is not None
+                  and k.split(".")[0] in ("jax", "qwen3_tts_tpu")]
+        assert not loaded, loaded
         print("NOJAX_OK")
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))

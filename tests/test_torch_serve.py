@@ -22,6 +22,7 @@ from qwen3_tts_tpu_torch.runtime import pipeline as tpipe  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import serve as tserve  # noqa: E402
 
 from .test_tokenizer import make_tiny_tokenizer  # noqa: E402
+from .test_torch_config import port_cfg, port_tokenizer  # noqa: E402
 
 # the int16 PCM may differ by a step where the two vocoders round apart
 PCM_TOL = 2.5 / 32767
@@ -43,8 +44,10 @@ def engines():
     tok = make_tiny_tokenizer()
     jeng = jpipe.Qwen3TTS.from_components(tok, cfg, jw, vcfg, jvw)
     teng = tpipe.Qwen3TTS.from_components(
-        tok, cfg, W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw)),
-        vcfg, W.vocoder_weights_from_numpy(jax.tree.map(np.asarray, jvw)),
+        port_tokenizer(tok), port_cfg(cfg),
+        W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw), "cpu"),
+        port_cfg(vcfg),
+        W.vocoder_weights_from_numpy(jax.tree.map(np.asarray, jvw), "cpu"),
         "cpu")
     return jeng, teng
 

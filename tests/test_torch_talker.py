@@ -17,7 +17,10 @@ from qwen3_tts_tpu_torch.models import stack as tstack  # noqa: E402
 from qwen3_tts_tpu_torch.models import talker as ttalker  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 
+from .test_torch_config import port_cfg  # noqa: E402
+
 CFG = tiny_talker_config()
+TCFG = port_cfg(CFG)
 B = 3
 # The stack rounds q, k, v, probabilities and every matmul input to bf16.
 # Where the two frameworks' f32 sums differ in the last bits, a rounding
@@ -29,7 +32,8 @@ BF16_TOL = 1e-2
 @pytest.fixture(scope="module")
 def weights():
     jw = init_talker_weights(np.random.default_rng(2024), CFG)
-    return jw, W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw))
+    return jw, W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw),
+                                         "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +74,7 @@ def test_build_prefill_inputs(weights, inputs, use_think):
     want = jtalker.build_prefill_inputs(jw, CFG, jnp.asarray(tokens),
                                         jnp.asarray(lens), jnp.asarray(spk),
                                         use_think=use_think)
-    got = ttalker.build_prefill_inputs(tw, CFG, torch.from_numpy(tokens),
+    got = ttalker.build_prefill_inputs(tw, TCFG, torch.from_numpy(tokens),
                                        torch.from_numpy(lens),
                                        torch.from_numpy(spk),
                                        use_think=use_think)
@@ -94,16 +98,16 @@ def test_prefill_and_steps(weights, inputs, quant):
     tokens, lens, spk = inputs
     jp = jtalker.build_prefill_inputs(jw, CFG, jnp.asarray(tokens),
                                       jnp.asarray(lens), jnp.asarray(spk))
-    tp = ttalker.build_prefill_inputs(tw, CFG, torch.from_numpy(tokens),
+    tp = ttalker.build_prefill_inputs(tw, TCFG, torch.from_numpy(tokens),
                                       torch.from_numpy(lens),
                                       torch.from_numpy(spk))
     S = 64
     P = jp.prefill_embd.shape[1]
     args = (CFG.n_layers, B, S, CFG.n_key_value_heads, CFG.head_dim)
     jc = jstack.init_kv_cache(*args, quant=quant)
-    tc = tstack.init_kv_cache(*args, quant=quant)
+    tc = tstack.init_kv_cache(*args, "cpu", quant=quant)
     jh, jl, jc = jtalker.talker_prefill(jw, CFG, jp.prefill_embd, jc)
-    th, tl, tc = ttalker.talker_prefill(tw, CFG, tp.prefill_embd, tc)
+    th, tl, tc = ttalker.talker_prefill(tw, TCFG, tp.prefill_embd, tc)
     np.testing.assert_allclose(_np(th), _np(jh), atol=BF16_TOL)
     np.testing.assert_allclose(_np(tl), _np(jl), atol=BF16_TOL)
     for a, b in zip(_cache_np(tc), _cache_np(jc)):
@@ -119,7 +123,7 @@ def test_prefill_and_steps(weights, inputs, quant):
             jw, CFG, jnp.asarray(x), jc, jnp.asarray(n_past), read_ctx=32,
             write_idx=jnp.int32(slot))
         th, tl, tc = ttalker.talker_step(
-            tw, CFG, torch.from_numpy(x), tc, torch.from_numpy(n_past),
+            tw, TCFG, torch.from_numpy(x), tc, torch.from_numpy(n_past),
             torch.tensor(slot), read_ctx=32)
         np.testing.assert_allclose(_np(th), _np(jh), atol=BF16_TOL)
         np.testing.assert_allclose(_np(tl), _np(jl), atol=BF16_TOL)

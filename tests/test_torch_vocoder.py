@@ -17,7 +17,10 @@ from qwen3_tts_tpu_torch.models import vocoder as tv  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.ops import vocoder_fused as tvf  # noqa: E402
 
+from .test_torch_config import port_cfg  # noqa: E402
+
 VCFG = dataclasses.replace(jv.tiny_vocoder_config(), codebook_size=2048)
+TVCFG = port_cfg(VCFG)
 
 
 def _to_torch(tree, device="cpu"):
@@ -55,9 +58,9 @@ def codes():
 def test_vocoder_decode_f32(weights, codes, trim):
     jw, tw = weights
     want = np.asarray(jv.vocoder_decode(jw, VCFG, jnp.asarray(codes), trim))
-    got = tv.vocoder_decode(tw, VCFG, torch.from_numpy(codes), trim).numpy()
+    got = tv.vocoder_decode(tw, TVCFG, torch.from_numpy(codes), trim).numpy()
     assert got.shape == want.shape
-    assert got.shape[1] == tv.vocoder_output_length(tw, VCFG, 6, trim)
+    assert got.shape[1] == tv.vocoder_output_length(tw, TVCFG, 6, trim)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-3)
 
 
@@ -73,7 +76,7 @@ def test_vocoder_decode_bf16_subbatched_pcm16(weights):
         np.int32)
     want = np.asarray(jv.vocoder_decode_subbatched(
         jwb, VCFG, jnp.asarray(c), trim="causal", pcm16=True, sub=2))
-    got = tv.vocoder_decode_subbatched(twb, VCFG, torch.from_numpy(c),
+    got = tv.vocoder_decode_subbatched(twb, TVCFG, torch.from_numpy(c),
                                        trim="causal", pcm16=True,
                                        sub=2).numpy()
     assert got.dtype == np.int16 and got.shape == (4, 40 * 16 * 4)
