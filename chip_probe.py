@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Planted-fault probe of the talker megakernel on one NVIDIA GPU.
+"""Planted-fault probe of three hand-written kernels on one NVIDIA GPU:
+the talker megakernel, the code predictor and decode attention.
 
 Run from the repository root: ``python3 chip_probe.py [name ...]`` (the
-named mutants only; all by default). For the sound
-kernel and for each one-line mutant of
-qwen3_tts_tpu_torch/csrc/talker_fused.cu below, it copies the package and
-chip_smoke.py into a temporary directory, applies the edit there, and runs
-``chip_smoke.check_talker_fused`` (28 layers at the full widths; B 8 and
-32, bf16 and int8, read_ctx 256 and 1,152, prefix and mask mode) in a
-child process, which builds the kernels of that copy. It prints the
-check's lines and, per mutant, the cases that failed. Exits non-zero
-unless the sound kernel passes every case and every mutant fails one.
+named mutants only; all by default). For each kernel's sound source and
+for each one-line mutant below, it copies the package and chip_smoke.py
+into a temporary directory, applies the edit there, and runs the
+kernel's check from chip_smoke.py in a child process, which builds the
+kernels of that copy:
+- ``check_talker_fused``: 28 layers at the full widths; B 8 and 32, bf16
+  and int8, read_ctx 256 and 1,152, prefix and mask mode;
+- ``check_codepred``: B 8 and 64, greedy, sampled and forced (untimed);
+- ``check_flash_decode``: B 8 and 32, read_ctx 512 / 1,024 / 1,152, bf16
+  and int8, prefix, mask, window and wrapped window (untimed).
+It prints the check's lines and, per mutant, the cases that failed.
+Exits non-zero unless every sound kernel passes every case and every
+mutant fails one.
 """
 
 from __future__ import annotations
@@ -22,34 +27,69 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SOURCE = "qwen3_tts_tpu_torch/csrc/talker_fused.cu"
+CSRC = "qwen3_tts_tpu_torch/csrc/"
+TALKER, CODEPRED, ATTN = "talker_fused", "codepred", "flash_decode"
 
-# name -> (text of the sound kernel, its replacement)
+# name -> (kernel, edit): the edit is None for the sound source, else
+# (text of the sound source, its replacement) in csrc/<kernel>.cu
 MUTANTS = {
-    "sound": None,
-    "k_norm skipped": (
+    "talker: sound": (TALKER, None),
+    "talker: k_norm skipped": (TALKER, (
         "      if (roped) {\n        const float* nw",
-        "      if (round == 0) {\n        const float* nw"),
-    "RoPE sign flipped": (
+        "      if (round == 0) {\n        const float* nw")),
+    "talker: RoPE sign flipped": (TALKER, (
         "v = d < TF_D / 2 ? v * cs - o * sn : v * cs + o * sn;",
-        "v = d < TF_D / 2 ? v * cs + o * sn : v * cs - o * sn;"),
-    "int8 V scale dropped": (
+        "v = d < TF_D / 2 ? v * cs + o * sn : v * cs - o * sn;")),
+    "talker: int8 V scale dropped": (TALKER, (
         "        pw[warp][lane] = p0 * v0;\n"
         "        pw[warp][lane + 32] = p1 * v1;",
-        "        pw[warp][lane] = p0;\n        pw[warp][lane + 32] = p1;"),
-    "current slot masked out": (
+        "        pw[warp][lane] = p0;\n        pw[warp][lane + 32] = p1;")),
+    "talker: current slot masked out": (TALKER, (
         "      const bool valid = s < ctx &&",
-        "      const bool valid = s < ctx && s != __ldg(p.widx) &&"),
-    "last layer skipped": (
+        "      const bool valid = s < ctx && s != __ldg(p.widx) &&")),
+    "talker: last layer skipped": (TALKER, (
         "  for (int l = 0; l < p.L; ++l) {\n    phase_norm(",
-        "  for (int l = 0; l < p.L - 1; ++l) {\n    phase_norm("),
-    "read past read_ctx": (
+        "  for (int l = 0; l < p.L - 1; ++l) {\n    phase_norm(")),
+    "talker: read past read_ctx": (TALKER, (
         "  const int ctx = p.read_ctx;",
-        "  const int ctx = p.S;"),
+        "  const int ctx = p.S;")),
+    "codepred: sound": (CODEPRED, None),
+    "codepred: K/V row of slot p not written": (CODEPRED, (
+        "      (half == 0 ? p.kc : p.vc)[slot0 + pos * D + d] = r;",
+        "")),
+    "codepred: RoPE sign flipped": (CODEPRED, (
+        "if (roped) v = v * c + buf[", "if (roped) v = v * c - buf[")),
+    "codepred: ring stage waited one group early": (CODEPRED, (
+        "    cp_async_wait<NST - 1>();", "    cp_async_wait<NST>();")),
+    "codepred: top-k threshold at 4k": (CODEPRED, (
+        ">= (float)p.top_k) t = cand;", ">= (float)(4 * p.top_k)) t = cand;")),
+    "codepred: one K-split partial skipped": (CODEPRED, (
+        "      for (int ks = 0; ks < KSPLIT; ++ks)\n"
+        "        s += __ldcg(p.part",
+        "      for (int ks = 0; ks < KSPLIT - 1; ++ks)\n"
+        "        s += __ldcg(p.part")),
+    "codepred: ragged row tile dropped": (CODEPRED, (
+        "min(MG / 16, (p.B - ch.m0 + 15) / 16)",
+        "min(MG / 16, (p.B - ch.m0) / 16)")),
+    "attention: sound": (ATTN, None),
+    "attention: V read from the K tile": (ATTN, (
+        "    const char* vt = kt + TILE;", "    const char* vt = kt;")),
+    "attention: tile waited one group early": (ATTN, (
+        "      issue(nx, stage ^ 1);\n      cp_async_wait<1>();",
+        "      issue(nx, stage ^ 1);\n      cp_async_wait<2>();")),
+    "attention: int8 V scale dropped": (ATTN, (
+        "      pw[warp][lane] = p0 * v0;\n      pw[warp][lane + 32] = p1 * v1;",
+        "      pw[warp][lane] = p0;\n      pw[warp][lane + 32] = p1;")),
+    "attention: wrapped window's far end dropped": (ATTN, (
+        "(wlo > whi ? (s0 < whi || e > wlo)",
+        "(wlo > whi ? (s0 < whi)")),
+    "attention: last tile of each split skipped": (ATTN, (
+        "min(t0 + tiles_per_split, n_tiles)",
+        "min(t0 + tiles_per_split - 1, n_tiles)")),
 }
 
 CHILD = r"""
-import sys, traceback
+import sys
 import torch
 import chip_smoke as cs
 from qwen3_tts_tpu_torch.config import TalkerConfig
@@ -57,10 +97,18 @@ from qwen3_tts_tpu_torch.models import weights as W
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-cfg = TalkerConfig(text_vocab_size=16)
-w = W.init_talker_weights(cfg, gen, dev)
+kernel = sys.argv[1]
 try:
-    cs.check_talker_fused(w, cfg, dev, gen)
+    if kernel == "flash_decode":
+        cs.check_flash_decode(dev, gen, timed=False)
+    else:
+        cfg = TalkerConfig(text_vocab_size=16,
+                           n_layers=28 if kernel == "talker_fused" else 1)
+        w = W.init_talker_weights(cfg, gen, dev)
+        if kernel == "talker_fused":
+            cs.check_talker_fused(w, cfg, dev, gen)
+        else:
+            cs.check_codepred(w, cfg, dev, gen, timed=False)
     print("PROBE passed every case", flush=True)
 except AssertionError as e:
     print("PROBE failed cases", e, flush=True)
@@ -77,26 +125,29 @@ def mutate(src: str, edit) -> str:
     return src.replace(old, new)
 
 
-def run(name, edit) -> tuple[bool, str]:
+def run(name, kernel, edit) -> bool:
+    """True when the check passed every case."""
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         shutil.copytree(REPO / "qwen3_tts_tpu_torch",
                         root / "qwen3_tts_tpu_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(REPO / "chip_smoke.py", root / "chip_smoke.py")
-        path = root / SOURCE
+        path = root / CSRC / f"{kernel}.cu"
         path.write_text(mutate(path.read_text(), edit))
-        out = subprocess.run([sys.executable, "-c", CHILD], cwd=root,
-                             capture_output=True, text=True, timeout=600)
-    text = out.stdout + out.stderr
+        try:
+            out = subprocess.run([sys.executable, "-c", CHILD, kernel],
+                                 cwd=root, capture_output=True, text=True,
+                                 timeout=600)
+            text = out.stdout + out.stderr
+        except subprocess.TimeoutExpired as e:
+            text = f"timed out after {e.timeout} s"
     for line in text.splitlines():
-        if line.startswith(("talker_fused", "PROBE")):
+        if line.startswith((kernel, "PROBE")):
             print(f"[{name}] {line}", flush=True)
-    passed = "PROBE passed every case" in text
     if "PROBE" not in text:
-        print(f"[{name}] no verdict (rc {out.returncode}):\n{text[-3000:]}",
-              flush=True)
-    return passed, text
+        print(f"[{name}] no verdict:\n{text[-3000:]}", flush=True)
+    return "PROBE passed every case" in text
 
 
 def main() -> int:
@@ -105,13 +156,13 @@ def main() -> int:
         print("chip_probe: no CUDA device", file=sys.stderr)
         return 2
     names = sys.argv[1:] or list(MUTANTS)
-    src = (REPO / SOURCE).read_text()
-    for name in names:
-        mutate(src, MUTANTS[name])      # every edit applies, before any run
+    for name in names:                  # every edit applies, before any run
+        kernel, edit = MUTANTS[name]
+        mutate((REPO / CSRC / f"{kernel}.cu").read_text(), edit)
     bad = [name for name in names
-           if run(name, MUTANTS[name])[0] != (MUTANTS[name] is None)]
+           if run(name, *MUTANTS[name]) != (MUTANTS[name][1] is None)]
     print("probe: " + (f"unexpected: {bad}" if bad else
-                       "every mutant failed, the sound kernel passed"),
+                       "every mutant failed, every sound kernel passed"),
           flush=True)
     return 1 if bad else 0
 

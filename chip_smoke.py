@@ -12,8 +12,10 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
 3. drives ``Qwen3TTS.synthesize_batch`` at the full 0.6B widths (random
    weights from a fixed torch.Generator, an in-memory tokenizer): greedy
    and at temperature 0.9, with the bf16 and the int8 KV cache; checks that
-   every request succeeds with finite audio of n_frames * 1920 samples and
-   that the lock-step path launched every kernel;
+   every request succeeds with finite audio of n_frames * 1920 samples,
+   that the lock-step path launched every kernel and the code predictor
+   one kernel a frame; then profiles one 40-frame run (device ms per
+   frame by kernel group, the card's busy share);
 4. serves 20 requests through ``ContinuousBatcher`` (8 slots, greedy,
    bf16 and then int8 KV), 12 of them submitted mid-run: slots turn over,
    requests retire by EOS and by the frame cap, the ring wraps. Checks
@@ -25,12 +27,17 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before it. Without a CUDA device the script exits non-zero at once.
+
+``python3 chip_smoke.py --compare DIR`` instead times the code predictor
+and decode attention through their wrappers in the checkout at DIR and in
+this one, in turns DIR, this, this, DIR.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -40,7 +47,9 @@ import numpy as np
 import torch
 
 SEED = 1234
-CODEPRED_B = 8
+CODEPRED_B = 8                 # the lock-step smoke's slots, rounded up
+CODEPRED_CHECK_B = (8, 64)     # kernel vs twin
+CODEPRED_TIME_B = (8, 64, 192)  # timed; 192 is the TPU bench's batch
 # (C, T per 40-frame chunk) of the four decoder blocks' residual chains,
 # and (C, C2, rate, T) of their Snake + convT heads (vocoder.py widths)
 CHAIN_SHAPES = ((768, 1280), (384, 6400), (192, 25600), (96, 76800))
@@ -67,6 +76,7 @@ ATTN_TOL = 1e-4
 ATTN_B = (8, 32)
 ATTN_S = 1152               # required_ctx_ring(1024): the serving cache
 ATTN_READ_CTX = (512, 1024, 1152)
+SPLIT_SWEEP = (1, 2, 3, 6, 18)  # tiles per split timed beside the plan
 # serving phase: a 96-frame cap puts the ring at 256 - 16 slots, so it
 # wraps after 6 chunks; "h" (36-frame EOS ramp) reaches EOS by frame 72
 SERVE_SLOTS = 8
@@ -147,6 +157,53 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ptxas_summary(text: str) -> list:
+    """'kernel<template args>: N registers, S bytes spilled' per kernel
+    from nvcc's -Xptxas=-v output."""
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"\d+([a-z_]+kernel)(I(?:L[a-z]\d+E)+E)?", line)
+        if "Compiling entry" in line and m:
+            name = m.group(1) + (
+                "<" + ",".join(re.findall(r"L[a-z](\d+)E", m.group(2))) + ">"
+                if m.group(2) else "")
+        elif "spill stores" in line and name:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name} {regs} registers, {spill} B spill stores")
+            name = None
+    return out
+
+
+def _kernel_events(prof):
+    """(name, start us, end us) of every kernel the profiler saw."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower()]
+
+
+def device_ms(fn, iters: int, names: tuple) -> float:
+    """Mean device ms per call of the kernels whose name holds one of
+    `names` (torch.profiler), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = _kernel_events(prof)
+    total = sum(end - start for name, start, end in events
+                if any(n in name for n in names))
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no kernel named {names}: "
+                             f"{sorted({e[0][:80] for e in events})}")
+    return total / iters / 1e3
+
+
 def device_info() -> tuple[str, str]:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -166,9 +223,12 @@ def _divergence_gaps(got, ref, logits, tinv, top_k, noise):
     own code and the kernel's at the first differing position (where the
     fed-back codes still agree, so the scores are comparable). A bf16
     near-tie gives a margin within the logit tolerance; a wrong kernel does
-    not. Sampled mode scores are z + gumbel with z = logits * tinv; a code
-    the twin's top-k mask dropped scores by its distance to the k-th
-    largest z (a top-k boundary flip)."""
+    not. Sampled mode scores are z + gumbel with z = logits * tinv, and a
+    top-k boundary flip explains a divergence too: a kernel code the
+    twin's top-k mask dropped, by its distance below the k-th largest z;
+    or the twin's code, which the kernel's mask may have dropped, by its
+    distance above the (k+1)-th largest z (the smaller of that and the
+    score margin)."""
     gaps = []
     for b in torch.nonzero((got != ref).any(dim=1)).flatten().tolist():
         p = int(torch.nonzero(got[b] != ref[b])[0])
@@ -178,29 +238,129 @@ def _divergence_gaps(got, ref, logits, tinv, top_k, noise):
             gaps.append(float(lg[r] - lg[g]))
             continue
         z = lg * tinv
-        kth = torch.topk(z, top_k).values[-1]
-        if z[g] < kth:
-            gaps.append(float(kth - z[g]) / tinv)
+        top = torch.topk(z, top_k + 1).values
+        if z[g] < top[top_k - 1]:
+            gaps.append(float(top[top_k - 1] - z[g]) / tinv)
         else:
-            gaps.append(float((z[r] + noise[p, b, r]) - (z[g] + noise[p, b, g]))
-                        / tinv)
+            score = (z[r] + noise[p, b, r]) - (z[g] + noise[p, b, g])
+            gaps.append(min(float(score), float(z[r] - top[top_k])) / tinv)
     return gaps
 
 
-def check_codepred(w, cfg, dev, gen) -> dict:
-    """Kernels vs twin at B=8 and the real widths, three ways:
+def _codepred_inputs(cfg, B, dev, gen):
+    from qwen3_tts_tpu_torch.ops import codepred_fused as cf
+    V = cfg.code_pred_vocab_size
+    hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev) * 0.5
+    cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return hidden, cb0, cf.gumbel_noise((cf.CTX - 1, B, V), gen, dev)
+
+
+def _codepred_bound(w, cfg, B):
+    """(bound dict, bytes, flops, re-stream ms): every layer weight, head
+    and norm once, the gathered embedding rows, hidden, cb0, the noise,
+    codes and logits; 2 B x (16 positions x layer params + 15 heads)
+    FLOPs. The re-stream bound counts the layer weights once per position
+    (they do not fit in L2)."""
+    cp = w["code_pred"]
+    H, V = cfg.code_pred_hidden_size, cfg.code_pred_vocab_size
+    layer_params = sum(t[0].numel() for t in cp["layers"].values())
+    moved = (nbytes(cp["layers"], cp["heads"], cp["output_norm"])
+             + 16 * B * H * 2 + B * H * 4 + B * 4 + 15 * B * V * 4
+             + B * 15 * (4 + V * 4))
+    flops = 2 * B * (16 * layer_params + 15 * H * V)
+    restream = (moved + 15 * nbytes(cp["layers"])) / HBM_BYTES_PER_S * 1e3
+    return bound(moved, flops), moved, flops, restream
+
+
+def check_codepred(w, cfg, dev, gen, timed: bool = True) -> dict:
+    """Kernel vs twin at the real widths, B = 8 and 64, three ways:
     forced (every position's code fed by spiked noise, top_k off): the
     codes must be the forced ones and all logits within LOGIT_TOL;
     greedy and sampled (fixed noise, T=0.9, top_k=50) run free: the codes'
     agreement rate is reported, logits up to each stream's first
     divergence must be within LOGIT_TOL, and each divergence must be a
-    near-tie of the twin's scores (margin <= LOGIT_TOL)."""
+    near-tie of the twin's scores (margin <= LOGIT_TOL). Times the kernel
+    at B = 8, 64 and 192 (CUDA events, and the profiler's device time)
+    beside its bound, and the twin at B = 8 (unless not `timed`)."""
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
-    B, V = CODEPRED_B, cfg.code_pred_vocab_size
-    hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev) * 0.5
-    cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    noise = cf.gumbel_noise((cf.CTX - 1, B, V), gen, dev)
+    worst, rates, failed = 0.0, [], []
+    for B in CODEPRED_CHECK_B:
+        err, agree = _codepred_modes(w, cfg, B, dev, gen, failed)
+        worst = max(worst, err)
+        rates += agree
+    if failed:
+        raise AssertionError(f"codepred kernel disagrees with its twin: "
+                             f"{failed}")
+    timing = {}
+    for B in CODEPRED_TIME_B if timed else ():
+        hidden, cb0, noise = _codepred_inputs(cfg, B, dev, gen)
+
+        def fused():
+            cf.predict_codes_fused(w, cfg, hidden, cb0, 0.9, 50, gumbel=noise)
+        ms = cuda_time(fused, iters=10)
+        dev_ms = device_ms(fused, 5, ("codepred",))
+        b, moved, flops, restream = _codepred_bound(w, cfg, B)
+        plain = None
+        if B == CODEPRED_B:
+            plain = cuda_time(lambda: cf.predict_codes_twin(
+                w, cfg, hidden, cb0, 0.9, 50, gumbel=noise), iters=3)
+        timing[B] = (ms, dev_ms, plain, b)
+        _codepred_phases(fused, B, dev)
+        log(f"codepred B={B} one frame: kernel {ms:.3f} ms (device "
+            f"{dev_ms:.3f} ms), "
+            + (f"twin {plain:.3f} ms, " if plain is not None else "")
+            + f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+            f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), layer weights "
+            f"re-streamed per position {restream:.3f} ms")
+    if not timed:
+        return {}
+    ms, dev_ms, plain, b = timing[CODEPRED_B]
+    return {"name": "codepred", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/codepred.cu",
+            "replaces": "qwen3_tts_tpu/ops/codepred_fused.py:425",
+            "max_abs_err": worst, "code_agreement": min(rates), "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain, **b, "library_ms": None,
+            "ms_by_batch": {str(k): v[0] for k, v in timing.items()},
+            "bound_ms_by_batch": {str(k): v[3]["bound_ms"]
+                                  for k, v in timing.items()},
+            "shape": f"B={CODEPRED_B}, one frame"}
+
+
+# phases of each kind in one frame (csrc/codepred.cu): position 0 runs 4
+# whole layers and layer 4's QKV and attention; positions 1-15 five
+# layers, the output norm, the head and the sampler; the clock adds one
+# barrier after the last sampler
+CODEPRED_PHASES = {"norm": 159, "qkv": 80, "attention": 80, "wo": 79,
+                   "gate/up": 79, "act": 79, "down": 79, "head": 15,
+                   "sample": 15}
+
+
+def _codepred_phases(fused, B, dev) -> None:
+    """One frame with the kernel's phase clock on: ms per frame and us per
+    phase (with its grid barrier) by phase kind."""
+    from qwen3_tts_tpu_torch.ops import codepred_fused as cf
+    ns = torch.zeros(len(cf.PHASES), dtype=torch.int64, device=dev)
+    cf.predict_codes_fused.phase_ns = ns
+    try:
+        fused()
+        torch.cuda.synchronize()
+    finally:
+        cf.predict_codes_fused.phase_ns = None
+    ms = dict(zip(cf.PHASES, (ns.double() / 1e6).tolist()))
+    log(f"codepred B={B} phase clock (CTA 0, globaltimer), ms per frame and "
+        f"us per phase: " + ", ".join(
+            f"{k} {v:.3f} ({v * 1e3 / CODEPRED_PHASES[k]:.1f})"
+            for k, v in ms.items()) + f"; sum {sum(ms.values()):.3f} ms")
+
+
+def _codepred_modes(w, cfg, B, dev, gen, failed):
+    """The three modes at batch B; returns (max logit error, the free
+    modes' code agreement rates) and appends each failing (B, mode) to
+    `failed`."""
+    from qwen3_tts_tpu_torch.ops import codepred_fused as cf
+    V = cfg.code_pred_vocab_size
+    hidden, cb0, noise = _codepred_inputs(cfg, B, dev, gen)
     positions = torch.arange(cf.CTX - 1, device=dev)[:, None]
 
     def run(fn, **kw):
@@ -237,35 +397,13 @@ def check_codepred(w, cfg, dev, gen) -> dict:
             f"err| {err:.3e} up to first divergence (need <= {LOGIT_TOL}), "
             f"divergence margins {[round(g, 4) for g in gaps]} (need each "
             f"<= {LOGIT_TOL})")
-        if mode == "forced" and not torch.equal(got, ref):
-            raise AssertionError("codepred kernel ignored the forced codes")
-        if not err <= LOGIT_TOL or any(g > LOGIT_TOL for g in gaps):
-            raise AssertionError(f"codepred kernel disagrees with twin ({mode})")
+        if (mode == "forced" and not torch.equal(got, ref)) or not (
+                err <= LOGIT_TOL and all(g <= LOGIT_TOL for g in gaps)):
+            failed.append((B, mode))
         worst = max(worst, err)
-        rates.append(agree)
-    ms = cuda_time(lambda: cf.predict_codes_fused(
-        w, cfg, hidden, cb0, 0.9, 50, gumbel=noise), iters=5)
-    plain = cuda_time(lambda: cf.predict_codes_twin(
-        w, cfg, hidden, cb0, 0.9, 50, gumbel=noise), iters=3)
-    cp = w["code_pred"]
-    H = cfg.code_pred_hidden_size
-    layer_params = sum(t[0].numel() for t in cp["layers"].values())
-    # every layer weight, head and norm once; the gathered embedding rows;
-    # hidden, cb0, the noise, codes and logits
-    moved = (nbytes(cp["layers"], cp["heads"], cp["output_norm"])
-             + 16 * B * H * 2 + nbytes(hidden, cb0, noise)
-             + B * 15 * (4 + V * 4))
-    flops = 2 * B * (cf.CTX * layer_params + 15 * H * V)
-    b = bound(moved, flops)
-    log(f"codepred B={B} one frame: kernels {ms:.3f} ms, twin {plain:.3f} "
-        f"ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
-        f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return {"name": "codepred", "route": "cuda",
-            "source": "qwen3_tts_tpu_torch/csrc/codepred.cu",
-            "replaces": "qwen3_tts_tpu/ops/codepred_fused.py:425",
-            "max_abs_err": worst, "code_agreement": min(rates[:2]), "ms": ms,
-            "plain_ms": plain, **b, "library_ms": None,
-            "shape": f"B={B}, one frame"}
+        if mode != "forced":
+            rates.append(agree)
+    return worst, rates
 
 
 def decoder_blocks(vcfg, dev, gen) -> list:
@@ -425,14 +563,14 @@ def _attn_call(kw, q, k, v, ks, vs, read_ctx, twin):
                                   **kw)
 
 
-def check_flash_decode(dev, gen) -> dict:
+def check_flash_decode(dev, gen, timed: bool = True) -> dict:
     """The decode-attention kernel against its twin at the talker's widths
     (16 query heads, 8 kv heads, D = 128), B = 8 and 32, S = 1,152, read_ctx
     512 / 1,024 / 1,152: prefix (ragged, 1 and read_ctx), scattered bitmask,
     ring window, wrapped window, each with an empty stream; bf16 and int8
     caches. Times kernel and twin at the serving shape (window mode,
-    read_ctx 1,152)."""
-    worst, timing = 0.0, {}
+    read_ctx 1,152), unless not `timed`."""
+    worst, timing, dev_t, sweep, failed = 0.0, {}, {}, {}, []
     for B in ATTN_B:
         caches = _attn_cache(B, ATTN_S, dev, gen)
         q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
@@ -449,12 +587,14 @@ def check_flash_decode(dev, gen) -> dict:
                     if got[2].abs().max().item() != 0.0:
                         err = float("inf")          # empty stream not 0
                     errs[mode] = err
+                    if not err <= ATTN_TOL:
+                        failed.append((B, read_ctx, kv, mode))
                 log(f"flash_decode B={B} S={ATTN_S} read_ctx={read_ctx} "
                     f"{kv}: max|err| " + ", ".join(
                         f"{m} {e:.3e}" for m, e in errs.items())
                     + f" (need <= {ATTN_TOL}; empty stream exactly 0)")
                 worst = max(worst, *errs.values())
-            if read_ctx == ATTN_S:
+            if read_ctx == ATTN_S and timed:
                 kw = cases["window"]
                 for kv, (k, v, ks, vs) in caches.items():
                     timing[(B, kv)] = [cuda_time(
@@ -462,25 +602,60 @@ def check_flash_decode(dev, gen) -> dict:
                                                t), iters=20)
                         for t in (False, True)]
                     timing[(B, kv)] += [_attn_bound(kw, q, ks, read_ctx)]
+                    dev_t[(B, kv)] = device_ms(
+                        lambda: _attn_call(kw, q, k, v, ks, vs, read_ctx,
+                                           False), 20, ("fd_",))
+                    sweep[(B, kv)] = _split_sweep(kw, q, k, v, ks, vs,
+                                                  read_ctx)
                 # the yardstick: one PyTorch call, bf16, the same slots
                 timing[(B, "bf16")].append(_sdpa_ms(kw, q, *caches["bf16"][:2],
                                                     read_ctx))
     for (B, kv), (ms, plain, b, *lib) in timing.items():
         sdpa = f"scaled_dot_product_attention {lib[0]:.4f} ms, " if lib else ""
         log(f"flash_decode window mode B={B} S={ATTN_S} read_ctx={ATTN_S} "
-            f"{kv}, one layer: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
-            f"{sdpa}bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    if not worst <= ATTN_TOL:
-        raise AssertionError("flash_decode kernel disagrees with its twin")
+            f"{kv}, one layer: kernel {ms:.4f} ms (device "
+            f"{dev_t[(B, kv)]:.4f} ms, roofline share "
+            f"{b['bound_ms'] / dev_t[(B, kv)]:.1%}), twin {plain:.4f} ms, "
+            f"{sdpa}bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+            f"{sweep[(B, kv)]}")
+    if failed:
+        raise AssertionError(f"flash_decode kernel disagrees with its twin: "
+                             f"{failed}")
+    if not timed:
+        return {}
     ms, plain, b, lib = timing[(ATTN_B[0], "bf16")]
     return {"name": "flash_decode", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/flash_decode.cu",
             "replaces": "qwen3_tts_tpu/ops/flash_decode.py:255",
             "also_replaces": "qwen3_tts_tpu/ops/flash_decode.py:277",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain, **b,
+            "max_abs_err": worst, "ms": ms,
+            "device_ms": dev_t[(ATTN_B[0], "bf16")], "plain_ms": plain, **b,
             "library_ms": lib,
+            "b32": {"ms": timing[(ATTN_B[1], "bf16")][0],
+                    "device_ms": dev_t[(ATTN_B[1], "bf16")],
+                    "bound_ms": timing[(ATTN_B[1], "bf16")][2]["bound_ms"],
+                    "library_ms": timing[(ATTN_B[1], "bf16")][3]},
             "shape": f"B={ATTN_B[0]} bf16 window mode, read_ctx={ATTN_S}, "
                      "one layer"}
+
+
+def _split_sweep(kw, q, k, v, ks, vs, read_ctx) -> str:
+    """Device ms of a call at each tiles-per-split of SPLIT_SWEEP, the
+    wrapper's plan replaced for the measurement, beside the plan's own."""
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    plan, n_tiles = fd.split_plan, -(-read_ctx // fd.BLOCK)
+    picked = plan(q.shape[0] * k.shape[1], n_tiles, fd._sm_count(q.device))
+    out = []
+    try:
+        for per in SPLIT_SWEEP:
+            fd.split_plan = lambda *_, per=per: (per, -(-n_tiles // per))
+            ms = device_ms(lambda: _attn_call(kw, q, k, v, ks, vs, read_ctx,
+                                              False), 20, ("fd_",))
+            out.append(f"{per} {ms:.4f}")
+    finally:
+        fd.split_plan = plan
+    return (f"device ms by tiles per split (the plan takes {picked[0]}): "
+            + ", ".join(out))
 
 
 def _attn_counted(kw, q, read_ctx):
@@ -756,8 +931,10 @@ def lockstep_run(engine, impl, kv, temperature, card, counters, dev) -> dict:
     from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
     os.environ["QWEN3_TTS_KV"] = kv
     talker.set_talker_step_impl(impl)
+    from qwen3_tts_tpu_torch import kernels
     for fn in counters.values():
         fn.launches = 0
+    coop0 = kernels.codepred_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     try:
@@ -781,7 +958,67 @@ def lockstep_run(engine, impl, kv, temperature, card, counters, dev) -> dict:
         f"; generate {res[0].t_generate_ms / steps:.2f} ms per lock-step "
         f"frame ({steps} frames) on {card}; kernel launches {ran}")
     _expect_launches(ran, impl, "synthesize_batch")
+    coop = kernels.codepred_launches() - coop0
+    log(f"  code predictor: {coop} cooperative launches for {steps} frames "
+        f"({ran['codepred']} wrapper calls)")
+    if not coop == ran["codepred"] == steps:
+        raise AssertionError("the code predictor did not make exactly one "
+                             "kernel launch per lock-step frame")
     return ran
+
+
+PROFILE_TOKENS = 40           # one 40-frame chunk under the profiler
+PROFILE_GROUPS = (("code predictor", ("codepred",)),
+                  ("talker megakernel", ("talker_step",)),
+                  ("decode attention", ("fd_",)),
+                  ("vocoder kernels", ("res_block", "snake_convt")))
+
+
+def profile_lockstep(engine, card, dev) -> None:
+    """One greedy bf16 synthesize_batch (4 requests, one 40-frame chunk)
+    under torch.profiler and QWEN3_TTS_TALKER=auto: device ms per
+    lock-step frame by kernel group, the rest of the kernels, and the
+    share of the wall the card was busy (union of kernel intervals)."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
+    os.environ["QWEN3_TTS_KV"] = "bf16"
+    talker.set_talker_step_impl("auto")
+    params = TTSParams(max_audio_tokens=PROFILE_TOKENS, temperature=0.0,
+                       seed=SEED)
+    try:
+        engine.synthesize_batch(LOCKSTEP_TEXTS, params=params)  # warm
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            res = engine.synthesize_batch(LOCKSTEP_TEXTS, params=params)
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+    finally:
+        talker.set_talker_step_impl(None)
+    events = _kernel_events(prof)
+    frames = max(r.n_frames for r in res)
+    groups, rest = {}, 0.0
+    for name, start, end in events:
+        for label, keys in PROFILE_GROUPS:
+            if any(k in name for k in keys):
+                groups[label] = groups.get(label, 0.0) + (end - start)
+                break
+        else:
+            rest += end - start
+    busy, last = 0.0, float("-inf")
+    for _, start, end in sorted(events, key=lambda e: e[1]):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    split = ", ".join(f"{k} {v / 1e3 / frames:.3f}" for k, v in groups.items())
+    log(f"profiled synthesize_batch talker=auto kv=bf16 greedy, {frames} "
+        f"lock-step frames, wall {wall:.1f} ms (generate "
+        f"{res[0].t_generate_ms:.1f} ms, decode {res[0].t_decode_ms:.1f} ms; "
+        f"host clock under the profiler) on {card}: device ms per frame: "
+        f"{split}, other kernels {rest / 1e3 / frames:.3f} "
+        f"({len(events)} kernels in all); card busy {busy / 1e3:.1f} ms, "
+        f"{busy / 1e3 / wall:.1%} of the wall")
 
 
 def _clone_cache(cache):
@@ -922,7 +1159,71 @@ def check_captured(captures, talker_w, cfg, dev, gen) -> None:
         raise AssertionError("no live ring state with a wrapped window")
 
 
+COMPARE_CHILD = r"""
+import importlib.util, json, sys
+import torch
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from qwen3_tts_tpu_torch.config import TalkerConfig
+from qwen3_tts_tpu_torch.models import weights as W
+from qwen3_tts_tpu_torch.ops import codepred_fused as cf
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+cfg = TalkerConfig(text_vocab_size=16, n_layers=1)
+w = W.init_talker_weights(cfg, gen, dev)
+out = {}
+for B in cs.CODEPRED_TIME_B:
+    hidden, cb0, noise = cs._codepred_inputs(cfg, B, dev, gen)
+    fn = lambda: cf.predict_codes_fused(w, cfg, hidden, cb0, 0.9, 50,
+                                        gumbel=noise)
+    out[f"codepred B={B}"] = [cs.cuda_time(fn, iters=10),
+                              cs.device_ms(fn, 5, ("",))]
+for B in cs.ATTN_B:
+    caches = cs._attn_cache(B, cs.ATTN_S, dev, gen)
+    q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
+    kw = cs._attn_cases(B, cs.ATTN_S, cs.ATTN_S, dev, gen)["window"]
+    for kv, (k, v, ks, vs) in caches.items():
+        fn = lambda: cs._attn_call(kw, q, k, v, ks, vs, cs.ATTN_S, False)
+        out[f"flash_decode window B={B} {kv}"] = [
+            cs.cuda_time(fn, iters=20), cs.device_ms(fn, 20, ("",))]
+print("COMPARE " + json.dumps(out), flush=True)
+"""
+
+
+def compare(parent: str) -> int:
+    """Time the code predictor (B 8 / 64 / 192) and decode attention
+    (window mode, read_ctx 1,152, B 8 / 32) through their public wrappers
+    in the checkout at `parent` and in this one, in turns parent, this,
+    this, parent, each in a child process of its own on this card: CUDA
+    events per call and the profiler's device ms per call (every kernel
+    the call ran)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    _, card = device_info()
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for name, root in (("parent", parent), ("change", here),
+                       ("change", here), ("parent", parent)):
+        out = subprocess.run(
+            [sys.executable, "-c", COMPARE_CHILD, os.path.join(
+                here, "chip_smoke.py")], cwd=os.path.abspath(root),
+            capture_output=True, text=True, timeout=900)
+        lines = [l for l in out.stdout.splitlines() if l.startswith("COMPARE")]
+        if out.returncode != 0 or not lines:
+            raise SystemExit(f"compare {name} failed:\n{out.stderr[-3000:]}")
+        runs.append((name, json.loads(lines[0][len("COMPARE "):])))
+        log(f"{name} ({root}): " + ", ".join(
+            f"{k} {v[0]:.4f} ms (device {v[1]:.4f})"
+            for k, v in runs[-1][1].items()) + f" on {card}")
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        return compare(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
@@ -948,6 +1249,7 @@ def main() -> int:
     lib_path = kernels.build()
     kernels.lib()
     log(f"built {lib_path.name} in {time.monotonic() - t0:.1f} s")
+    log("ptxas: " + "; ".join(ptxas_summary(kernels.build_log())))
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg, vcfg = TalkerConfig(), VocoderConfig()
@@ -992,6 +1294,7 @@ def main() -> int:
     for impl, kv, temperature in LOCKSTEP_RUNS:
         ran = lockstep_run(engine, impl, kv, temperature, card, counters, dev)
         lockstep = {k: lockstep[k] + ran[k] for k in counters}
+    profile_lockstep(engine, card, dev)
     serving, captured = dict.fromkeys(counters, 0), []
     for impl, kv in SERVE_RUNS:
         ran, caps = serve_run(engine, impl, kv, card, counters, dev)

@@ -1,205 +1,443 @@
-// Code predictor for one frame, as hand-written kernels driven position by
-// position from qwen3_tts_tpu_torch/ops/codepred_fused.py.
-//
-// Replaces: qwen3_tts_tpu/ops/codepred_fused.py::predict_codes_fused (the
+// The code predictor's whole frame in ONE persistent cooperative launch:
+// replaces qwen3_tts_tpu/ops/codepred_fused.py::predict_codes_fused (the
 // Pallas megakernel, body _make_kernel): 16 single-token positions through
-// the 5 shared layers, attention over a 16-slot KV cache, the per-step
-// lm_head and top-k + Gumbel-argmax sampling.
+// the 5 shared layers, attention over a 16-slot KV cache, the per-position
+// lm_head and top-k + Gumbel-argmax sampling, all in one program.
 //
-// What bounds it on the H100: reading the weights. Each position streams
-// ~157 MB of bf16 layer weights plus a 4 MB head at M = batch rows, which
-// is far below the card's ~295 flop/byte ridge at serving batches, so the
-// skinny GEMM is a bandwidth kernel: each warp streams 16-byte rows of the
-// weight matrix (coalesced along N), the batch rows sit in shared memory,
-// and K is split across blocks (split-K, fixed order, deterministic) so
-// that enough loads are in flight to cover the memory latency. A second
-// small kernel sums the K-splits and applies the epilogue (store, residual
-// add, or SiLU(gate)*up rounded to bf16). Attention is at most 16 slots
-// per (stream, kv head) and runs in f32 in one block each, which also
-// writes the position's K/V row into the bf16 cache. Sampling is one block
-// per row: exact k-th threshold by a 32-step binary search in monotone
-// uint32 space (ties kept), then Gumbel-argmax on noise from the caller.
-// Plain FMA in f32 on bf16 operands, f32 accumulation; no tensor cores yet.
-#include "common.cuh"
+// What bounds it on the H100. Bytes at small batches: a position streams
+// the 157 MB of bf16 layer weights (which do not fit in the 50 MB L2, so
+// every position reads them again: ~2.6 GB, ~0.77 ms a frame) plus a
+// 4 MB head. Operations at serving batches: 2 x B x 78.6 M FLOP a position
+// (0.48 TFLOP a frame at B = 192, ~0.5 ms on bf16 tensor cores and ~7 ms
+// on FP32 FMA). And, as first ported, ~960 launches a frame from Python.
+// So the design:
+// - one cooperative launch of at most 2 CTAs a SM (sized by occupancy,
+//   cached) runs the loops over positions and layers itself; a grid
+//   barrier separates the phases. Per (position, layer):
+//    1. per stream: the down product's K-split sums + residual add +
+//       RMSNorm -> bf16 xn (layer 0: done by the phase that wrote x);
+//    2. the QKV product;
+//    3. per (stream, kv head): the QKV K-split sums, head RMSNorms, NEOX
+//       RoPE, the bf16 K/V row of slot p written in place, attention of the
+//       two query heads over slots 0..p in f32 -> bf16;
+//    4. the wo product; 5. per stream: residual + RMSNorm -> bf16 xn;
+//    6. the gate/up product; 7. bf16(silu(g) * u) from its K splits;
+//    8. the down product;
+//   8 grid barriers per (position, layer), 7 in layer 0. Per position
+//   p >= 1 three more: the output RMSNorm, the head product, and the
+//   sampler, whose CTA (one a stream) also gathers the next position's
+//   embedding row into x and normalizes it (phase 1 of layer 0). Position
+//   0 stops after layer 4's attention (its output is never read), where
+//   the embedding of cb0 is gathered. 664 grid barriers a frame. (Folding
+//   7 into 6, as an epilogue over the whole K, leaves 96 items of 16
+//   chunks each, which was slower on an H100 than the split product and
+//   its extra barrier.) An optional clock (phase_ns) times each phase
+//   kind;
+// - products on tensor cores: mma.sync.aligned.m16n8k16 bf16 -> f32. An
+//   item is 64 output columns (one n8 slice a warp) x 256 K rows.
+//   Activation rows (bf16, written earlier in the launch) and weight rows
+//   stream through a 4-stage cp.async ring of 64-row K chunks (A [64
+//   rows][64 k] and W [64 k][64 cols], XOR-swizzled 16-byte chunks),
+//   three chunks in flight ahead of the one the tensor cores consume,
+//   across the item's and the next items' chunks. A fragments come from
+//   ldmatrix.x4, B fragments from ldmatrix.x2.trans on the [K, N]
+//   row-major weights (the JAX layout, nothing packed). Rows go in groups
+//   of up to 64 (4 m16 tiles; any B >= 1, ragged tiles zero-filled); a
+//   second group streams the item's weights again (from L2). Split-K
+//   partial sums go to scratch and the consuming phase adds them in a
+//   fixed order: no atomics, deterministic;
+// - every read of data written in the launch goes through L2 (__ldcg,
+//   cp.async.cg): L1 is not coherent across SMs.
+// Numerics as the twin (ops/codepred_fused.py): xn rounded to bf16 before
+// each product, f32 accumulation, head norms, RoPE and softmax in f32, the
+// attention output and silu(g) * u rounded to bf16; greedy = first
+// argmax; sampled = exact top-k threshold (32-step binary search over
+// monotone uint32 keys, ties kept), then first argmax of z + noise.
+
+#include <cooperative_groups.h>
+#include <math_constants.h>
+
+#include <algorithm>
+
+#include "attn_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int GK = 128;  // K rows per block (8 warps x 16)
-constexpr int GN = 256;  // columns per block (32 lanes x 8)
-constexpr int GM = 8;    // batch rows per block
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+// the 0.6B code predictor
+constexpr int H = 1024, NH = 16, NKV = 8, D = 128, I = 3072, V = 2048;
+constexpr int L = 5, CTX = 16;
+constexpr int NQKV = (NH + 2 * NKV) * D;            // 4096
+// products
+constexpr int NT = 64;            // item columns: 8 warps x n8
+constexpr int KC = 64;            // K rows a ring stage
+constexpr int MG = 64;            // stream rows a pass (4 m16 tiles)
+constexpr int NST = 4;            // ring stages
+constexpr int KSPAN = 256;        // K rows a split-K item sums
+constexpr int A_BYTES = MG * KC * 2;
+constexpr int STAGE_BYTES = A_BYTES + KC * NT * 2;  // 16 KB
+constexpr int SMEM_BYTES = NST * STAGE_BYTES;
+static_assert(NT == WARPS * 8, "one n8 slice a warp");
+static_assert(2 * CTX * D * 4 <= SMEM_BYTES, "attention rows fit");
+static_assert((CTX - 1) * D / 8 <= THREADS, "earlier slots in one load");
 
-// part[ks][m][n] = sum_{k in split ks} A[m][k] * W[k][n]
-__global__ void __launch_bounds__(256) gemm_splitk_kernel(
-    const bf16* __restrict__ A, const bf16* __restrict__ W,
-    float* __restrict__ part, int M, int K, int N) {
-  __shared__ float As[GM][GK];
-  __shared__ float red[8][GN];
-  const int n0 = blockIdx.x * GN, ks = blockIdx.y, k0 = ks * GK;
-  const int m0 = blockIdx.z * GM;
+struct Params {
+  const float* hidden;     // [B, H]
+  const int* cb0;          // [B]
+  const bf16* codec_embd;  // [n_codec, H]
+  const bf16* wqkv;        // [L, H, NQKV]
+  const bf16* wo;          // [L, NH * D, H]
+  const bf16* wgu;         // [L, H, 2I]
+  const bf16* wdown;       // [L, I, H]
+  const float* attn_norm;  // [L, H]
+  const float* ffn_norm;   // [L, H]
+  const float* q_norm;     // [L, D]
+  const float* k_norm;     // [L, D]
+  const float* out_norm;   // [H]
+  const bf16* heads;       // [15, H, V]
+  const bf16* embd;        // [15, V, H]
+  const float* gumbel;     // [15, B, V], null when greedy
+  const float* rope_c;     // [CTX, D]: [cos | cos]
+  const float* rope_s;     // [CTX, D]: [-sin | sin]
+  float* logits;           // [15, B, V] or null
+  int* codes;              // [B, 15]
+  float* x;                // [B, H] residual stream
+  bf16* xn;                // [B, H] the next product's input
+  bf16* attn;              // [B, NH * D]
+  bf16* act;               // [B, I]
+  float* part;             // [splits, B, N] split-K sums, <= 4 x 6144
+  bf16* kc;                // [L, B, NKV, CTX, D]
+  bf16* vc;
+  unsigned long long* phase_ns;  // [PH_KINDS] ns by phase kind, or null
+  int n_codec, B, top_k, greedy;
+  float eps, tinv;
+};
+
+// Phase kinds of the optional clock: CTA 0 adds the globaltimer time from
+// one barrier's end to the next (the phase and its barrier) to
+// phase_ns[kind].
+enum { PH_NORM, PH_QKV, PH_ATTN, PH_WO, PH_GU, PH_ACT, PH_DOWN, PH_HEAD,
+       PH_SAMPLE, PH_KINDS };
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void clock_mark(const Params& p, int kind,
+                                           unsigned long long& t_mark) {
+  const unsigned long long t = globaltimer();
+  p.phase_ns[kind] += t - t_mark;
+  t_mark = t;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// byte offset of 16-byte chunk ch of row r in a [rows][128 B] swizzled tile
+__device__ __forceinline__ int swz(int r, int ch) {
+  return r * 128 + ((ch ^ (r & 7)) << 4);
+}
+
+// One product phase: part[ks][m][n] = the sum over the K rows of split ks
+// of A[m][k] W[k][n], for A [B, K] (bf16, written earlier in the launch)
+// and W [K, ldw] (bf16), in items of NT columns x KSPAN rows.
+struct Prod {
+  const bf16* A;
+  int lda;
+  const bf16* W;
+  int ldw, K;
+};
+
+// Chunk c of a CTA's share of a product: its item, row group and K chunk.
+struct Chunk { int tile, ks, m0, n_mt, kc; };
+
+__device__ void phase_product(const Params& p, const Prod& pr, char* smem) {
+  constexpr int n_kc = KSPAN / KC;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < GM * GK; i += 256) {
-    const int m = i / GK, k = i % GK;
-    As[m][k] = (m0 + m < M) ? bf2f(A[(size_t)(m0 + m) * K + k0 + k]) : 0.f;
-  }
-  __syncthreads();
-  float acc[GM][8];
-#pragma unroll
-  for (int m = 0; m < GM; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-  const int n = n0 + lane * 8;
-  if (n < N) {
-    const bf16* wp = W + (size_t)(k0 + warp * 16) * N + n;
-#pragma unroll 4
-    for (int kk = 0; kk < 16; ++kk) {
-      float w8[8];
-      unpack8(__ldg(reinterpret_cast<const uint4*>(wp + (size_t)kk * N)), w8);
-      const int k = warp * 16 + kk;
-#pragma unroll
-      for (int m = 0; m < GM; ++m) {
-        const float a = As[m][k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(a, w8[j], acc[m][j]);
+  const int n_tiles = pr.ldw / NT, n_items = n_tiles * (pr.K / KSPAN);
+  const int mine = blockIdx.x < n_items
+      ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int per_item = (p.B + MG - 1) / MG * n_kc, total = mine * per_item;
+  const auto decode = [&](int c) {
+    Chunk ch;
+    const int it = blockIdx.x + (c / per_item) * gridDim.x;
+    const int rem = c % per_item;
+    ch.tile = it % n_tiles;
+    ch.ks = it / n_tiles;
+    ch.m0 = (rem / n_kc) * MG;
+    ch.n_mt = min(MG / 16, (p.B - ch.m0 + 15) / 16);
+    ch.kc = rem % n_kc;
+    return ch;
+  };
+  // chunk c -> stage c % NST: its A rows (zero past B), then its W rows
+  const auto issue = [&](int c) {
+    if (c < total) {
+      const Chunk ch = decode(c);
+      char* sa = smem + (c % NST) * STAGE_BYTES;
+      char* sw = sa + A_BYTES;
+      const int k0 = ch.ks * KSPAN + ch.kc * KC;
+      for (int i = tid; i < ch.n_mt * 16 * 8; i += THREADS) {
+        const int r = i >> 3, c16 = i & 7, m = ch.m0 + r;
+        if (m < p.B)
+          cp_async16(sa + swz(r, c16),
+                     pr.A + (size_t)m * pr.lda + k0 + c16 * 8);
+        else
+          *reinterpret_cast<uint4*>(sa + swz(r, c16)) = make_uint4(0, 0, 0, 0);
+      }
+      for (int i = tid; i < KC * 8; i += THREADS) {
+        const int r = i >> 3, c16 = i & 7;
+        cp_async16(sw + swz(r, c16), pr.W + (size_t)(k0 + r) * pr.ldw +
+                                         ch.tile * NT + c16 * 8);
       }
     }
-  }
+    cp_async_commit();                  // empty past the end: counts stay
+  };
+
+  float acc[4][4];
 #pragma unroll
-  for (int m = 0; m < GM; ++m) {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) red[warp][lane * 8 + j] = acc[m][j];
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) issue(s);
+  for (int c = 0; c < total; ++c) {
+    issue(c + NST - 1);
+    cp_async_wait<NST - 1>();
     __syncthreads();
-    if (m0 + m < M && n0 + tid < N) {
+    const Chunk ch = decode(c);
+    const char* sa = smem + (c % NST) * STAGE_BYTES;
+    const char* sw = sa + A_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      uint32_t b[2];
+      const int kr = kk * 16 + (lane & 15);
+      ldsm_x2_trans(b, sw + swz(kr, warp));
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt < ch.n_mt) {
+          uint32_t a[4];
+          ldsm_x4(a, sa + swz(mt * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+          mma_bf16(acc[mt], a, b);
+        }
+      }
+    }
+    if (ch.kc == n_kc - 1) {            // the item's row group is summed
+      const int r0 = lane >> 2;
+      float* out = p.part + (size_t)ch.ks * p.B * pr.ldw + ch.tile * NT +
+                   warp * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int m = ch.m0 + mt * 16 + r0 + hf * 8;
+          if (mt < ch.n_mt && m < p.B)
+            *reinterpret_cast<float2*>(out + (size_t)m * pr.ldw) =
+                make_float2(acc[mt][2 * hf], acc[mt][2 * hf + 1]);
+          acc[mt][2 * hf] = acc[mt][2 * hf + 1] = 0.f;
+        }
+      }
+    }
+    __syncthreads();                    // the stage may be refilled
+  }
+}
+
+// act[b][j] = bf16(silu(g) * u) from the gate/up product's K splits,
+// summed in order ([g | u] = columns j and I + j).
+__device__ void phase_act(const Params& p) {
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < p.B * I;
+       i += gridDim.x * THREADS) {
+    const int b = i / I, j = i % I;
+    float g = 0.f, u = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < H / KSPAN; ++ks) {
+      const float* pr = p.part + ((size_t)ks * p.B + b) * 2 * I;
+      g += __ldcg(pr + j);
+      u += __ldcg(pr + I + j);
+    }
+    p.act[i] = f2bf((g / (1.f + expf(-g))) * u);
+  }
+}
+
+// x[b] = base[b] or x[b], plus the KSPLIT partial sums of a [KSPLIT, B, H]
+// product in order; xn[b] = bf16(RMSNorm(x[b]) * w). One CTA per stream.
+// KSPLIT is a constant so that every load is issued before the first sum.
+template <int KSPLIT>
+__device__ void phase_norm(const Params& p, const float* base,
+                           const float* w) {
+  __shared__ float red[WARPS];
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    float xv[H / THREADS], ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < H / THREADS; ++j) {
+      const size_t o = (size_t)b * H + threadIdx.x + j * THREADS;
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < 8; ++w) s += red[w][tid];
-      part[((size_t)ks * M + m0 + m) * N + n0 + tid] = s;
+      for (int ks = 0; ks < KSPLIT; ++ks)
+        s += __ldcg(p.part + (size_t)ks * p.B * H + o);
+      xv[j] = (base ? base[o] : __ldcg(p.x + o)) + s;
+      p.x[o] = xv[j];
+      ss += xv[j] * xv[j];
     }
-    __syncthreads();
+    const float scale = rsqrtf(block_sum<WARPS>(ss, red) / (float)H + p.eps);
+#pragma unroll
+    for (int j = 0; j < H / THREADS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      p.xn[(size_t)b * H + i] = f2bf((xv[j] * scale) * w[i]);
+    }
   }
 }
 
-// mode 0: outf = sum; mode 1: outf += sum (residual, in place);
-// mode 2: N = 2I columns [gate | up] -> outb[m][j] = bf16(silu(g) * u)
-__global__ void gemm_reduce_kernel(const float* __restrict__ part, int splits,
-                                   int M, int N, int mode,
-                                   float* __restrict__ outf,
-                                   bf16* __restrict__ outb) {
-  const int idx = blockIdx.x * 256 + threadIdx.x;
-  if (mode == 2) {
-    const int I = N / 2;
-    if (idx >= M * I) return;
-    const int m = idx / I, j = idx % I;
-    float g = 0.f, u = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float* pr = part + ((size_t)s * M + m) * N;
-      g += pr[j];
-      u += pr[I + j];
-    }
-    outb[(size_t)m * I + j] = f2bf((g / (1.f + expf(-g))) * u);
-    return;
+// x[b] = row (a bf16 embedding row), xn[b] = bf16(RMSNorm(x[b]) *
+// attn_norm[0]): layer 0's input of the next position.
+__device__ void embed_norm(const Params& p, int b, const bf16* row,
+                           float* red) {
+  float xv[H / THREADS], ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < H / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    xv[j] = bf2f(row[i]);
+    p.x[(size_t)b * H + i] = xv[j];
+    ss += xv[j] * xv[j];
   }
-  if (idx >= M * N) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * M * N + idx];
-  if (mode == 0) outf[idx] = s;
-  else outf[idx] += s;
+  const float scale = rsqrtf(block_sum<WARPS>(ss, red) / (float)H + p.eps);
+#pragma unroll
+  for (int j = 0; j < H / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    p.xn[(size_t)b * H + i] = f2bf((xv[j] * scale) * p.attn_norm[i]);
+  }
 }
 
-// out[m] = bf16((x[m] * rsqrt(mean(x[m]^2) + eps)) * w)
-__global__ void __launch_bounds__(256) rmsnorm_bf16_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    bf16* __restrict__ out, int H, float eps) {
-  __shared__ float red[8];
-  const float* xr = x + (size_t)blockIdx.x * H;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < H; i += 256) ss += xr[i] * xr[i];
-  const float scale = rsqrtf(block_sum<8>(ss, red) / (float)H + eps);
-  for (int i = threadIdx.x; i < H; i += 256)
-    out[(size_t)blockIdx.x * H + i] = f2bf((xr[i] * scale) * w[i]);
-}
-
-constexpr int D = 128, NH = 16, NKV = 8, G = NH / NKV, CTX = 16;
-
-// One block per (stream b, kv head): q/k head RMSNorm, NEOX RoPE (tables
-// c = [cos|cos], s = [-sin|sin] at position p), write the K/V row of slot p,
-// then both q heads of the group attend slots 0..p in f32.
-// qkv: [B, (NH+2NKV)*D] f32; kc/vc: this layer's [CTX, B, NKV, D] bf16;
-// out: [B, NH*D] bf16.
-__global__ void __launch_bounds__(D) cp_attn_kernel(
-    const float* __restrict__ qkv, bf16* __restrict__ kc,
-    bf16* __restrict__ vc, const float* __restrict__ qn,
-    const float* __restrict__ kn, const float* __restrict__ crow,
-    const float* __restrict__ srow, bf16* __restrict__ out, int B, int p,
-    float eps) {
-  __shared__ float red[D / 32];
-  __shared__ float buf[D];
-  __shared__ float sc[CTX];
-  const int b = blockIdx.x, kh = blockIdx.y, d = threadIdx.x;
-  const float* row = qkv + (size_t)b * (NH + 2 * NKV) * D;
-  const float c = crow[d], s = srow[d];
+// Per (stream b, kv head h): sum the QKV product's 4 K splits; round 0
+// treats the two query heads (one per half of the CTA), round 1 k (half 0)
+// and v (half 1); q and k get head RMSNorm and NEOX RoPE at position pos;
+// the bf16 K/V row goes to slot pos of layer l; then both query heads
+// attend slots 0..pos in f32 -> attn (bf16). With embed, B more items
+// gather codec_embd[cb0[b]] for position 1.
+__device__ void phase_attn(const Params& p, int l, int pos, bool embed,
+                           char* smem) {
+  __shared__ float buf[THREADS];
+  __shared__ float red[WARPS];
+  __shared__ float qs[2][D];
+  __shared__ float sc[2][CTX];
+  float* ks = reinterpret_cast<float*>(smem);      // [CTX][D]
+  float* vs = ks + CTX * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int half = tid >> 7, d = tid & (D - 1);
+  const float c = p.rope_c[pos * D + d], s = p.rope_s[pos * D + d];
   const float qscale = (float)0.088388347648318440550;  // D ** -0.5
-
-  float k = row[NH * D + kh * D + d];
-  const float kms = block_sum<D / 32>(k * k, red) / (float)D;
-  k = (k * rsqrtf(kms + eps)) * kn[d];
-  buf[d] = k;
-  __syncthreads();
-  const float kr = k * c + buf[(d + D / 2) & (D - 1)] * s;
-  const size_t slot = ((size_t)p * B + b) * NKV + kh;
-  kc[slot * D + d] = f2bf(kr);
-  vc[slot * D + d] = f2bf(row[(NH + NKV) * D + kh * D + d]);
-  __syncthreads();
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kh * G + g;
-    float q = row[h * D + d];
-    const float qms = block_sum<D / 32>(q * q, red) / (float)D;
-    q = (q * rsqrtf(qms + eps)) * qn[d];
-    buf[d] = q;
-    __syncthreads();
-    q = (q * c + buf[(d + D / 2) & (D - 1)] * s) * qscale;
-    for (int j = 0; j <= p; ++j) {
-      const float kv = bf2f(kc[(((size_t)j * B + b) * NKV + kh) * D + d]);
-      const float dot = block_sum<D / 32>(q * kv, red);
-      if (d == 0) sc[j] = dot;
+  const int n_attn = p.B * NKV;
+  for (int it = blockIdx.x; it < n_attn + (embed ? p.B : 0);
+       it += gridDim.x) {
+    if (it >= n_attn) {
+      const int b = it - n_attn;
+      const int code = min(max(__ldg(p.cb0 + b), 0), p.n_codec - 1);
+      embed_norm(p, b, p.codec_embd + (size_t)code * H, red);
+      continue;
+    }
+    const int b = it / NKV, h = it % NKV;
+    const size_t slot0 = (((size_t)l * p.B + b) * NKV + h) * CTX * D;
+    for (int round = 0; round < 2; ++round) {
+      const int col = round == 0 ? (2 * h + half) * D + d
+                                 : (NH + half * NKV + h) * D + d;
+      float v = 0.f;
+#pragma unroll
+      for (int k4 = 0; k4 < H / KSPAN; ++k4)
+        v += __ldcg(p.part + ((size_t)k4 * p.B + b) * NQKV + col);
+      const bool roped = round == 0 || half == 0;
+      const float ss = half_reduce<false>(v * v, red);
+      if (roped) {
+        const float* nw = round == 0 ? p.q_norm : p.k_norm;
+        v = (v * rsqrtf(ss / (float)D + p.eps)) * nw[l * D + d];
+      }
+      __syncthreads();                              // buf is free
+      buf[tid] = v;
+      __syncthreads();
+      if (roped) v = v * c + buf[half * D + ((d + D / 2) & (D - 1))] * s;
+      if (round == 0) {
+        qs[half][d] = v * qscale;
+        continue;
+      }
+      const bf16 r = f2bf(v);
+      (half == 0 ? p.kc : p.vc)[slot0 + pos * D + d] = r;
+      (half == 0 ? ks : vs)[pos * D + d] = bf2f(r);
+    }
+    if (tid < pos * D / 8) {            // earlier slots via L2, 16 B a thread
+      float kv[8], vv[8];
+      unpack8(__ldcg(reinterpret_cast<const uint4*>(p.kc + slot0) + tid), kv);
+      unpack8(__ldcg(reinterpret_cast<const uint4*>(p.vc + slot0) + tid), vv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        ks[tid * 8 + j] = kv[j];
+        vs[tid * 8 + j] = vv[j];
+      }
     }
     __syncthreads();
-    float m = -INFINITY;
-    for (int j = 0; j <= p; ++j) m = fmaxf(m, sc[j]);
+    for (int j = warp; j <= pos; j += WARPS) {      // scores: a warp a slot
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const float kv = ks[j * D + lane + 32 * i];
+        d0 = fmaf(qs[0][lane + 32 * i], kv, d0);
+        d1 = fmaf(qs[1][lane + 32 * i], kv, d1);
+      }
+      d0 = warp_sum(d0);
+      d1 = warp_sum(d1);
+      if (lane == 0) {
+        sc[0][j] = d0;
+        sc[1][j] = d1;
+      }
+    }
+    __syncthreads();
+    float m = -CUDART_INF_F;
+    for (int j = 0; j <= pos; ++j) m = fmaxf(m, sc[half][j]);
     float den = 0.f, acc = 0.f;
-    for (int j = 0; j <= p; ++j) {
-      const float e = expf(sc[j] - m);
+    for (int j = 0; j <= pos; ++j) {
+      const float e = expf(sc[half][j] - m);
       den += e;
-      acc += e * bf2f(vc[(((size_t)j * B + b) * NKV + kh) * D + d]);
+      acc = fmaf(e, vs[j * D + d], acc);
     }
-    out[(size_t)b * NH * D + h * D + d] = f2bf(acc / den);
-    __syncthreads();
+    p.attn[(size_t)b * NH * D + (2 * h + half) * D + d] = f2bf(acc / den);
+    __syncthreads();                    // ks, vs, qs, sc free for the next
   }
 }
-
-// x[b] = table[codes[b*ld + col]] (bf16 row gather into f32)
-__global__ void embed_kernel(const bf16* __restrict__ table, int n_rows,
-                             const int* __restrict__ codes, int ld, int col,
-                             float* __restrict__ x, int H) {
-  const int b = blockIdx.x;
-  int code = codes[(size_t)b * ld + col];
-  code = min(max(code, 0), n_rows - 1);
-  const bf16* src = table + (size_t)code * H;
-  for (int i = threadIdx.x; i < H; i += 256) x[(size_t)b * H + i] = bf2f(src[i]);
-}
-
-constexpr int SV = 2048;           // max vocabulary of one row
-constexpr int SPT = SV / 256;      // values per thread
 
 __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov,
                                              int oi) {
   if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
 }
 
-// First index of the row maximum over the block (256 threads).
+// First index of the row maximum over the CTA; every thread gets it.
 __device__ int block_first_argmax(float v, int i) {
-  __shared__ float sv[8];
-  __shared__ int si[8];
+  __shared__ float sv[WARPS];
+  __shared__ int si[WARPS];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     argmax_merge(v, i, __shfl_xor_sync(0xffffffffu, v, o),
@@ -210,102 +448,195 @@ __device__ int block_first_argmax(float v, int i) {
   __syncthreads();
   float bv = sv[0];
   int bi = si[0];
-  for (int w = 1; w < 8; ++w) argmax_merge(bv, bi, sv[w], si[w]);
+  for (int w = 1; w < WARPS; ++w) argmax_merge(bv, bi, sv[w], si[w]);
   return bi;
 }
 
-// One block per row: greedy = first argmax of the logits; otherwise
-// z = logits * tinv, keep z >= k-th largest (ties kept), add Gumbel noise,
-// first argmax. Writes codes[b*ld + col].
-__global__ void __launch_bounds__(256) sample_kernel(
-    const float* __restrict__ logits, const float* __restrict__ gumbel,
-    int* __restrict__ codes, int ld, int col, int V, float tinv, int top_k,
-    int greedy) {
-  __shared__ float red[8];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float* row = logits + (size_t)b * V;
-  float bv = -INFINITY;
-  int bi = 0x7fffffff;
-  if (greedy) {
-    for (int j = 0; j < SPT; ++j) {
-      const int i = tid + j * 256;
-      if (i < V) argmax_merge(bv, bi, row[i], i);
-    }
-  } else {
-    float z[SPT];
-    uint32_t us[SPT];
+constexpr int SPT = V / THREADS;  // logits per thread
+
+// Position pos >= 1, one CTA per stream: logits = the head product's 4 K
+// splits in order (-> logits_out); greedy = first argmax; otherwise z =
+// logits * tinv, keep z >= its k-th largest (ties kept), first argmax of
+// z + noise. Writes codes[b][pos - 1]; before the last position, gathers
+// embd[pos - 1][code] as the next position's x and normalizes it.
+__device__ void phase_sample(const Params& p, int pos) {
+  __shared__ float red[WARPS];
+  const int tid = threadIdx.x;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    float lg[SPT];
 #pragma unroll
     for (int j = 0; j < SPT; ++j) {
-      const int i = tid + j * 256;
-      z[j] = i < V ? row[i] * tinv : -INFINITY;
-      const uint32_t u = __float_as_uint(z[j]);
-      us[j] = i < V ? (z[j] >= 0.f ? (u | 0x80000000u) : ~u) : 0u;
-    }
-    uint32_t t = 0u;
-    if (top_k > 0 && top_k < V) {
-      for (int bit = 31; bit >= 0; --bit) {
-        const uint32_t cand = t | (1u << bit);
-        float cnt = 0.f;
+      const int i = tid + j * THREADS;
+      float s = 0.f;
 #pragma unroll
-        for (int j = 0; j < SPT; ++j) cnt += us[j] >= cand ? 1.f : 0.f;
-        if (block_sum<8>(cnt, red) >= (float)top_k) t = cand;
+      for (int k4 = 0; k4 < H / KSPAN; ++k4)
+        s += __ldcg(p.part + ((size_t)k4 * p.B + b) * V + i);
+      lg[j] = s;
+      if (p.logits) p.logits[((size_t)(pos - 1) * p.B + b) * V + i] = s;
+    }
+    float bv = -CUDART_INF_F;
+    int bi = 0x7fffffff;
+    if (p.greedy) {
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) argmax_merge(bv, bi, lg[j], tid + j * THREADS);
+    } else {
+      float z[SPT];
+      uint32_t us[SPT];
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        z[j] = lg[j] * p.tinv;
+        const uint32_t u = __float_as_uint(z[j]);
+        us[j] = z[j] >= 0.f ? (u | 0x80000000u) : ~u;
+      }
+      uint32_t t = 0u;
+      if (p.top_k > 0 && p.top_k < V) {
+        for (int bit = 31; bit >= 0; --bit) {
+          const uint32_t cand = t | (1u << bit);
+          float cnt = 0.f;
+#pragma unroll
+          for (int j = 0; j < SPT; ++j) cnt += us[j] >= cand ? 1.f : 0.f;
+          if (block_sum<WARPS>(cnt, red) >= (float)p.top_k) t = cand;
+        }
+      }
+      const float* g = p.gumbel + ((size_t)(pos - 1) * p.B + b) * V;
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const int i = tid + j * THREADS;
+        argmax_merge(bv, bi, (us[j] >= t ? z[j] : -1.0e30f) + g[i], i);
       }
     }
-    const float* g = gumbel + (size_t)b * V;
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const int i = tid + j * 256;
-      if (i < V) argmax_merge(bv, bi, (us[j] >= t ? z[j] : -1.0e30f) + g[i], i);
-    }
+    int code = block_first_argmax(bv, bi);
+    code = (code >= 0 && code < V) ? code : 0;
+    if (tid == 0) p.codes[b * (CTX - 1) + pos - 1] = code;
+    if (pos < CTX - 1)
+      embed_norm(p, b, p.embd + ((size_t)(pos - 1) * V + code) * H, red);
   }
-  const int code = block_first_argmax(bv, bi);
-  if (tid == 0) codes[(size_t)b * ld + col] = (code >= 0 && code < V) ? code : 0;
+}
+
+__global__ void __launch_bounds__(THREADS, 2) codepred_frame_kernel(Params p) {
+  extern __shared__ __align__(16) char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const Prod qkv{p.xn, H, p.wqkv, NQKV, H};
+  const Prod wo{p.attn, NH * D, p.wo, H, NH * D};
+  const Prod gu{p.xn, H, p.wgu, 2 * I, H};
+  const Prod down{p.act, I, p.wdown, H, I};
+  const Prod head{p.xn, H, p.heads, V, H};
+  // a product's weights at layer l (or head p - 1)
+  const auto at = [](Prod pr, size_t offset) {
+    pr.W += offset;
+    return pr;
+  };
+  unsigned long long t_mark = globaltimer();
+  const auto sync = [&](int kind) {
+    grid.sync();
+    if (p.phase_ns && blockIdx.x == 0 && threadIdx.x == 0)
+      clock_mark(p, kind, t_mark);
+  };
+  phase_norm<0>(p, p.hidden, p.attn_norm);          // position 0's input
+  sync(PH_NORM);
+  for (int pos = 0; pos < CTX; ++pos) {
+    for (int l = 0; l < L; ++l) {
+      if (l > 0) {
+        phase_norm<I / KSPAN>(p, nullptr, p.attn_norm + (size_t)l * H);
+        sync(PH_NORM);
+      }
+      phase_product(p, at(qkv, (size_t)l * H * NQKV), smem);
+      sync(PH_QKV);
+      const bool last0 = pos == 0 && l == L - 1;
+      phase_attn(p, l, pos, last0, smem);
+      sync(PH_ATTN);
+      if (last0) break;                 // position 0's output is never read
+      phase_product(p, at(wo, (size_t)l * NH * D * H), smem);
+      sync(PH_WO);
+      phase_norm<NH * D / KSPAN>(p, nullptr, p.ffn_norm + (size_t)l * H);
+      sync(PH_NORM);
+      phase_product(p, at(gu, (size_t)l * H * 2 * I), smem);
+      sync(PH_GU);
+      phase_act(p);
+      sync(PH_ACT);
+      phase_product(p, at(down, (size_t)l * I * H), smem);
+      sync(PH_DOWN);
+    }
+    if (pos == 0) continue;
+    phase_norm<I / KSPAN>(p, nullptr, p.out_norm);
+    sync(PH_NORM);
+    phase_product(p, at(head, (size_t)(pos - 1) * H * V), smem);
+    sync(PH_HEAD);
+    phase_sample(p, pos);
+    if (pos < CTX - 1) sync(PH_SAMPLE);
+  }
+  if (p.phase_ns) sync(PH_SAMPLE);     // the last sampler's end
+}
+
+int g_launches = 0;               // cooperative launches made
+
+// The CTAs of one cooperative launch: occupancy x SMs, at most 2 a SM
+// (every CTA must be resident for the grid barrier). Sets the kernel's
+// shared-memory size on first use.
+cudaError_t grid_size(int* blocks) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, sms = 0, occ = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(codepred_frame_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, codepred_frame_kernel, THREADS, SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    cached = sms * std::min(occ, 2);
+  }
+  *blocks = cached;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-int q3_gemm(const void* A, const void* W, float* part, int M, int K, int N,
-            int mode, float* outf, void* outb, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((N + GN - 1) / GN, K / GK, (M + GM - 1) / GM);
-  gemm_splitk_kernel<<<grid, 256, 0, st>>>((const bf16*)A, (const bf16*)W,
-                                           part, M, K, N);
-  const int n_out = mode == 2 ? M * (N / 2) : M * N;
-  gemm_reduce_kernel<<<(n_out + 255) / 256, 256, 0, st>>>(
-      part, K / GK, M, N, mode, outf, (bf16*)outb);
+// Codes [B, 15] of one frame (Params above; scratch x, xn, attn, act, part
+// [24576 * B] f32, kc / vc [5, B, 8, 16, 128] bf16; phase_ns, when
+// given, [9] u64 that gains the ns of each phase kind). One cooperative
+// launch on `stream`; returns its error.
+int q3_codepred_frame(const float* hidden, const int* cb0,
+                      const void* codec_embd, const void* wqkv,
+                      const void* wo, const void* wgu, const void* wdown,
+                      const float* attn_norm, const float* ffn_norm,
+                      const float* q_norm, const float* k_norm,
+                      const float* out_norm, const void* heads,
+                      const void* embd, const float* gumbel,
+                      const float* rope_c, const float* rope_s, float* logits,
+                      int* codes, float* x, void* xn, void* attn, void* act,
+                      float* part, void* kc, void* vc,
+                      unsigned long long* phase_ns, int n_codec, int B,
+                      int top_k, int greedy, float eps, float tinv,
+                      void* stream) {
+  const auto b16 = [](const void* q) { return static_cast<const bf16*>(q); };
+  Params p{hidden, cb0, b16(codec_embd), b16(wqkv), b16(wo), b16(wgu),
+           b16(wdown), attn_norm, ffn_norm, q_norm, k_norm, out_norm,
+           b16(heads), b16(embd), gumbel, rope_c, rope_s, logits, codes, x,
+           static_cast<bf16*>(xn), static_cast<bf16*>(attn),
+           static_cast<bf16*>(act), part, static_cast<bf16*>(kc),
+           static_cast<bf16*>(vc), phase_ns, n_codec, B, top_k, greedy, eps,
+           tinv};
+  int blocks = 0;
+  cudaError_t e = grid_size(&blocks);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel((const void*)codepred_frame_kernel,
+                                  dim3(blocks), dim3(THREADS), args,
+                                  SMEM_BYTES, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  ++g_launches;
   return (int)cudaGetLastError();
 }
 
-int q3_rmsnorm_bf16(const float* x, const float* w, void* out, int M, int H,
-                    float eps, void* stream) {
-  rmsnorm_bf16_kernel<<<M, 256, 0, (cudaStream_t)stream>>>(x, w, (bf16*)out,
-                                                           H, eps);
-  return (int)cudaGetLastError();
-}
-
-int q3_cp_attention(const float* qkv, void* kc, void* vc, const float* qn,
-                    const float* kn, const float* crow, const float* srow,
-                    void* out, int B, int p, float eps, void* stream) {
-  cp_attn_kernel<<<dim3(B, NKV), D, 0, (cudaStream_t)stream>>>(
-      qkv, (bf16*)kc, (bf16*)vc, qn, kn, crow, srow, (bf16*)out, B, p, eps);
-  return (int)cudaGetLastError();
-}
-
-int q3_embed(const void* table, int n_rows, const int* codes, int ld, int col,
-             float* x, int B, int H, void* stream) {
-  embed_kernel<<<B, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)table, n_rows, codes, ld, col, x, H);
-  return (int)cudaGetLastError();
-}
-
-int q3_sample(const float* logits, const float* gumbel, int* codes, int ld,
-              int col, int B, int V, float tinv, int top_k, int greedy,
-              void* stream) {
-  sample_kernel<<<B, 256, 0, (cudaStream_t)stream>>>(
-      logits, gumbel, codes, ld, col, V, tinv, top_k, greedy);
-  return (int)cudaGetLastError();
-}
+// Cooperative launches q3_codepred_frame has made in this process.
+int q3_codepred_launches() { return g_launches; }
 
 }  // extern "C"

@@ -49,7 +49,7 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "attn_tile.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -62,7 +62,7 @@ constexpr int TF_G = 2;          // query heads per kv head
 constexpr int GT_N = 64;         // product tile: output columns (8 x 8)
 constexpr int GT_K = 256;        // product tile: K rows (32 groups x 8)
 constexpr int GT_M = 8;          // stream rows per pass over a tile
-constexpr int AT_ROWS = 64;      // attention tile: cache slots
+constexpr int AT_ROWS = ATTN_TILE_ROWS;  // attention tile: cache slots
 static_assert(TF_G * TF_D == TF_THREADS, "P.V maps a thread to (head, dim)");
 static_assert(AT_ROWS * 4 == TF_THREADS, "scores map 4 threads to a slot");
 
@@ -91,35 +91,6 @@ struct Params {
   int B, L, H, NKV, S, read_ctx, n_split;
   float eps, theta, qscale;
 };
-
-// bf16 written earlier in this launch, read through L2 (not L1)
-__device__ __forceinline__ float ldcg_bf(const bf16* p) {
-  return __uint_as_float(
-      (uint32_t)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // y[b] = (base ? base[b] : y[b]) + sum of the ksplit partial sums of a
 // [ksplit, B, H] product, in order; then, when w is given,
@@ -222,20 +193,6 @@ __device__ void phase_gemm(const bf16* A, const bf16* W, int M, int K, int N,
   }
 }
 
-// Sum of v over the 4 warps of this thread's half of the CTA (threads
-// 0-127 or 128-255); max when MAX. Contains __syncthreads.
-template <bool MAX>
-__device__ __forceinline__ float half_reduce(float v, float* red) {
-  v = MAX ? warp_max(v) : warp_sum(v);
-  const int warp = threadIdx.x >> 5, h4 = (threadIdx.x >> 7) * 4;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  return MAX ? fmaxf(fmaxf(red[h4], red[h4 + 1]),
-                     fmaxf(red[h4 + 2], red[h4 + 3]))
-             : red[h4] + red[h4 + 1] + red[h4 + 2] + red[h4 + 3];
-}
-
 // Per (stream b, kv head h): sum the QKV product's K tiles; round 0 treats
 // the two query heads (one per half of the CTA), round 1 k (half 0) and v
 // (half 1). q and k: head RMSNorm, then NEOX RoPE at positions[b]; q goes
@@ -307,21 +264,11 @@ template <bool INT8>
 __device__ void attn_copy(const Params& p, int l, int b, int h, int tile,
                           int ctx, char* kdst, char* vdst) {
   constexpr int RB = TF_D * (INT8 ? 1 : 2);         // bytes per cache row
-  constexpr int CPR = RB / 16;                      // 16-byte chunks a row
   const char* kb = static_cast<const char*>(p.cache) +
                    (((size_t)l * 2 * p.B + b) * p.NKV + h) * p.S * RB;
   const char* vb = kb + (size_t)p.B * p.NKV * p.S * RB;
-  for (int c = threadIdx.x; c < AT_ROWS * CPR; c += TF_THREADS) {
-    const int r = c / CPR, off = (c % CPR) * 16;
-    const int s = tile * AT_ROWS + r;
-    if (s < ctx) {
-      cp_async16(kdst + r * RB + off, kb + (size_t)s * RB + off);
-      cp_async16(vdst + r * RB + off, vb + (size_t)s * RB + off);
-    } else {
-      *reinterpret_cast<uint4*>(kdst + r * RB + off) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(vdst + r * RB + off) = make_uint4(0, 0, 0, 0);
-    }
-  }
+  copy_kv_tile<RB, TF_THREADS>(kdst, vdst, kb, vb, tile * AT_ROWS,
+                               [ctx](int s) { return s < ctx; });
   cp_async_commit();
 }
 

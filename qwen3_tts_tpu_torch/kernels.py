@@ -33,15 +33,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures (every function also takes the stream last, returns int)
 _SIGNATURES = {
-    "q3_gemm": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "q3_rmsnorm_bf16": (_P, _P, _P, _I, _I, _F),
-    "q3_cp_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F),
-    "q3_embed": (_P, _I, _P, _I, _I, _P, _I, _I),
-    "q3_sample": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I),
+    "q3_codepred_frame": (_P,) * 27 + (_I,) * 4 + (_F,) * 2,
     "q3_res_block": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "q3_snake_convt": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "q3_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+    "q3_flash_decode": (_P,) * 9 + (_I,) * 9 + (_F, _I) + (_P,) * 4,
     "q3_talker_step": (_P,) * 21 + (_I,) * 7 + (_F,) * 3,
 }
 
@@ -57,9 +52,9 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def _run_all(cmds: list[list[str]]) -> list[str]:
     """Run the commands side by side; wait for all, then raise on the
-    first that failed."""
+    first that failed. Returns their outputs."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -68,6 +63,14 @@ def _run_all(cmds: list[list[str]]) -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{out}")
+    return outs
+
+
+def build_log() -> str:
+    """What ptxas said of every kernel (registers, shared memory, spills)
+    when the current library was built."""
+    log = build().with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else "(no ptxas log)"
 
 
 def build() -> Path:
@@ -86,10 +89,12 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     tmp = BUILD_DIR / f"{tag}.tmp"
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                  for s, o in zip(sources, objs)])
+        outs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", "-o",
+                          str(o), str(s)] for s, o in zip(sources, objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *map(str, objs)]])
+        lib.with_suffix(".ptxas.txt").write_text(
+            "".join(f"== {s.name}\n{out}" for s, out in zip(sources, outs)))
         os.replace(tmp, lib)
     finally:
         for path in (*objs, tmp):
@@ -106,8 +111,16 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = [*args, _P]
             fn.restype = ctypes.c_int
+        handle.q3_codepred_launches.argtypes = []
+        handle.q3_codepred_launches.restype = ctypes.c_int
         _LIB = handle
     return _LIB
+
+
+def codepred_launches() -> int:
+    """Cooperative launches of the code-predictor kernel in this process,
+    as the C side counts them."""
+    return lib().q3_codepred_launches()
 
 
 def stream(device: torch.device) -> int:

@@ -1,5 +1,6 @@
-"""Code predictor for one frame on the card: hand-written CUDA kernels
-(csrc/codepred.cu) driven position by position, and their plain torch twin.
+"""Code predictor for one frame on the card: one persistent cooperative
+CUDA kernel (csrc/codepred.cu) that runs every position, layer, head and
+sampler of the frame, and its plain torch twin.
 
 Replaces the Pallas megakernel qwen3_tts_tpu/ops/codepred_fused.py::
 predict_codes_fused. Semantics, shared by the kernels and the twin:
@@ -21,8 +22,15 @@ design: it keeps attention probabilities in f32 where the XLA path rounds
 them to bf16, and samples by Gumbel-argmax, so argmax can flip at bf16
 near-ties (tests/test_codepred_fused.py says the same of the TPU kernel).
 
-The TPU kernel's weight-tile ring, its batch split and its GQA head
-permutation exist for VMEM and ``pltpu.repeat`` and are not carried over.
+The TPU kernel's batch split and its GQA head permutation exist for VMEM
+and ``pltpu.repeat`` and are not carried over; its weight-tile ring
+becomes a cp.async ring in shared memory.
+
+``predict_codes_fused.launches`` counts frames launched on the card, one
+cooperative kernel launch each (``kernels.codepred_launches()`` reads the
+count the C side keeps). The scratch (16-slot K/V cache, partial sums,
+RoPE tables) is allocated once per (device, batch) and reused; a frame
+allocates only the codes it returns.
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ from .sampling import apply_top_k, gumbel_noise
 CTX = 16                               # positions per frame
 # dims the kernels are written for (the 0.6B code predictor)
 H, NH, NKV, D, I, V, L = 1024, 16, 8, 128, 3072, 2048, 5
-GEMM_K_CHUNK = 128                     # K rows per split (csrc/codepred.cu)
+K_SPLIT = 256                          # K rows per split (csrc/codepred.cu)
+
+_SCRATCH: dict = {}                    # (device, B, theta) -> scratch
 
 
 def rope_tables(theta: float, head_dim: int, device):
@@ -138,8 +148,8 @@ def predict_codes_fused(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
     """Codes [B, 15] int32 for one frame. hidden: [B, H] f32; cb0: [B];
     gumbel: optional [15, B, V] noise; logits_out: optional [15, B, V] f32
     that receives each sampled position's logits.
-    A CPU tensor runs the twin; a CUDA tensor launches the kernels or
-    raises (the kernels serve the 0.6B dims with bf16 weights)."""
+    A CPU tensor runs the twin; a CUDA tensor launches the kernel or
+    raises (the kernel serves the 0.6B dims with bf16 weights)."""
     if not hidden.is_cuda:
         return predict_codes_twin(w, cfg, hidden, cb0, temperature, top_k,
                                   generator, greedy=greedy, gumbel=gumbel,
@@ -170,94 +180,68 @@ def predict_codes_fused(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
     req(cp["heads"], "heads", bf, (CTX - 1, H, V))
     req(cp["embd"], "embd", bf, (CTX - 1, V, H))
     req(w["codec_embd"], "codec_embd", bf)
+    if w["codec_embd"].dim() != 2 or w["codec_embd"].shape[1] != H or B < 1:
+        raise ValueError(f"codec_embd: expected [n, {H}] and B >= 1, got "
+                         f"{tuple(w['codec_embd'].shape)}, B={B}")
     sample_greedy = greedy or temperature <= 0.0
     noise = None
     if not sample_greedy:
         noise = _noise(gumbel, generator, B, V, dev)
         req(noise, "gumbel", f32, (CTX - 1, B, V))
 
-    lib = kernels.lib()
-    st = kernels.stream(dev)
-    rope_c, rope_s = rope_tables(cfg.rope_theta, D, dev)
-    eps = float(cfg.rms_norm_eps)
-    cb0_i = cb0.to(torch.int32).contiguous()
-    x = torch.empty(B, H, dtype=f32, device=dev)
-    xn = torch.empty(B, H, dtype=bf, device=dev)
-    qkv = torch.empty(B, (NH + 2 * NKV) * D, dtype=f32, device=dev)
-    attn = torch.empty(B, NH * D, dtype=bf, device=dev)
-    act = torch.empty(B, I, dtype=bf, device=dev)
-    if logits_out is None:
-        logits_out = torch.empty(1, B, V, dtype=f32, device=dev)
-    else:
+    if logits_out is not None:
         req(logits_out, "logits_out", f32, (CTX - 1, B, V))
-    # split-K partial sums [K / 128, B, N] of the largest GEMM
-    splits_n = max(k // GEMM_K_CHUNK * n for k, n in (
-        (H, (NH + 2 * NKV) * D), (NH * D, H), (H, 2 * I), (I, H), (H, V)))
-    part = torch.empty(splits_n * B, dtype=f32, device=dev)
-    kc = torch.empty(L, CTX, B, NKV, D, dtype=bf, device=dev)
-    vc = torch.empty_like(kc)
-    codes = torch.zeros(B, CTX, dtype=torch.int32, device=dev)
+    cb0_i = cb0.to(torch.int32).contiguous()
+    sc = _scratch(dev, B, float(cfg.rope_theta))
+    codes = torch.empty(B, CTX - 1, dtype=torch.int32, device=dev)
 
-    def gemm(a, wmat, k, n, mode, outf=None, outb=None):
-        kernels.check(lib.q3_gemm(a, wmat, part.data_ptr(), B, k, n, mode,
-                                  outf, outb, st), "q3_gemm")
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
-    def rms(src, wvec, dst):
-        kernels.check(lib.q3_rmsnorm_bf16(src, wvec, dst, B, H, eps, st),
-                      "q3_rmsnorm_bf16")
-
-    ptr = {name: (t.data_ptr(), t[0].numel() * t.element_size())
-           for name, t in (("wqkv", lw["wqkv"]), ("wo", lw["wo"]),
-                           ("w_gu", lw["w_gu"]), ("w_down", lw["w_down"]),
-                           ("attn_norm", lw["attn_norm"]),
-                           ("ffn_norm", lw["ffn_norm"]),
-                           ("q_norm", lw["q_norm"]), ("k_norm", lw["k_norm"]),
-                           ("kc", kc), ("vc", vc), ("heads", cp["heads"]),
-                           ("embd", cp["embd"]), ("gumbel", noise),
-                           ("rope_c", rope_c), ("rope_s", rope_s),
-                           ("logits", logits_out))
-           if t is not None}
-
-    def at(name, i):
-        base, stride = ptr[name]
-        return base + i * stride
-
-    x_p, xn_p, qkv_p = x.data_ptr(), xn.data_ptr(), qkv.data_ptr()
-    attn_p, act_p = attn.data_ptr(), act.data_ptr()
-    tinv = 1.0 / max(temperature, 1e-6)
-    for p in range(CTX):
-        if p == 0:
-            x.copy_(hidden)
-        elif p == 1:
-            kernels.check(lib.q3_embed(
-                w["codec_embd"].data_ptr(), w["codec_embd"].shape[0],
-                cb0_i.data_ptr(), 1, 0, x_p, B, H, st), "q3_embed")
-        else:
-            kernels.check(lib.q3_embed(
-                at("embd", p - 2), V, codes.data_ptr(), CTX, p - 1, x_p, B, H,
-                st), "q3_embed")
-        for l in range(L):
-            rms(x_p, at("attn_norm", l), xn_p)
-            gemm(xn_p, at("wqkv", l), H, (NH + 2 * NKV) * D, 0, outf=qkv_p)
-            kernels.check(lib.q3_cp_attention(
-                qkv_p, at("kc", l), at("vc", l), at("q_norm", l),
-                at("k_norm", l), at("rope_c", p), at("rope_s", p), attn_p, B,
-                p, eps, st), "q3_cp_attention")
-            gemm(attn_p, at("wo", l), NH * D, H, 1, outf=x_p)
-            rms(x_p, at("ffn_norm", l), xn_p)
-            gemm(xn_p, at("w_gu", l), H, 2 * I, 2, outb=act_p)
-            gemm(act_p, at("w_down", l), I, H, 1, outf=x_p)
-        if p == 0:
-            continue
-        logits_p = at("logits", (p - 1) % len(logits_out))
-        rms(x_p, cp["output_norm"].data_ptr(), xn_p)
-        gemm(xn_p, at("heads", p - 1), H, V, 0, outf=logits_p)
-        kernels.check(lib.q3_sample(
-            logits_p, at("gumbel", p - 1) if noise is not None else None,
-            codes.data_ptr(), CTX, p, B, V, tinv, int(top_k),
-            int(sample_greedy), st), "q3_sample")
+    kernels.check(kernels.lib().q3_codepred_frame(
+        hidden.data_ptr(), cb0_i.data_ptr(), w["codec_embd"].data_ptr(),
+        *(lw[n].data_ptr() for n in ("wqkv", "wo", "w_gu", "w_down",
+                                     "attn_norm", "ffn_norm", "q_norm",
+                                     "k_norm")),
+        cp["output_norm"].data_ptr(), cp["heads"].data_ptr(),
+        cp["embd"].data_ptr(), ptr(noise), sc["rope_c"].data_ptr(),
+        sc["rope_s"].data_ptr(), ptr(logits_out), codes.data_ptr(),
+        *(sc[n].data_ptr() for n in ("x", "xn", "attn", "act", "part", "kc",
+                                     "vc")),
+        ptr(predict_codes_fused.phase_ns), w["codec_embd"].shape[0], B,
+        int(top_k), int(sample_greedy), float(cfg.rms_norm_eps),
+        1.0 / max(temperature, 1e-6), kernels.stream(dev)),
+        "q3_codepred_frame")
     predict_codes_fused.launches += 1
-    return codes[:, 1:]
+    return codes
+
+
+def _scratch(dev, B: int, theta: float) -> dict:
+    """The kernel's scratch for batch B, allocated once per (device, B)
+    and reused by every later frame (frames on one stream run in order,
+    and the kernel writes every entry before it reads it): the residual
+    stream and the products' bf16 inputs, the split-K partial sums (the
+    gate/up product's 4 splits of 6,144 columns are the most), the 16-slot
+    K/V cache [L, B, NKV, CTX, D], and the RoPE tables."""
+    key = (dev, B, theta)
+    if key not in _SCRATCH:
+        bf, f32 = torch.bfloat16, torch.float32
+
+        def new(*shape, dtype=f32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        rope_c, rope_s = rope_tables(theta, D, dev)
+        _SCRATCH[key] = dict(
+            x=new(B, H), xn=new(B, H, dtype=bf), attn=new(B, NH * D, dtype=bf),
+            act=new(B, I, dtype=bf), part=new(H // K_SPLIT * 2 * I * B),
+            kc=new(L, B, NKV, CTX, D, dtype=bf),
+            vc=new(L, B, NKV, CTX, D, dtype=bf), rope_c=rope_c, rope_s=rope_s)
+    return _SCRATCH[key]
 
 
 predict_codes_fused.launches = 0
+# a device int64 [9] tensor, when set: the kernel adds the ns of each phase
+# kind to it (PHASES order)
+predict_codes_fused.phase_ns = None
+PHASES = ("norm", "qkv", "attention", "wo", "gate/up", "act", "down", "head",
+          "sample")

@@ -26,6 +26,8 @@ raises. ``flash_decode.launches`` counts kernel calls through either
 wrapper (``launches_by_mode`` splits them by prefix / mask / window);
 ``flash_decode.wrapped``, when set to a device int32 [1] tensor, gains
 one per (call, stream) that the kernel served with a wrapped window.
+The wrapper keeps the SM count per device and the splits' scratch per
+(device, shape); a call allocates only its output.
 """
 
 from __future__ import annotations
@@ -34,10 +36,43 @@ import torch
 
 from .. import kernels
 
-BLOCK = 64            # slots per needed-block decision (kernel and twin)
+BLOCK = 64            # slots per needed-block decision and kernel tile
 HEAD_DIM = 128        # the kernel's head dim
 GROUPS = (1, 2, 4)    # query heads per kv head the kernel serves
-CTAS_PER_SM = 2       # S splits aim at this many CTAs per SM
+CTAS_PER_SM = 3       # resident CTAs a SM (the kernel's __launch_bounds__)
+
+_SMS: dict = {}       # device -> SM count
+_SCRATCH: dict = {}   # (device, rows, n_split) -> (part_ml, part_acc)
+
+
+def split_plan(n_pairs: int, n_tiles: int, sms: int) -> tuple[int, int]:
+    """(tiles per split, n_split) for n_pairs (stream, kv head) pairs over
+    n_tiles 64-slot tiles. A CTA walks its split's tiles one after another
+    and the tiles a call needs cluster (a prefix, a ring window), so
+    splits are short: two tiles, or one where two-tile splits would leave
+    some of the card's CTA slots (CTAS_PER_SM on each of `sms` SMs) idle."""
+    per = 2 if n_pairs * -(-n_tiles // 2) >= CTAS_PER_SM * sms else 1
+    per = min(per, n_tiles)
+    return per, -(-n_tiles // per)
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _scratch(dev, rows: int, n_split: int):
+    """The splits' (m, l) and acc partials, allocated once per shape and
+    reused by every later call (calls on one stream run in order; the
+    kernel writes every entry it reads)."""
+    key = (dev, rows, n_split)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = (
+            torch.empty(rows, n_split, 2, dtype=torch.float32, device=dev),
+            torch.empty(rows, n_split, HEAD_DIM, dtype=torch.float32,
+                        device=dev))
+    return _SCRATCH[key]
 
 
 def _window_needed(n_blocks: int, prefill_len: int, lo: torch.Tensor,
@@ -156,14 +191,8 @@ def _launch(mode: str, q, k, v, read_ctx, k_scale, v_scale, n_valid=None,
         if hi.numel() not in (1, B):
             raise ValueError(f"window_hi: expected 1 or {B} values")
         hi_stride = 0 if hi.numel() == 1 else 1
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-CTAS_PER_SM * sms // (B * n_kv)))
-    per_split = -(-n_blocks // min(want, n_blocks))
-    n_split = -(-n_blocks // per_split)
-    part_ml = torch.empty(B * n_heads, n_split, 2, dtype=torch.float32,
-                          device=dev)
-    part_acc = torch.empty(B * n_heads, n_split, D, dtype=torch.float32,
-                           device=dev)
+    per_split, n_split = split_plan(B * n_kv, n_blocks, _sm_count(dev))
+    part_ml, part_acc = _scratch(dev, B * n_heads, n_split)
     out = torch.empty(B, n_heads * D, dtype=torch.float32, device=dev)
     wrapped = flash_decode.wrapped
 
@@ -173,7 +202,7 @@ def _launch(mode: str, q, k, v, read_ctx, k_scale, v_scale, n_valid=None,
     kernels.check(kernels.lib().q3_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
         ptr(n_valid), ptr(valid_mask), ptr(lo), ptr(hi), hi_stride,
-        int(prefill_len), B, n_kv, G, S, ctx, BLOCK, per_split, n_split,
+        int(prefill_len), B, n_kv, G, S, ctx, per_split, n_split,
         1.0 / D ** 0.5, int(int8), part_ml.data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), ptr(wrapped), kernels.stream(dev)), "q3_flash_decode")
     flash_decode.launches += 1

@@ -51,13 +51,22 @@ def _code_pred_weights(cfg, gen, dev):
     return {"codec_embd": w["codec_embd"], "code_pred": w["code_pred"]}
 
 
-def test_codepred_forced_frame(dev):
-    """Teacher-forced frame (spiked noise feeds fixed codes): the kernels
-    return the forced codes, and every position's logits match the twin."""
+@pytest.fixture(scope="module")
+def cp_weights(dev):
     cfg = TalkerConfig()
     gen = torch.Generator(device=dev).manual_seed(0)
-    w = _code_pred_weights(cfg, gen, dev)
-    B, V = 8, cfg.code_pred_vocab_size
+    return cfg, _code_pred_weights(cfg, gen, dev)
+
+
+# B = 1, 17 and 64 leave ragged 16-row MMA tiles and one or two 64-row
+# groups; B = 64 fills a group
+@pytest.mark.parametrize("B", [1, 8, 17, 64])
+def test_codepred_forced_frame(dev, cp_weights, B):
+    """Teacher-forced frame (spiked noise feeds fixed codes): the kernel
+    returns the forced codes, and every position's logits match the twin."""
+    cfg, w = cp_weights
+    gen = torch.Generator(device=dev).manual_seed(B)
+    V = cfg.code_pred_vocab_size
     hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev) * 0.5
     cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -73,6 +82,34 @@ def test_codepred_forced_frame(dev):
     assert torch.equal(got, forced[:, :, 0].t().int())
     assert torch.equal(ref, got)
     assert (lk - lt).abs().max().item() <= LOGIT_TOL
+
+
+def test_codepred_one_launch_per_frame(dev, cp_weights):
+    """A frame is one cooperative kernel launch: the C side's count moves
+    by one, and the profiler sees one kernel and nothing else on the
+    card (cb0 already int32, the noise given)."""
+    from qwen3_tts_tpu_torch import kernels
+    cfg, w = cp_weights
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, V = 8, cfg.code_pred_vocab_size
+    hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev)
+    cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    noise = cf.gumbel_noise((15, B, V), gen, dev)
+    cf.predict_codes_fused(w, cfg, hidden, cb0, 0.9, 50, gumbel=noise)
+    torch.cuda.synchronize()                        # scratch allocated
+    before = kernels.codepred_launches(), cf.predict_codes_fused.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        cf.predict_codes_fused(w, cfg, hidden, cb0, 0.9, 50, gumbel=noise)
+        torch.cuda.synchronize()
+    assert kernels.codepred_launches() == before[0] + 1
+    assert cf.predict_codes_fused.launches == before[1] + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in e.name.lower()
+             and "memset" not in e.name.lower()]
+    assert len(names) == 1 and "codepred_frame_kernel" in names[0], names
 
 
 def test_codepred_refuses_other_dims(dev):
@@ -211,6 +248,60 @@ def test_flash_decode_matches_twin(dev, mode, kv):
     assert fd.flash_decode.launches == before + 1
     assert got[2].abs().max().item() == 0.0          # empty stream
     assert (got - ref).abs().max().item() <= ATTN_TOL
+
+
+# (B, query heads, kv heads, read_ctx, n_valid or None for a bitmask):
+# read_ctx off the 64-slot tile, one stream, G = 1 / 2 / 4, and a prefix
+# of a few slots in a long cache, where most splits find no needed tile
+SHAPE_CASES = {
+    "ragged_ctx": (8, 16, 8, 1000, None),
+    "one_stream": (1, 16, 8, 1152, None),
+    "g1": (4, 8, 8, 700, None),
+    "g4": (4, 32, 8, 1152, [1000, 0, 64, 65]),
+    "idle_splits": (1, 16, 8, 1152, [5]),
+}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("case", list(SHAPE_CASES))
+def test_flash_decode_shapes(dev, case, kv):
+    """Odd shapes against the twin; a second call of the same shape
+    reuses the cached split scratch and gives the same output."""
+    from qwen3_tts_tpu_torch.models.stack import quantize_kv_rows
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    B, n_heads, n_kv, rc, nv = SHAPE_CASES[case]
+    S = 1152
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    q = torch.randn(B, n_heads, 128, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, n_kv, S, 128, generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    ks = vs = None
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    if nv is not None:
+        n_valid = torch.tensor(nv, dtype=torch.int32, device=dev)
+        run = lambda: fd.flash_decode(q, k, v, n_valid, read_ctx=rc,  # noqa
+                                      k_scale=ks, v_scale=vs)
+        ref = fd.flash_decode_twin(q, k, v, n_valid=n_valid, read_ctx=rc,
+                                   k_scale=ks, v_scale=vs)
+    else:
+        mask = torch.rand(B, S, generator=gen, device=dev) < 0.5
+        run = lambda: fd.flash_decode_masked(q, k, v, mask, read_ctx=rc,  # noqa
+                                             k_scale=ks, v_scale=vs)
+        ref = fd.flash_decode_twin(q, k, v, valid_mask=mask, read_ctx=rc,
+                                   k_scale=ks, v_scale=vs)
+    def held():
+        return {key: tuple(map(id, ts)) for key, ts in fd._SCRATCH.items()}
+
+    got = run()
+    scratch = held()
+    again = run()
+    torch.cuda.synchronize()
+    assert held() == scratch                        # nothing allocated
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max().item() <= ATTN_TOL
+    if nv is not None and 0 in nv:
+        assert got[nv.index(0)].abs().max().item() == 0.0
 
 
 def test_flash_decode_refuses_unserved_calls(dev):

@@ -224,3 +224,22 @@ def test_masked_window_requires_pair():
     with pytest.raises(ValueError, match="together"):
         fd.flash_decode_masked(q, k, v, torch.ones(1, 32, dtype=torch.bool),
                                window_lo=torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n_pairs,n_tiles,want",
+                         [(64, 18, (2, 9)), (256, 18, (2, 9)),
+                          (8, 18, (1, 18)), (64, 1, (1, 1))],
+                         ids=["B8", "B32", "B1", "one_tile"])
+def test_split_plan_fills_the_card_in_few_waves(n_pairs, n_tiles, want):
+    """Talker widths (8 kv heads) on 132 SMs of 3 CTAs: at read_ctx 1,152
+    (18 tiles) B=8 and B=32 take two-tile splits, which fill the card;
+    one stream takes one-tile splits, which two-tile ones would not."""
+    assert fd.split_plan(n_pairs, n_tiles, 132) == want
+
+
+def test_split_plan_covers_every_tile_once():
+    for n_pairs in (1, 8, 64, 256, 4096):
+        for n_tiles in (1, 2, 7, 18, 64):
+            per, n_split = fd.split_plan(n_pairs, n_tiles, 132)
+            assert 1 <= n_split <= n_tiles
+            assert (n_split - 1) * per < n_tiles <= n_split * per
