@@ -8,14 +8,18 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
 2. holds each kernel against its plain torch twin at the main path's
    shapes, with the tolerance stated on each line, and times both; the
    decode-attention kernel in prefix, bitmask, window and wrapped-window
-   modes, with empty streams, for the bf16 and the int8 cache;
+   modes, with empty streams, for the bf16 and the int8 cache; the
+   residual chain at B 2 and 16, run twice (bitwise equal); the talker
+   megakernel at B 4 / 8 / 32 and 192, with its phase clock at B 4, 8
+   and 32;
 3. drives ``Qwen3TTS.synthesize_batch`` at the full 0.6B widths (random
    weights from a fixed torch.Generator, an in-memory tokenizer): greedy
    and at temperature 0.9, with the bf16 and the int8 KV cache; checks that
    every request succeeds with finite audio of n_frames * 1920 samples,
    that the lock-step path launched every kernel and the code predictor
    one kernel a frame; then profiles one 40-frame run (device ms per
-   frame by kernel group, the card's busy share);
+   frame by kernel group, each vocoder kernel on its own, the card's busy
+   share);
 4. serves 20 requests through ``ContinuousBatcher`` (8 slots, greedy,
    bf16 and then int8 KV), 12 of them submitted mid-run: slots turn over,
    requests retire by EOS and by the frame cap, the ring wraps. Checks
@@ -28,9 +32,10 @@ The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before it. Without a CUDA device the script exits non-zero at once.
 
-``python3 chip_smoke.py --compare DIR`` instead times the code predictor
-and decode attention through their wrappers in the checkout at DIR and in
-this one, in turns DIR, this, this, DIR.
+``python3 chip_smoke.py --compare DIR`` instead times the code predictor,
+decode attention, the talker megakernel and the residual chain through
+their wrappers in the checkout at DIR and in this one, in turns DIR,
+this, this, DIR.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ CHAIN_SHAPES = ((768, 1280), (384, 6400), (192, 25600), (96, 76800))
 HEAD_SHAPES = ((1536, 768, 8, 160), (768, 384, 5, 1280), (384, 192, 4, 6400),
                (192, 96, 3, 25600))
 VOC_B = 2
+VOC_TIME_B = (VOC_B, 16)    # 16: vocoder_decode_subbatched's sub-batch
 # code-predictor logits, kernels vs twin: activations round to bf16 after
 # f32 sums taken in another order, so a rounding can land one bf16 ulp
 # apart and the difference compounds over 16 positions x 5 layers
@@ -109,9 +115,12 @@ SERVE_RUNS = (("auto", "bf16"), ("auto", "int8"), ("xla", "bf16"))
 # 1e-1 or more.
 TF_MAX_TOL = 5e-2           # max |err| / RMS
 TF_RMS_TOL = 1e-2           # RMS(err) / RMS
-TF_B = (8, 32)
-TF_S = 1152                 # required_ctx_ring(1024): the serving cache
+TF_B = (4, 8, 32)           # 4: the lock-step smoke's batch
+TF_HEAD_B = 8               # the shape of the kernels line's talker times
+TF_S = 1152                # required_ctx_ring(1024): the serving cache
 TF_READ_CTX = (256, 1152)
+TF_WIDE_B = 192             # the TPU bench's batch: checked and timed once
+TF_WIDE_S = 256             # its cache (and read_ctx): 5.6 GB at 28 layers
 # least-time bounds (H100 SXM datasheet peaks, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -162,7 +171,7 @@ def ptxas_summary(text: str) -> list:
     from nvcc's -Xptxas=-v output."""
     out, name = [], None
     for line in text.splitlines():
-        m = re.search(r"\d+([a-z_]+kernel)(I(?:L[a-z]\d+E)+E)?", line)
+        m = re.search(r"\d+([a-z_][a-z_0-9]*kernel)(I(?:L[a-z]\d+E)+E)?", line)
         if "Compiling entry" in line and m:
             name = m.group(1) + (
                 "<" + ",".join(re.findall(r"L[a-z](\d+)E", m.group(2))) + ">"
@@ -435,8 +444,8 @@ def _rms_check(name, got, ref, shape_txt) -> tuple[float, float, float]:
     return err, err / rms, err_rms / rms
 
 
-def _voc_report(name, source, replaces, errs, ms, plain, moved,
-                flops) -> dict:
+def _voc_report(name, source, replaces, errs, ms, plain, moved, flops,
+                extra=None) -> dict:
     """The kernel's report line; raises when any shape is out of
     tolerance (after every shape was checked and logged)."""
     worst = [max(e[i] for e in errs) for i in range(3)]
@@ -451,28 +460,67 @@ def _voc_report(name, source, replaces, errs, ms, plain, moved,
             "replaces": replaces, "max_abs_err": worst[0],
             "max_err_over_rms": worst[1], "rms_err_over_rms": worst[2],
             "ms": ms, "plain_ms": plain, **b, "library_ms": None,
-            "shape": f"4 decoder blocks, one 40-frame chunk, B={VOC_B}"}
+            "shape": f"4 decoder blocks, one 40-frame chunk, B={VOC_B}",
+            **(extra or {})}
 
 
-def check_res_chain(blocks, dev, gen) -> dict:
-    """The residual chain at the four decoder blocks' shapes."""
+RES_CHAIN_KERNELS = ("res_gemm", "snake_bf16")   # csrc/vocoder.cu
+
+
+def check_res_chain(blocks, dev, gen, timed: bool = True) -> dict:
+    """The residual chain at the four decoder blocks' shapes, B = 2 and
+    16: within tolerance of its twin, and two calls on one input bitwise
+    equal. Times the kernel at both widths (CUDA events, and the
+    profiler's device time) and the twin at B = 2 (unless not `timed`)."""
     from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
-    ms = plain = moved = flops = 0.0
-    errs = []
-    for blk, (c, t) in zip(blocks, CHAIN_SHAPES):
-        x = torch.randn(VOC_B, t, c, generator=gen, device=dev)
-        got = vf.fused_residual_chain(x, blk)
-        ref = vf.residual_chain_twin(x, blk)
-        errs.append(_rms_check("res_chain", got, ref,
-                               f"B={VOC_B} T={t} C={c}"))
-        ms += cuda_time(lambda: vf.fused_residual_chain(x, blk), iters=5)
-        plain += cuda_time(lambda: vf.residual_chain_twin(x, blk), iters=5)
-        # x in, y out, the three units' packed parameters; 3 units x 8 taps
-        moved += nbytes(x, got, blk["kernel"]["res"])
-        flops += 3 * 8 * 2 * VOC_B * t * c * c
+    ms, dev_ms, moved, flops = ({B: 0.0 for B in VOC_TIME_B}
+                                for _ in range(4))
+    plain, errs, unstable, blk_ms = 0.0, [], [], {}
+    for B in VOC_TIME_B:
+        for blk, (c, t) in zip(blocks, CHAIN_SHAPES):
+            x = torch.randn(B, t, c, generator=gen, device=dev)
+            got = vf.fused_residual_chain(x, blk)
+            again = vf.fused_residual_chain(x, blk)
+            ref = vf.residual_chain_twin(x, blk)
+            if not torch.equal(got, again):
+                unstable.append((B, c))
+            errs.append(_rms_check("res_chain", got, ref,
+                                   f"B={B} T={t} C={c}"))
+            # x in, y out, the three units' packed parameters; 3 units x
+            # 8 taps
+            moved[B] += nbytes(x, got, blk["kernel"]["res"])
+            flops[B] += 3 * 8 * 2 * B * t * c * c
+            if timed:
+                fn = lambda: vf.fused_residual_chain(x, blk)  # noqa: E731
+                ms[B] += cuda_time(fn, iters=5)
+                blk_ms[(B, c)] = device_ms(fn, 3, RES_CHAIN_KERNELS)
+                dev_ms[B] += blk_ms[(B, c)]
+                if B == VOC_B:
+                    plain += cuda_time(
+                        lambda: vf.residual_chain_twin(x, blk), iters=5)
+            del x, got, again, ref
+    log(f"res_chain: two calls bitwise equal at every shape: "
+        f"{not unstable} {unstable or ''}")
+    if unstable:
+        raise AssertionError(f"res_chain is not deterministic: {unstable}")
+    for B in VOC_TIME_B if timed else ():
+        b = bound(moved[B], flops[B])
+        log(f"res_chain, 4 decoder blocks of one 40-frame chunk at B={B}: "
+            f"kernel {ms[B]:.3f} ms (device {dev_ms[B]:.3f} ms, "
+            f"{flops[B] / dev_ms[B] / 1e9:.1f} TFLOP/s, roofline share "
+            f"{b['bound_ms'] / dev_ms[B]:.1%}); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}: {moved[B] / 1e6:.1f} MB, "
+            f"{flops[B] / 1e9:.2f} GFLOP) on 7 launches a block; device ms "
+            f"by block (C): " + ", ".join(
+                f"{c} {blk_ms[(B, c)]:.3f}" for c, _ in CHAIN_SHAPES))
+    extra = {"device_ms": dev_ms[VOC_B],
+             "ms_by_batch": {str(B): ms[B] for B in VOC_TIME_B},
+             "device_ms_by_batch": {str(B): dev_ms[B] for B in VOC_TIME_B},
+             "bound_ms_by_batch": {str(B): bound(moved[B], flops[B])[
+                 "bound_ms"] for B in VOC_TIME_B}}
     return _voc_report("res_chain", "qwen3_tts_tpu_torch/csrc/vocoder.cu",
-                       "qwen3_tts_tpu/ops/vocoder_fused.py:233", errs, ms,
-                       plain, moved, flops)
+                       "qwen3_tts_tpu/ops/vocoder_fused.py:233", errs,
+                       ms[VOC_B], plain, moved[VOC_B], flops[VOC_B], extra)
 
 
 def check_snake_convt(blocks, dev, gen) -> dict:
@@ -689,12 +737,12 @@ def _sdpa_ms(kw, q, k, v, read_ctx) -> float:
         qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=20)
 
 
-def _tf_cache(L, B, kv, read_ctx, dev, gen):
-    """A random [L, 2, B, 8, TF_S, 128] cache (bf16, or int8 rows and
+def _tf_cache(L, B, kv, read_ctx, dev, gen, S=TF_S):
+    """A random [L, 2, B, 8, S, 128] cache (bf16, or int8 rows and
     scales as stack.quantize_kv_rows stores them) with NaN planted at and
     past read_ctx (values for bf16, scales for int8)."""
     from qwen3_tts_tpu_torch.models.stack import QuantKV, quantize_kv_rows
-    shape = (L, 2, B, 8, TF_S, 128)
+    shape = (L, 2, B, 8, S, 128)
     vals = torch.empty(shape, dtype=torch.bfloat16, device=dev)
     for l in range(L):
         vals[l] = torch.randn(shape[1:], generator=gen, device=dev) * 0.5
@@ -709,7 +757,7 @@ def _tf_cache(L, B, kv, read_ctx, dev, gen):
     return QuantKV(q, sc)
 
 
-def _tf_case(mode, B, read_ctx, dev, gen):
+def _tf_case(mode, B, read_ctx, dev, gen, S=TF_S):
     """(positions, n_valid, valid_mask, widx) of one talker check. Prefix:
     stream 0 live at widx, 1 and 2 frozen below it, 3 empty, 4 claims
     more than read_ctx (only read_ctx slots count), the rest ragged. Mask:
@@ -723,10 +771,10 @@ def _tf_case(mode, B, read_ctx, dev, gen):
     if mode == "prefix":
         n_valid = torch.randint(1, widx + 1, (B,), generator=gen, device=dev,
                                 dtype=torch.int32)
-        special = [widx + 1, widx, 37, 0, TF_S][:B]
+        special = [widx + 1, widx, 37, 0, S][:B]
         n_valid[:len(special)] = torch.tensor(special, device=dev)
         return positions, n_valid, None, widx
-    slot = torch.arange(TF_S, device=dev)[None]
+    slot = torch.arange(S, device=dev)[None]
     lo = torch.randint(P, widx, (B,), generator=gen, device=dev)
     lo[0::2] = torch.randint(widx + 2, read_ctx, (len(lo[0::2]),),
                              generator=gen, device=dev)
@@ -734,11 +782,11 @@ def _tf_case(mode, B, read_ctx, dev, gen):
                          ((slot >= P) & (slot <= widx))
                          | ((slot >= lo[:, None]) & (slot < read_ctx)),
                          (slot >= lo[:, None]) & (slot <= widx))
-    mask = inside & (torch.rand(B, TF_S, generator=gen, device=dev) < 0.7)
+    mask = inside & (torch.rand(B, S, generator=gen, device=dev) < 0.7)
     mask[:, :10] = True                             # prefill rows
     mask[:, widx] = True
     mask[1, widx] = False                           # a lane dead this step
-    mask[:, read_ctx:] = torch.rand(B, TF_S - read_ctx, generator=gen,
+    mask[:, read_ctx:] = torch.rand(B, S - read_ctx, generator=gen,
                                     device=dev) < 0.5
     return positions, None, mask, widx
 
@@ -791,15 +839,18 @@ def _tf_bytes_flops(lw, B, kv, rc, n_valid, mask):
     return moved, flops
 
 
-def check_talker_fused(talker_w, cfg, dev, gen) -> dict:
+def check_talker_fused(talker_w, cfg, dev, gen, timed: bool = True) -> dict:
     """The megakernel against its twin at the full widths (28 layers, H
-    1024, 16/8 heads, D 128, I 3072), B = 8 and 32, bf16 and int8, read_ctx
-    256 and 1,152 in a cache of 1,152 slots with NaN at and past read_ctx,
+    1024, 16/8 heads, D 128, I 3072), B = 4, 8 and 32, bf16 and int8,
+    read_ctx 256 and 1,152 in a cache of 1,152 slots with NaN at and past
+    read_ctx,
     prefix mode (ragged, frozen, empty streams) and mask mode (scattered
     ring bits, a dead lane, wrapped windows): y and the written rows within
     TF_*_TOL of the twin's RMS, every other cache row bit-identical, y
-    finite. Times kernel, twin and the xla path's talker_step (layers,
-    output norm and codec head) on the prefix case of each shape."""
+    finite; and B = TF_WIDE_B at read_ctx TF_WIDE_S. Times kernel, twin
+    and the xla path's talker_step (layers, output norm and codec head) on
+    the prefix case of each shape, with the phase clock at TF_CLOCKED
+    (unless not `timed`)."""
     from qwen3_tts_tpu_torch.models import stack, talker
     from qwen3_tts_tpu_torch.ops import talker_fused as tf
     lw = talker_w["layers"]
@@ -855,7 +906,12 @@ def check_talker_fused(talker_w, cfg, dev, gen) -> dict:
                         failed.append((B, kv, rc, mode))
                     worst = [max(worst[0], abs_err), max(worst[1], errs[0][0]),
                              max(worst[2], errs[0][1])]
-                    if mode == "prefix":
+                    if timed and mode == "prefix" and kv == "bf16" and (
+                            B, rc) in TF_CLOCKED:
+                        _talker_phases(lambda: tf.talker_step_fused(
+                            lw, *args, ck, widx_t, n_valid, read_ctx=rc,
+                            **kw), B, rc, cfg.n_layers, dev)
+                    if timed and mode == "prefix":
                         timing[(B, kv, rc)] = (
                             cuda_time(lambda: tf.talker_step_fused(
                                 lw, *args, ck, widx_t, n_valid, read_ctx=rc,
@@ -876,16 +932,95 @@ def check_talker_fused(talker_w, cfg, dev, gen) -> dict:
             f"talker_step {xla:.3f} ms; "
             f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
             f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    wide = _tf_wide(lw, cfg, kw, dev, gen, failed, timed)
     if failed:
         raise AssertionError(f"talker_fused disagrees with its twin: {failed}")
-    ms, plain, xla, (moved, flops) = timing[(TF_B[0], "bf16", TF_READ_CTX[0])]
+    if not timed:
+        return {}
+    ms, plain, xla, (moved, flops) = timing[(TF_HEAD_B, "bf16",
+                                             TF_READ_CTX[0])]
+    by_shape = {f"B={B} {kv} read_ctx={rc}": {
+        "ms": t[0], "plain_ms": t[1], "bound_ms": bound(*t[3])["bound_ms"]}
+        for (B, kv, rc), t in timing.items()}
+    by_shape[f"B={TF_WIDE_B} bf16 read_ctx={TF_WIDE_S}"] = wide
     return {"name": "talker_fused", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/talker_fused.cu",
             "replaces": "qwen3_tts_tpu/ops/talker_fused.py:548",
             "max_abs_err": worst[0], "max_err_over_rms": worst[1],
             "rms_err_over_rms": worst[2], "ms": ms, "plain_ms": plain,
             "xla_path_ms": xla, **bound(moved, flops), "library_ms": None,
-            "shape": f"B={TF_B[0]} bf16 read_ctx={TF_READ_CTX[0]}, one step"}
+            "shape": f"B={TF_HEAD_B} bf16 read_ctx={TF_READ_CTX[0]}, one step",
+            "by_shape": by_shape}
+
+
+# (B, read_ctx) with the phase clock
+TF_CLOCKED = ((4, 256), (8, 256), (32, 1152))
+
+
+def _talker_phases(fn, B, rc, n_layers, dev) -> None:
+    """One step with the kernel's phase clock on: ms per step and us per
+    phase (with its grid barrier) by phase kind, beside the step's time
+    with the clock off (CUDA events)."""
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    count = {k: n * n_layers + (k == "norm") for k, n in
+             tf.PHASES_PER_LAYER.items()}
+    ns = torch.zeros(len(tf.PHASES), dtype=torch.int64, device=dev)
+    tf.talker_step_fused.phase_ns = ns
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        tf.talker_step_fused.phase_ns = None
+    step_ms = cuda_time(fn, iters=10)
+    ms = dict(zip(tf.PHASES, (ns.double() / 1e6).tolist()))
+    log(f"talker_fused B={B} bf16 read_ctx={rc}: step {step_ms:.3f} ms; "
+        f"phase clock (CTA 0, globaltimer), ms per step and us per phase: "
+        + ", ".join(f"{k} {v:.3f} ({v * 1e3 / count[k]:.1f})"
+                    for k, v in ms.items())
+        + f"; sum {sum(ms.values()):.3f} ms; "
+        f"{tf.BARRIERS_PER_LAYER} grid barriers a layer")
+
+
+def _tf_wide(lw, cfg, kw, dev, gen, failed, timed=True) -> dict:
+    """B = TF_WIDE_B, bf16, read_ctx = S = TF_WIDE_S, prefix mode: y within
+    tolerance of the twin; the kernel timed beside its bound (when
+    `timed`)."""
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    B, rc = TF_WIDE_B, TF_WIDE_S
+    orig = _tf_cache(cfg.n_layers, B, "bf16", rc, dev, gen, S=rc)
+    x = torch.randn(B, cfg.hidden_size, generator=gen, device=dev)
+    pos, n_valid, _, widx = _tf_case("prefix", B, rc, dev, gen, S=rc)
+    widx_t = torch.tensor(widx, dtype=torch.int32, device=dev)
+    ck, ct = _clone_cache(orig), _clone_cache(orig)
+    del orig
+    y_k, _ = tf.talker_step_fused(lw, x, pos, ck, widx_t, n_valid,
+                                  read_ctx=rc, **kw)
+    y_t, _ = tf.talker_step_fused_twin(lw, x, pos, ct, widx_t, n_valid,
+                                       read_ctx=rc, **kw)
+    del ct
+    err = _rel_err(y_k, y_t)
+    if not timed:
+        log(f"talker_fused B={B} bf16 read_ctx={rc} prefix: y max|err|/RMS "
+            f"{err[0]:.3e}, RMS(err)/RMS {err[1]:.3e} (need <= "
+            f"{TF_MAX_TOL}, {TF_RMS_TOL})")
+        if not (err[0] <= TF_MAX_TOL and err[1] <= TF_RMS_TOL):
+            failed.append((B, "bf16", rc, "prefix"))
+        return {}
+    ms = cuda_time(lambda: tf.talker_step_fused(
+        lw, x, pos, ck, widx_t, n_valid, read_ctx=rc, **kw), iters=5)
+    dev_ms = device_ms(lambda: tf.talker_step_fused(
+        lw, x, pos, ck, widx_t, n_valid, read_ctx=rc, **kw), 3,
+        ("talker_step",))
+    b = bound(*_tf_bytes_flops(lw, B, "bf16", rc, n_valid, None))
+    log(f"talker_fused B={B} bf16 read_ctx={rc} prefix: y max|err|/RMS "
+        f"{err[0]:.3e}, RMS(err)/RMS {err[1]:.3e} (need <= {TF_MAX_TOL}, "
+        f"{TF_RMS_TOL}); step kernel {ms:.3f} ms (device {dev_ms:.3f} ms), "
+        f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    if not (err[0] <= TF_MAX_TOL and err[1] <= TF_RMS_TOL):
+        failed.append((B, "bf16", rc, "prefix"))
+    del ck
+    torch.cuda.empty_cache()
+    return {"ms": ms, "device_ms": dev_ms, "bound_ms": b["bound_ms"]}
 
 
 def _xla_step_ms(talker, w, cfg, x, positions, cache, widx, read_ctx):
@@ -971,7 +1106,8 @@ PROFILE_TOKENS = 40           # one 40-frame chunk under the profiler
 PROFILE_GROUPS = (("code predictor", ("codepred",)),
                   ("talker megakernel", ("talker_step",)),
                   ("decode attention", ("fd_",)),
-                  ("vocoder kernels", ("res_block", "snake_convt")))
+                  ("residual chain", RES_CHAIN_KERNELS),
+                  ("Snake+convT head", ("snake_convt",)))
 
 
 def profile_lockstep(engine, card, dev) -> None:
@@ -1188,13 +1324,46 @@ for B in cs.ATTN_B:
         fn = lambda: cs._attn_call(kw, q, k, v, ks, vs, cs.ATTN_S, False)
         out[f"flash_decode window B={B} {kv}"] = [
             cs.cuda_time(fn, iters=20), cs.device_ms(fn, 20, ("",))]
+from qwen3_tts_tpu_torch.config import VocoderConfig
+from qwen3_tts_tpu_torch.ops import talker_fused as tf
+from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
+cfg = TalkerConfig(text_vocab_size=16)
+lw = W.init_talker_weights(cfg, gen, dev)["layers"]
+kw = dict(n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
+          head_dim=cfg.head_dim, eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+for B, rc in cs.COMPARE_TALKER:
+    cache = cs._tf_cache(cfg.n_layers, B, "bf16", rc, dev, gen)
+    x = torch.randn(B, cfg.hidden_size, generator=gen, device=dev)
+    pos, n_valid, _, widx = cs._tf_case("prefix", B, rc, dev, gen)
+    widx = torch.tensor(widx, dtype=torch.int32, device=dev)
+    fn = lambda: tf.talker_step_fused(lw, x, pos, cache, widx, n_valid,
+                                      read_ctx=rc, **kw)
+    out[f"talker step B={B} read_ctx={rc}"] = [
+        cs.cuda_time(fn, iters=10), cs.device_ms(fn, 5, ("",))]
+    del cache
+del lw
+torch.cuda.empty_cache()
+blocks = cs.decoder_blocks(VocoderConfig(), dev, gen)
+for B in cs.VOC_TIME_B:
+    xs = [torch.randn(B, t, c, generator=gen, device=dev)
+          for c, t in cs.CHAIN_SHAPES]
+    fn = lambda: [vf.fused_residual_chain(x, blk)
+                  for x, blk in zip(xs, blocks)]
+    out[f"res_chain 4 blocks B={B}"] = [cs.cuda_time(fn, iters=5),
+                                        cs.device_ms(fn, 3, ("",))]
+    del xs
 print("COMPARE " + json.dumps(out), flush=True)
 """
+# (B, read_ctx) of the talker steps --compare times
+COMPARE_TALKER = ((4, 256), (8, 256), (8, 1152), (32, 256), (32, 1152))
 
 
 def compare(parent: str) -> int:
-    """Time the code predictor (B 8 / 64 / 192) and decode attention
-    (window mode, read_ctx 1,152, B 8 / 32) through their public wrappers
+    """Time the code predictor (B 8 / 64 / 192), decode attention
+    (window mode, read_ctx 1,152, B 8 / 32), the talker megakernel (B 4 at
+    read_ctx 256, B 8 / 32 x read_ctx 256 / 1,152; bf16, prefix mode;
+    COMPARE_TALKER) and the residual chain
+    (the 4 blocks of a chunk, B 2 / 16) through their public wrappers
     in the checkout at `parent` and in this one, in turns parent, this,
     this, parent, each in a child process of its own on this card: CUDA
     events per call and the profiler's device ms per call (every kernel

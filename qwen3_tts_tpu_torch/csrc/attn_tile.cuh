@@ -3,19 +3,13 @@
 // K/V tiles into shared memory, and warp reductions.
 #pragma once
 
-#include "common.cuh"
+#include "mma_ring.cuh"
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// bf16 written earlier in this launch, read through L2 (not L1)
-__device__ __forceinline__ float ldcg_bf(const bf16* p) {
-  return __uint_as_float(
-      (uint32_t)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
 // Sum of v over the 4 warps of this thread's half of a 256-thread CTA
@@ -31,32 +25,6 @@ __device__ __forceinline__ float half_reduce(float v, float* red) {
   return MAX ? fmaxf(fmaxf(red[h4], red[h4 + 1]),
                      fmaxf(red[h4 + 2], red[h4 + 3]))
              : red[h4] + red[h4 + 1] + red[h4 + 2] + red[h4 + 3];
-}
-
-// 16 bytes global -> shared through L2 (cp.async.cg: never a stale L1 line)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// 4 bytes global -> shared (any 4-byte aligned address)
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 constexpr int ATTN_TILE_ROWS = 64;  // cache slots per attention tile

@@ -41,7 +41,9 @@
 //   three chunks in flight ahead of the one the tensor cores consume,
 //   across the item's and the next items' chunks. A fragments come from
 //   ldmatrix.x4, B fragments from ldmatrix.x2.trans on the [K, N]
-//   row-major weights (the JAX layout, nothing packed). Rows go in groups
+//   row-major weights (the JAX layout, nothing packed; the item walk,
+//   the ring loop, the tensor-core and cp.async helpers and the partial
+//   sums' epilogue are csrc/mma_ring.cuh's). Rows go in groups
 //   of up to 64 (4 m16 tiles; any B >= 1, ragged tiles zero-filled); a
 //   second group streams the item's weights again (from L2). Split-K
 //   partial sums go to scratch and the consuming phase adds them in a
@@ -71,16 +73,14 @@ constexpr int WARPS = THREADS / 32;
 constexpr int H = 1024, NH = 16, NKV = 8, D = 128, I = 3072, V = 2048;
 constexpr int L = 5, CTX = 16;
 constexpr int NQKV = (NH + 2 * NKV) * D;            // 4096
-// products
-constexpr int NT = 64;            // item columns: 8 warps x n8
-constexpr int KC = 64;            // K rows a ring stage
-constexpr int MG = 64;            // stream rows a pass (4 m16 tiles)
+// products (items of PROD_NT columns, csrc/mma_ring.cuh)
+constexpr int KC = PROD_KC;       // K rows a ring stage
 constexpr int NST = 4;            // ring stages
 constexpr int KSPAN = 256;        // K rows a split-K item sums
-constexpr int A_BYTES = MG * KC * 2;
-constexpr int STAGE_BYTES = A_BYTES + KC * NT * 2;  // 16 KB
+constexpr int A_BYTES = PROD_MG * KC * 2;
+constexpr int STAGE_BYTES = A_BYTES + KC * PROD_NT * 2;  // 16 KB
 constexpr int SMEM_BYTES = NST * STAGE_BYTES;
-static_assert(NT == WARPS * 8, "one n8 slice a warp");
+static_assert(PROD_NT == WARPS * 8, "one n8 slice a warp");
 static_assert(2 * CTX * D * 4 <= SMEM_BYTES, "attention rows fit");
 static_assert((CTX - 1) * D / 8 <= THREADS, "earlier slots in one load");
 
@@ -122,12 +122,6 @@ struct Params {
 enum { PH_NORM, PH_QKV, PH_ATTN, PH_WO, PH_GU, PH_ACT, PH_DOWN, PH_HEAD,
        PH_SAMPLE, PH_KINDS };
 
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
-  return t;
-}
-
 __device__ __forceinline__ void clock_mark(const Params& p, int kind,
                                            unsigned long long& t_mark) {
   const unsigned long long t = globaltimer();
@@ -135,40 +129,11 @@ __device__ __forceinline__ void clock_mark(const Params& p, int kind,
   t_mark = t;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(s));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// byte offset of 16-byte chunk ch of row r in a [rows][128 B] swizzled tile
-__device__ __forceinline__ int swz(int r, int ch) {
-  return r * 128 + ((ch ^ (r & 7)) << 4);
-}
-
 // One product phase: part[ks][m][n] = the sum over the K rows of split ks
 // of A[m][k] W[k][n], for A [B, K] (bf16, written earlier in the launch)
-// and W [K, ldw] (bf16), in items of NT columns x KSPAN rows.
+// and W [K, ldw] (bf16), in items of PROD_NT columns x KSPAN rows
+// (mma_ring.cuh's walk and ring). A stage holds a chunk's A rows and its
+// W rows, both copied by cp.async.
 struct Prod {
   const bf16* A;
   int lda;
@@ -176,31 +141,13 @@ struct Prod {
   int ldw, K;
 };
 
-// Chunk c of a CTA's share of a product: its item, row group and K chunk.
-struct Chunk { int tile, ks, m0, n_mt, kc; };
-
 __device__ void phase_product(const Params& p, const Prod& pr, char* smem) {
-  constexpr int n_kc = KSPAN / KC;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n_tiles = pr.ldw / NT, n_items = n_tiles * (pr.K / KSPAN);
-  const int mine = blockIdx.x < n_items
-      ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
-  const int per_item = (p.B + MG - 1) / MG * n_kc, total = mine * per_item;
-  const auto decode = [&](int c) {
-    Chunk ch;
-    const int it = blockIdx.x + (c / per_item) * gridDim.x;
-    const int rem = c % per_item;
-    ch.tile = it % n_tiles;
-    ch.ks = it / n_tiles;
-    ch.m0 = (rem / n_kc) * MG;
-    ch.n_mt = min(MG / 16, (p.B - ch.m0 + 15) / 16);
-    ch.kc = rem % n_kc;
-    return ch;
-  };
+  const int tid = threadIdx.x;
+  const ItemWalk<KSPAN> wk(pr.ldw, pr.K, p.B);
   // chunk c -> stage c % NST: its A rows (zero past B), then its W rows
   const auto issue = [&](int c) {
-    if (c < total) {
-      const Chunk ch = decode(c);
+    if (c < wk.total) {
+      const Chunk ch = wk.at(c);
       char* sa = smem + (c % NST) * STAGE_BYTES;
       char* sw = sa + A_BYTES;
       const int k0 = ch.ks * KSPAN + ch.kc * KC;
@@ -215,58 +162,18 @@ __device__ void phase_product(const Params& p, const Prod& pr, char* smem) {
       for (int i = tid; i < KC * 8; i += THREADS) {
         const int r = i >> 3, c16 = i & 7;
         cp_async16(sw + swz(r, c16), pr.W + (size_t)(k0 + r) * pr.ldw +
-                                         ch.tile * NT + c16 * 8);
+                                         ch.tile * PROD_NT + c16 * 8);
       }
     }
     cp_async_commit();                  // empty past the end: counts stay
   };
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll
   for (int s = 0; s < NST - 1; ++s) issue(s);
-  for (int c = 0; c < total; ++c) {
-    issue(c + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    const Chunk ch = decode(c);
-    const char* sa = smem + (c % NST) * STAGE_BYTES;
-    const char* sw = sa + A_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      uint32_t b[2];
-      const int kr = kk * 16 + (lane & 15);
-      ldsm_x2_trans(b, sw + swz(kr, warp));
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt < ch.n_mt) {
-          uint32_t a[4];
-          ldsm_x4(a, sa + swz(mt * 16 + (lane & 15), kk * 2 + (lane >> 4)));
-          mma_bf16(acc[mt], a, b);
-        }
-      }
-    }
-    if (ch.kc == n_kc - 1) {            // the item's row group is summed
-      const int r0 = lane >> 2;
-      float* out = p.part + (size_t)ch.ks * p.B * pr.ldw + ch.tile * NT +
-                   warp * 8 + (lane & 3) * 2;
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int m = ch.m0 + mt * 16 + r0 + hf * 8;
-          if (mt < ch.n_mt && m < p.B)
-            *reinterpret_cast<float2*>(out + (size_t)m * pr.ldw) =
-                make_float2(acc[mt][2 * hf], acc[mt][2 * hf + 1]);
-          acc[mt][2 * hf] = acc[mt][2 * hf + 1] = 0.f;
-        }
-      }
-    }
-    __syncthreads();                    // the stage may be refilled
-  }
+  ring_product<NST>(wk, p.part, pr.ldw, issue, [](int) {},
+                    [&](int c, const Chunk&) {
+                      const char* sa = smem + (c % NST) * STAGE_BYTES;
+                      return Operands{sa, KC * 2, 0, sa + A_BYTES};
+                    });
 }
 
 // act[b][j] = bf16(silu(g) * u) from the gate/up product's K splits,

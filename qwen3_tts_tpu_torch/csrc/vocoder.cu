@@ -5,31 +5,49 @@
 // Replaces: qwen3_tts_tpu/ops/vocoder_fused.py::fused_residual_chain (body
 // _kernel) and ::fused_snake_convt (body _convt_kernel).
 //
-// What bounds them on the H100: arithmetic. Each residual block is a
+// What bounds them on the H100: arithmetic. Each residual unit is a
 // [rows, 7C] x [7C, C] product (dilated conv7 as an implicit im2col) and a
 // [rows, C] x [C, C] product; at the 40-frame chunk's shapes one chain is
-// ~24 GFLOP per stream and the weights (<= 9.5 MB) stay in L2, so these are
-// compute kernels, not HBM kernels. Both use one tiled FMA GEMM core: a
+// ~80 GFLOP per stream and the weights (<= 9.5 MB) stay in L2, so these
+// are compute kernels, not HBM kernels.
+//
+// Residual chain, per unit (d = 1, 3, 9):
+//   out = x + conv1(bf16(snake2(conv7_d(s) + b1))) + b2,  s = bf16(snake1(x))
+// - Tensor cores: both products are implicit GEMMs on mma.sync.m16n8k16
+//   bf16 -> f32 (csrc/mma_ring.cuh). A CTA owns 128 time steps of one
+//   stream x BN output columns (BN = 128, or 96 where C is not a multiple
+//   of 128: C = 192 and 96, so no weight is padded); 8 warps as 2 (rows)
+//   x 4 (columns), each 64 rows x BN/4 columns (4 m16 x BN/32 n8 tiles).
+//   A and W tiles of 64 K rows (32 at C = 96) stream through a 3-stage
+//   (4-stage) cp.async ring, the other stages in flight while the tensor
+//   cores consume one; rows are padded by 16 bytes, which keeps every
+//   ldmatrix conflict-free.
+//   A fragments by ldmatrix.x4, B fragments by ldmatrix.x2.trans on the
+//   [K, C] row-major weights that pack_block makes (w7 as (tap, in, out)).
+// - conv7's A rows of tap k are rows t - (6 - k) d of s: plain cp.async
+//   copies of shifted rows, zero-filled at negative time (causal) and past
+//   T. The 128-row tile reads each W chunk once per 128 time steps.
+// - Snake once per element: s = bf16(snake1(x)) is a bf16 [B, T, C]
+//   buffer, written for the first unit by a light pre-pass and for each
+//   later unit by the previous unit's conv1 epilogue, which holds `out` in
+//   f32. conv7's epilogue adds b1, applies snake2 and rounds to bf16: the
+//   conv1 operand y2, a bf16 [B, T, C] buffer in global memory (a CTA owns
+//   all C columns of its rows only at C = 96; L2 holds y2 between the two
+//   launches). conv1's epilogue adds b2 and the residual in f32.
+// - One launch per product: 7 launches a chain (pre-pass + 3 x 2). No
+//   atomics, sums in a fixed order: two calls on one input are bitwise
+//   equal. Values as the twin (snake in f32, rounded to bf16, f32 sums);
+//   only the order of the sums differs.
+//
+// Head (FMA core, the next kernel to redesign): out[t][p*C2 + c] =
+// s[t] . Whi[:, p*C2 + c] + s[t+1] . Wlo[:, p*C2 + c] + b[c] with
+// s = snake(x) and s[T] = 0: one GEMM with K = 2C over the packed
+// [Whi; Wlo] matrix; each tile reads its rows plus the row after. A
 // 32-row x 128-column output tile per block, 32-deep K chunks staged in
 // shared memory as f32 values of bf16 operands, 4x4 outputs per thread.
-// The A operand is built while it is staged: snake (fast_sin2) of the
-// input row at the tap's causal offset, rounded to bf16, zero at negative
-// time (and past the end for the head's look-ahead row).
-//
-// Residual chain: the TPU kernel walks time in order and carries each
-// stage's 6d-row causal halo in VMEM. CUDA blocks run in no order, so one
-// launch per dilation (1, 3, 9) reads its 6d-row halo of the block input
-// from global memory: the halo at negative time is then zero of that
-// block's input by construction (a one-pass tile would have to recompute
-// 78 halo rows through all three blocks, 7x the work at a 32-row tile).
-// Within a launch the block's conv7 output (after bias and the second
-// snake) stays in shared memory as bf16 for the conv1 that follows, and
-// the residual add happens in f32 at the store.
-//
-// Head: out[t][p*C2 + c] = s[t] . Whi[:, p*C2 + c] + s[t+1] . Wlo[:, p*C2 + c]
-// + b[c] with s = snake(x) and s[T] = 0: one GEMM with K = 2C over the
-// packed [Whi; Wlo] matrix; each tile reads its rows plus the row after.
-#include "common.cuh"
+#include <algorithm>
+
+#include "mma_ring.cuh"
 
 namespace {
 
@@ -85,80 +103,6 @@ __device__ __forceinline__ void zero_acc(float acc[4][4]) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 }
 
-// One residual block, x -> out (out != x):
-//   out = x + conv1(snake2(conv7_d(snake1(x)) + b1)) + b2
-// x, out: [B, T, C] f32; w7: [7, C, C] bf16 (tap, in, out); w1: [C, C].
-__global__ void __launch_bounds__(NT) res_block_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int T, int C,
-    int d, const bf16* __restrict__ w7, const float* __restrict__ a1,
-    const float* __restrict__ ib1, const float* __restrict__ b1,
-    const float* __restrict__ a2, const float* __restrict__ ib2,
-    const bf16* __restrict__ w1, const float* __restrict__ b2) {
-  extern __shared__ float smem[];
-  float (*As)[APAD] = reinterpret_cast<float (*)[APAD]>(smem);
-  float (*Bs)[TN] = reinterpret_cast<float (*)[TN]>(smem + KC * APAD);
-  bf16* Y = reinterpret_cast<bf16*>(smem + KC * APAD + KC * TN);  // [TM][C]
-  const int b = blockIdx.y, t0 = blockIdx.x * TM;
-  const float* xb = x + (size_t)b * T * C;
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
-  float acc[4][4];
-
-  for (int n0 = 0; n0 < C; n0 += TN) {
-    zero_acc(acc);
-    for (int k = 0; k < 7; ++k) {
-      const int shift = (6 - k) * d;
-      for (int c0 = 0; c0 < C; c0 += KC) {
-        for (int i = threadIdx.x; i < TM * KC; i += NT) {
-          const int t = i / KC, ci = c0 + i % KC;
-          const int src = t0 + t - shift;
-          float v = 0.f;
-          if (src >= 0 && src < T)
-            v = round_bf(snake(xb[(size_t)src * C + ci], a1[ci], ib1[ci]));
-          As[i % KC][t] = v;
-        }
-        load_b(Bs, w7, C, k * C + c0, n0);
-        __syncthreads();
-        fma_chunk(As, Bs, acc);
-        __syncthreads();
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx * 4 + j;
-        if (col < C)
-          Y[(ty * 4 + i) * C + col] =
-              f2bf(snake(acc[i][j] + b1[col], a2[col], ib2[col]));
-      }
-  }
-  __syncthreads();
-
-  for (int n0 = 0; n0 < C; n0 += TN) {
-    zero_acc(acc);
-    for (int c0 = 0; c0 < C; c0 += KC) {
-      for (int i = threadIdx.x; i < TM * KC; i += NT) {
-        const int t = i / KC, kk = i % KC;
-        As[kk][t] = bf2f(Y[t * C + c0 + kk]);
-      }
-      load_b(Bs, w1, C, c0, n0);
-      __syncthreads();
-      fma_chunk(As, Bs, acc);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = t0 + ty * 4 + i, col = n0 + tx * 4 + j;
-        if (t < T && col < C) {
-          const size_t o = (size_t)t * C + col;
-          out[(size_t)b * T * C + o] = xb[o] + (acc[i][j] + b2[col]);
-        }
-      }
-  }
-}
-
 // Snake + stride-r transposed conv (K = 2r, causal trim) + bias.
 // x: [B, T, C] f32; W: [2C, N] bf16 = [Whi; Wlo] with N = r*C2;
 // out: [B, T, N] f32 (= [B, T*r, C2]).
@@ -198,25 +142,240 @@ __global__ void __launch_bounds__(NT) snake_convt_kernel(
     }
 }
 
+
+// ---- residual chain: tensor-core implicit GEMMs ----
+constexpr int RM = 128;              // output rows (time steps) a CTA
+constexpr int RTHREADS = 256;
+
+// BN output columns; RK_ K rows a ring stage (64 where C allows, so that
+// each pair of CTA barriers frames 4 k16 steps; 32 at C = 96); RST stages
+// (2 CTAs a SM either way)
+template <int BN, int RK_>
+struct Tile {
+  static constexpr int RK = RK_;
+  static constexpr int RST = RK == 64 ? 3 : 4;
+  static constexpr int A_ROW = RK * 2 + 16;      // bytes of a padded A row
+  static constexpr int A_STAGE = RM * A_ROW;
+  static constexpr int W_ROW = BN * 2 + 16;      // bytes of a padded W row
+  static constexpr int STAGE = A_STAGE + RK * W_ROW;
+  static constexpr int SMEM = RST * STAGE;
+  static constexpr int NT8 = BN / 32;            // n8 tiles a warp
+};
+
+struct ResArgs {
+  const bf16* a;        // A rows [B, T, C] bf16: s (conv7) or y2 (conv1)
+  const bf16* w;        // [K, C] bf16: w7 as [7C, C], or w1
+  const float* bias;    // [C]: b1 or b2
+  const float* sa;      // snake constants of the epilogue: a2 / ib2
+  const float* sib;     //   (conv7), the next unit's a1 / ib1 (conv1)
+  bf16* y2;             // conv7: bf16(snake2(acc + b1)) [B, T, C]
+  const float* x;       // conv1: the unit's input [B, T, C] f32
+  float* out;           // conv1: x + acc + b2
+  bf16* s_out;          // conv1: bf16(snake(out)) for the next unit, or null
+  int T, C, d;
+};
+
+// One product of a residual unit over a 128-row x BN-column tile of
+// stream blockIdx.z: conv7 (K = 7C, tap k reads rows t - (6 - k) d) with
+// the snake2 epilogue, or conv1 (K = C) with the residual epilogue.
+template <int BN, int RK_, bool CONV7>
+__global__ void __launch_bounds__(RTHREADS, 2) res_gemm_kernel(ResArgs p) {
+  extern __shared__ __align__(16) char smem[];
+  using TL = Tile<BN, RK_>;
+  constexpr int RK = TL::RK, RST = TL::RST, A_ROW = TL::A_ROW;
+  constexpr int A_STAGE = TL::A_STAGE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int n0 = blockIdx.x * BN, t0 = blockIdx.y * RM, b = blockIdx.z;
+  const int C = p.C, T = p.T, per_tap = C / RK;
+  const int n_chunks = (CONV7 ? 7 : 1) * per_tap;
+  const bf16* ab = p.a + (size_t)b * T * C;
+
+  // chunk c -> stage c % RST: its A rows (tap shift, zero outside
+  // [0, T)), then its W rows
+  const auto issue = [&](int c) {
+    if (c < n_chunks) {
+      char* sa = smem + (c % RST) * TL::STAGE;
+      char* sw = sa + A_STAGE;
+      const int tap = c / per_tap, c0 = (c % per_tap) * RK;
+      const int shift = CONV7 ? (6 - tap) * p.d : 0;
+      for (int i = tid; i < RM * (RK / 8); i += RTHREADS) {
+        const int r = i / (RK / 8), ch = i % (RK / 8);
+        const int src = t0 + r - shift;
+        char* dst = sa + r * A_ROW + ch * 16;
+        if (src >= 0 && src < T)
+          cp_async16(dst, ab + (size_t)src * C + c0 + ch * 8);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+      const bf16* wk = p.w + (size_t)(tap * C + c0) * C + n0;
+      for (int i = tid; i < RK * (BN / 8); i += RTHREADS) {
+        const int r = i / (BN / 8), ch = i % (BN / 8);
+        cp_async16(sw + r * TL::W_ROW + ch * 16, wk + (size_t)r * C + ch * 8);
+      }
+    }
+    cp_async_commit();                  // empty past the end: counts stay
+  };
+
+  float acc[4][TL::NT8][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int j = 0; j < TL::NT8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < RST - 1; ++s) issue(s);
+  for (int c = 0; c < n_chunks; ++c) {
+    issue(c + RST - 1);
+    cp_async_wait<RST - 1>();
+    __syncthreads();
+    const char* sa = smem + (c % RST) * TL::STAGE;
+    const char* sw = sa + A_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < RK / 16; ++kk) {
+      uint32_t bfr[TL::NT8][2];
+#pragma unroll
+      for (int j = 0; j < TL::NT8; ++j)
+        ldsm_x2_trans(bfr[j], sw + (kk * 16 + (lane & 15)) * TL::W_ROW +
+                                  (wn * (BN / 4) + j * 8) * 2);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t afr[4];
+        ldsm_x4(afr, sa + (wm * 64 + mt * 16 + (lane & 15)) * A_ROW +
+                         (kk * 2 + (lane >> 4)) * 16);
+#pragma unroll
+        for (int j = 0; j < TL::NT8; ++j) mma_bf16(acc[mt][j], afr, bfr[j]);
+      }
+    }
+    __syncthreads();                    // the stage may be refilled
+  }
+
+  const int r0 = lane >> 2, cq = (lane & 3) * 2;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int j = 0; j < TL::NT8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = t0 + wm * 64 + mt * 16 + r0 + hf * 8;
+        const int col = n0 + wn * (BN / 4) + j * 8 + cq;
+        if (t >= T) continue;
+        const size_t o = ((size_t)b * T + t) * C + col;
+        const float v0 = acc[mt][j][2 * hf] + p.bias[col];
+        const float v1 = acc[mt][j][2 * hf + 1] + p.bias[col + 1];
+        if constexpr (CONV7) {
+          *reinterpret_cast<__nv_bfloat162*>(p.y2 + o) =
+              __floats2bfloat162_rn(snake(v0, p.sa[col], p.sib[col]),
+                                    snake(v1, p.sa[col + 1], p.sib[col + 1]));
+        } else {
+          const float2 xv = *reinterpret_cast<const float2*>(p.x + o);
+          const float o0 = xv.x + v0, o1 = xv.y + v1;
+          *reinterpret_cast<float2*>(p.out + o) = make_float2(o0, o1);
+          if (p.s_out)
+            *reinterpret_cast<__nv_bfloat162*>(p.s_out + o) =
+                __floats2bfloat162_rn(
+                    snake(o0, p.sa[col], p.sib[col]),
+                    snake(o1, p.sa[col + 1], p.sib[col + 1]));
+        }
+      }
+}
+
+// s = bf16(snake(x)) over [rows, C], 4 values a thread
+__global__ void snake_bf16_kernel(const float4* __restrict__ x,
+                                  uint2* __restrict__ s, size_t n4, int C,
+                                  const float* __restrict__ a,
+                                  const float* __restrict__ ib) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = x[i];
+    const int c = (int)(i * 4 % C);
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(
+        snake(v.x, a[c], ib[c]), snake(v.y, a[c + 1], ib[c + 1]));
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(
+        snake(v.z, a[c + 2], ib[c + 2]), snake(v.w, a[c + 3], ib[c + 3]));
+    s[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                      *reinterpret_cast<const uint32_t*>(&hi));
+  }
+}
+
+template <int BN, int RK, bool CONV7>
+cudaError_t launch_res(const ResArgs& p, int B, cudaStream_t st) {
+  const int smem = Tile<BN, RK>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      res_gemm_kernel<BN, RK, CONV7>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  res_gemm_kernel<BN, RK, CONV7><<<dim3(p.C / BN, (p.T + RM - 1) / RM, B),
+                                   RTHREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// the column tile for C: 128, else 96 (C = 96, 192); 0 where neither fits
+int res_tile_n(int C) { return C % 128 == 0 ? 128 : (C % 96 == 0 ? 96 : 0); }
+
+template <bool CONV7>
+int launch_res_any(const ResArgs& p, int B, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool deep = p.C % 64 == 0;
+  switch (res_tile_n(p.C)) {
+    case 128: return (int)launch_res<128, 64, CONV7>(p, B, st);
+    case 96:
+      return (int)(deep ? launch_res<96, 64, CONV7>(p, B, st)
+                        : launch_res<96, 32, CONV7>(p, B, st));
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-int q3_res_block(const float* x, float* out, int B, int T, int C, int d,
-                 const void* w7, const float* a1, const float* ib1,
-                 const float* b1, const float* a2, const float* ib2,
-                 const void* w1, const float* b2, void* stream) {
-  const size_t smem = (size_t)(KC * APAD + KC * TN) * sizeof(float) +
-                      (size_t)TM * C * sizeof(bf16);
-  cudaError_t e = cudaFuncSetAttribute(
-      res_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  res_block_kernel<<<dim3((T + TM - 1) / TM, B), NT, smem,
-                     (cudaStream_t)stream>>>(
-      x, out, T, C, d, (const bf16*)w7, a1, ib1, b1, a2, ib2,
-      (const bf16*)w1, b2);
+// s = bf16(snake(x; a, ib)), x [B, T, C] f32 -> s bf16
+int q3_snake_bf16(const float* x, void* s, int B, int T, int C,
+                  const float* a, const float* ib, void* stream) {
+  const size_t n4 = (size_t)B * T * C / 4;
+  const int blocks = (int)std::min<size_t>((n4 + 255) / 256, 4096);
+  snake_bf16_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(x), static_cast<uint2*>(s), n4, C, a,
+      ib);
   return (int)cudaGetLastError();
+}
+
+// y2 = bf16(snake(conv7_d(s) + b1; a2, ib2)); s, y2 [B, T, C] bf16,
+// w7 [7, C, C] bf16 (tap, in, out)
+int q3_res_conv7(const void* s, void* y2, int B, int T, int C, int d,
+                 const void* w7, const float* b1, const float* a2,
+                 const float* ib2, void* stream) {
+  ResArgs p{};
+  p.a = static_cast<const bf16*>(s);
+  p.w = static_cast<const bf16*>(w7);
+  p.bias = b1;
+  p.sa = a2;
+  p.sib = ib2;
+  p.y2 = static_cast<bf16*>(y2);
+  p.T = T;
+  p.C = C;
+  p.d = d;
+  return launch_res_any<true>(p, B, stream);
+}
+
+// out = x + (y2 @ w1 + b2); s_out, when given, = bf16(snake(out; a, ib))
+int q3_res_conv1(const void* y2, const float* x, float* out, void* s_out,
+                 int B, int T, int C, const void* w1, const float* b2,
+                 const float* a, const float* ib, void* stream) {
+  ResArgs p{};
+  p.a = static_cast<const bf16*>(y2);
+  p.w = static_cast<const bf16*>(w1);
+  p.bias = b2;
+  p.sa = a;
+  p.sib = ib;
+  p.x = x;
+  p.out = out;
+  p.s_out = static_cast<bf16*>(s_out);
+  p.T = T;
+  p.C = C;
+  return launch_res_any<false>(p, B, stream);
 }
 
 int q3_snake_convt(const float* x, float* out, int B, int T, int C, int N,

@@ -34,10 +34,18 @@ _F = ctypes.c_float
 # C signatures (every function also takes the stream last, returns int)
 _SIGNATURES = {
     "q3_codepred_frame": (_P,) * 27 + (_I,) * 4 + (_F,) * 2,
-    "q3_res_block": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "q3_snake_bf16": (_P, _P, _I, _I, _I, _P, _P),
+    "q3_res_conv7": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "q3_res_conv1": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "q3_snake_convt": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "q3_flash_decode": (_P,) * 9 + (_I,) * 9 + (_F, _I) + (_P,) * 4,
-    "q3_talker_step": (_P,) * 21 + (_I,) * 7 + (_F,) * 3,
+    "q3_talker_step": (_P,) * 22 + (_I,) * 7 + (_F,) * 3,
+}
+# C functions that take no stream: name -> (argument types, result type)
+_HOST_SIGNATURES = {
+    "q3_codepred_launches": ((), _I),
+    "q3_talker_scratch": ((_I,) * 4 + (ctypes.POINTER(ctypes.c_longlong),),
+                          _I),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -111,8 +119,9 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = [*args, _P]
             fn.restype = ctypes.c_int
-        handle.q3_codepred_launches.argtypes = []
-        handle.q3_codepred_launches.restype = ctypes.c_int
+        for name, (args, res) in _HOST_SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes, fn.restype = list(args), res
         _LIB = handle
     return _LIB
 

@@ -30,10 +30,16 @@ A CPU tensor runs the twin; a CUDA tensor launches the kernel or raises.
 ``talker_step_fused.launches`` counts kernel launches. The kernel reads
 positions, n_valid, write_idx and valid_mask from device memory (no host
 sync per step) and the weights in the JAX layout as they are ([in, out]
-row-major, stacked over layers): nothing is packed at load.
+row-major, stacked over layers): nothing is packed at load. Its scratch
+is sized by the kernel (``q3_talker_scratch``, from its product plan) and
+cached (``_scratch``): a step allocates only its output y.
+``talker_step_fused.phase_ns``, when set, gathers the kernel's phase
+clock (ms by phase kind).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,9 +48,43 @@ from ..models.stack import QuantKV, decode_layers
 from .flash_decode import _int32, flash_decode_twin
 
 HEAD_DIM = 128        # the kernel's head dim
-K_TILE = 256          # rows of K one CTA sums per product tile (kernel)
-ATTN_TILE = 64        # cache slots per attention tile (kernel)
+K_TILE = 256          # K rows of a QKV or gate/up item (kernel); H a multiple
 WEIGHTS = ("wqkv", "wo", "w_gu", "w_down")
+# the kernel's scratch, in q3_talker_scratch's order: the normed residual,
+# the K-split partials of QKV and gate/up, of wo and down, and attention's
+# split partials (m, l) and acc
+SCRATCH = (("abuf", torch.bfloat16), ("part0", torch.float32),
+           ("part1", torch.float32), ("part_ml", torch.float32),
+           ("part_acc", torch.float32))
+_SCRATCH: dict = {}   # (device, element counts) -> tensors
+
+
+def _scratch_counts(B: int, H: int, n_kv: int, read_ctx: int) -> tuple:
+    """The element counts of the kernel's scratch for a step of this shape
+    (SCRATCH order), as the kernel's own product plan gives them."""
+    n = (ctypes.c_longlong * len(SCRATCH))()
+    if kernels.lib().q3_talker_scratch(B, H, n_kv, read_ctx, n) != 0:
+        raise ValueError(f"talker kernel has no product plan for B={B}, "
+                         f"H={H}, n_kv={n_kv}, read_ctx={read_ctx}")
+    return tuple(n)
+
+
+def _scratch(dev, counts: tuple) -> tuple:
+    """Flat scratch tensors of `counts` elements (SCRATCH order and
+    dtypes), allocated once and reused by later steps (steps on one stream
+    run in order, and the kernel writes every entry before it reads it):
+    abuf and the K-split partials per (device, their counts), the
+    attention partials per (device, theirs), so a new read_ctx reallocates
+    only the latter."""
+    out = []
+    for lo, hi in ((0, 3), (3, len(SCRATCH))):
+        key = (str(dev), counts[lo:hi])
+        if key not in _SCRATCH:
+            _SCRATCH[key] = tuple(
+                torch.empty(n, device=dev, dtype=dtype)
+                for n, (_, dtype) in zip(counts[lo:hi], SCRATCH[lo:hi]))
+        out += _SCRATCH[key]
+    return tuple(out)
 
 
 def _geometry_ok(cfg) -> bool:
@@ -137,19 +177,8 @@ def _launch(layers_w, x, positions, kv_cache, write_idx, n_valid, *,
     if not 0 < rc <= S:
         raise ValueError(f"read_ctx {rc} outside (0, {S}]")
 
-    # scratch: the products' inputs and partial sums, the roped queries,
-    # attention's per-split partials (the kernel splits S at most into
-    # its 64-slot tiles)
-    n_tiles, NH = -(-rc // ATTN_TILE), 2 * n_kv
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    abuf = torch.empty(B, 3 * H, dtype=torch.bfloat16, device=dev)
-    qbuf = torch.empty(B, NH, head_dim, dtype=torch.bfloat16, device=dev)
-    scratch = (abuf, f32(6 * H // K_TILE, B, H), qbuf,
-               f32(B * NH, n_tiles, 2), f32(B * NH, n_tiles, head_dim))
-    y = f32(B, H)
+    sc = _scratch(dev, _scratch_counts(B, H, n_kv, rc))
+    y = torch.empty(B, H, dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -162,8 +191,9 @@ def _launch(layers_w, x, positions, kv_cache, write_idx, n_valid, *,
         *(lw[n].data_ptr() for n in (*WEIGHTS, "attn_norm", "ffn_norm",
                                       "q_norm", "k_norm")),
         vals.data_ptr(), ptr(kv_cache.scales) if int8 else None,
-        *(t.data_ptr() for t in scratch), y.data_ptr(), B, L, H, n_kv, S,
-        rc, int(int8), float(eps), float(theta), 1.0 / head_dim ** 0.5,
+        *(t.data_ptr() for t in sc), y.data_ptr(),
+        ptr(talker_step_fused.phase_ns), B, L, H, n_kv, S, rc, int(int8),
+        float(eps), float(theta), 1.0 / head_dim ** 0.5,
         kernels.stream(dev)), "q3_talker_step")
     talker_step_fused.launches += 1
     return y, kv_cache
@@ -192,3 +222,12 @@ def talker_step_fused(layers_w, x: torch.Tensor, positions: torch.Tensor,
 
 
 talker_step_fused.launches = 0
+# a device int64 [6] tensor, when set: the kernel adds the ns of each phase
+# kind to it (PHASES order)
+talker_step_fused.phase_ns = None
+PHASES = ("norm", "qkv", "attention", "wo", "gate/up", "down")
+# phases of each kind in one step of L layers: two norms a layer and the
+# final one, one of each other kind
+PHASES_PER_LAYER = {"norm": 2, "qkv": 1, "attention": 1, "wo": 1,
+                    "gate/up": 1, "down": 1}
+BARRIERS_PER_LAYER = sum(PHASES_PER_LAYER.values())   # 7

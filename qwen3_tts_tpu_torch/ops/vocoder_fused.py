@@ -4,10 +4,16 @@ plain torch twins.
 Replaces the Pallas kernels of qwen3_tts_tpu/ops/vocoder_fused.py:
 
 - ``fused_residual_chain``: x += conv1(snake(conv7_d(snake(x)))) for
-  d = 1, 3, 9 (causal). One launch per dilation: a CUDA block cannot carry
-  the causal halo from the previous tile as the TPU's in-order grid does,
-  so each launch reads its 6d-row halo of the block input from global
-  memory. Twin: the port of the XLA chain (models/vocoder._residual_block).
+  d = 1, 3, 9 (causal), as tensor-core implicit GEMMs: a snake pre-pass
+  writes s = bf16(snake1(x)) once per element, then per unit one conv7
+  launch (its epilogue writes y2 = bf16(snake2(. + b1))) and one conv1
+  launch (its epilogue writes x + . + b2 and the next unit's s). A CUDA
+  block cannot carry the causal halo from the previous tile as the TPU's
+  in-order grid does, so each conv7 tile reads its 6d-row halo of s from
+  global memory. The bf16 s and y2 buffers and the f32 ping-pong buffer
+  are cached per (device, C) (``_chain_scratch``); a call allocates only
+  its output. Twin: the port of the XLA chain
+  (models/vocoder._residual_block).
 - ``fused_snake_convt``: decoder-block head, snake + stride-r transposed
   conv (K = 2r) with the causal trim, + bias. Phase-major packing
   Whi[:, p*C2 + c] = W[:, c, p + r], Wlo[:, p*C2 + c] = W[:, c, p] makes it
@@ -29,6 +35,11 @@ from .. import kernels
 
 DILATIONS = (1, 3, 9)
 K_CHUNK = 32        # the kernels' K chunk: channel counts must be multiples
+# the residual chain's column tiles (csrc/vocoder.cu): C must be a
+# multiple of one of them
+CHAIN_TILES_N = (128, 96)
+
+_CHAIN_SCRATCH: dict = {}   # (device, C) -> flat (s, y2, tmp)
 
 
 def _snake_consts(alpha_log, beta_log):
@@ -79,6 +90,27 @@ def residual_chain_twin(x: torch.Tensor, blk_w) -> torch.Tensor:
     return x
 
 
+def chain_tile_n(C: int) -> int:
+    """The residual chain kernel's column tile for C channels (0: none
+    serves C)."""
+    return next((n for n in CHAIN_TILES_N if C % n == 0), 0)
+
+
+def _chain_scratch(dev, B: int, T: int, C: int) -> tuple:
+    """(s, y2, tmp) for one chain call: s and y2 bf16 [B, T, C], tmp f32
+    [B, T, C], views of flat buffers kept per (device, C) and grown to the
+    largest B * T seen (calls on one stream run in order, and every
+    launch writes what the next reads)."""
+    n = B * T * C
+    key = (str(dev), C)
+    bufs = _CHAIN_SCRATCH.get(key)
+    if bufs is None or bufs[0].numel() < n:
+        bufs = _CHAIN_SCRATCH[key] = tuple(
+            torch.empty(n, dtype=dt, device=dev)
+            for dt in (torch.bfloat16, torch.bfloat16, torch.float32))
+    return tuple(t[:n].view(B, T, C) for t in bufs)
+
+
 def fused_residual_chain(x: torch.Tensor, blk_w) -> torch.Tensor:
     """The decoder block's 3-block residual Snake chain.
     x: [B, T, C] f32 -> [B, T, C] f32."""
@@ -88,8 +120,9 @@ def fused_residual_chain(x: torch.Tensor, blk_w) -> torch.Tensor:
         raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
     B, T, C = x.shape
     kernels.require(x, "x", torch.float32)
-    if C % K_CHUNK:
-        raise ValueError(f"kernel serves C % {K_CHUNK} == 0, got C={C}")
+    if not chain_tile_n(C):
+        raise ValueError(f"kernel serves C a multiple of one of "
+                         f"{CHAIN_TILES_N}, got C={C}")
     res = _packed(blk_w, "res")
     if len(res) != 3:
         raise ValueError(f"kernel serves 3 residual blocks, got {len(res)}")
@@ -101,14 +134,24 @@ def fused_residual_chain(x: torch.Tensor, blk_w) -> torch.Tensor:
         kernels.require(w1, "w1", torch.bfloat16, (C, C))
     lib = kernels.lib()
     st = kernels.stream(x.device)
+    s, y2, tmp = _chain_scratch(x.device, B, T, C)
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x)
-    for (a1, ib1, w7, b1, a2, ib2, w1, b2), d, (src, dst) in zip(
-            res, DILATIONS, ((x, out), (out, tmp), (tmp, out))):
-        kernels.check(lib.q3_res_block(
-            src.data_ptr(), dst.data_ptr(), B, T, C, d, w7.data_ptr(),
-            a1.data_ptr(), ib1.data_ptr(), b1.data_ptr(), a2.data_ptr(),
-            ib2.data_ptr(), w1.data_ptr(), b2.data_ptr(), st), "q3_res_block")
+    kernels.check(lib.q3_snake_bf16(x.data_ptr(), s.data_ptr(), B, T, C,
+                                    res[0][0].data_ptr(),
+                                    res[0][1].data_ptr(), st),
+                  "q3_snake_bf16")
+    for u, ((_, _, w7, b1, a2, ib2, w1, b2), d, (src, dst)) in enumerate(zip(
+            res, DILATIONS, ((x, out), (out, tmp), (tmp, out)))):
+        kernels.check(lib.q3_res_conv7(
+            s.data_ptr(), y2.data_ptr(), B, T, C, d, w7.data_ptr(),
+            b1.data_ptr(), a2.data_ptr(), ib2.data_ptr(), st),
+            "q3_res_conv7")
+        nxt = res[u + 1] if u + 1 < len(res) else None
+        kernels.check(lib.q3_res_conv1(
+            y2.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            s.data_ptr() if nxt else None, B, T, C, w1.data_ptr(),
+            b2.data_ptr(), nxt[0].data_ptr() if nxt else None,
+            nxt[1].data_ptr() if nxt else None, st), "q3_res_conv1")
     fused_residual_chain.launches += 1
     return out
 

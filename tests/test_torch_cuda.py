@@ -143,16 +143,22 @@ def _assert_close_rms(got, ref):
     assert (got - ref).square().mean().sqrt() <= VOC_RMS_TOL * rms
 
 
-@pytest.mark.parametrize("blk_idx,t", [(0, 1280), (3, 76800)])
-def test_residual_chain(dev, blk_idx, t):
+# the four decoder blocks' (C, T) of a 40-frame chunk at B = 2; B = 1 and
+# 3 with T not a multiple of the kernel's 128-row tile
+@pytest.mark.parametrize("blk_idx,t,B", [
+    (0, 1280, 2), (1, 6400, 2), (2, 25600, 2), (3, 76800, 2),
+    (0, 1000, 1), (1, 333, 3), (2, 130, 3), (3, 7681, 1)])
+def test_residual_chain(dev, blk_idx, t, B):
     blocks, gen = _blocks(blk_idx, dev)
     blk = blocks[blk_idx]
     c = blk["conv_t_w"].shape[1]
-    x = torch.randn(2, t, c, generator=gen, device=dev)
+    x = torch.randn(B, t, c, generator=gen, device=dev)
     before = vf.fused_residual_chain.launches
     got = vf.fused_residual_chain(x, blk)
+    again = vf.fused_residual_chain(x, blk)
     ref = vf.residual_chain_twin(x, blk)
-    assert vf.fused_residual_chain.launches == before + 1
+    assert vf.fused_residual_chain.launches == before + 2
+    assert torch.equal(got, again)                  # deterministic
     _assert_close_rms(got, ref)
 
 
@@ -376,9 +382,10 @@ TF_RMS_TOL = 1e-2           # RMS(err) / RMS
 def _tf_inputs(mode, kv, dev, B=4, S=256, read_ctx=192, widx=150):
     """A small talker (H 256, 4/2 heads, D 128, I 768, 2 layers) and a
     cache with NaN at and past read_ctx. Prefix: stream 0 live at widx,
-    1 frozen below it, 2 empty, 3 claims S slots (only read_ctx count).
-    Mask: scattered bits up to widx, lane 1 dead at widx, bits set past
-    read_ctx. B < 4 keeps the first B streams."""
+    1 frozen below it, 2 empty, 3 claims S slots (only read_ctx count),
+    any further stream ragged. Mask: scattered bits up to widx, lane 1
+    dead at widx, bits set past read_ctx. B < 4 keeps the first B
+    streams."""
     from qwen3_tts_tpu_torch.models.stack import QuantKV, quantize_kv_rows
     cfg = TalkerConfig(hidden_size=256, n_layers=2, n_attention_heads=4,
                        n_key_value_heads=2, intermediate_size=768,
@@ -394,12 +401,16 @@ def _tf_inputs(mode, kv, dev, B=4, S=256, read_ctx=192, widx=150):
     else:
         cache[..., read_ctx:, :] = float("nan")
     x = torch.randn(B, 256, generator=gen, device=dev)
-    pos = torch.tensor([widx, 40, 7, 300][:B], dtype=torch.int32,
-                       device=dev)
+    extra = max(0, B - 4)
+    pos = torch.cat([torch.tensor([widx, 40, 7, 300][:B], device=dev),
+                     torch.randint(0, 2000, (extra,), generator=gen,
+                                   device=dev)]).int()
     n_valid, mask = None, None
     if mode == "prefix":
-        n_valid = torch.tensor([widx + 1, 90, 0, S][:B], dtype=torch.int32,
-                               device=dev)
+        n_valid = torch.cat([
+            torch.tensor([widx + 1, 90, 0, S][:B], device=dev),
+            torch.randint(1, widx + 2, (extra,), generator=gen,
+                          device=dev)]).int()
     else:
         mask = torch.rand(B, S, generator=gen, device=dev) < 0.4
         mask[:, widx + 1:read_ctx] = False
@@ -419,12 +430,16 @@ def _clone(c):
         else c.clone()
 
 
-@pytest.mark.parametrize("B", [1, 4])
+# B = 17 and 32 leave ragged and full 16-row MMA tiles; read_ctx 200 is
+# not a multiple of the 64-slot attention tile
+@pytest.mark.parametrize("B,read_ctx", [(1, 192), (4, 192), (4, 200),
+                                        (17, 200), (32, 192)])
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("mode", ["prefix", "mask"])
-def test_talker_fused_matches_twin(dev, mode, kv, B):
+def test_talker_fused_matches_twin(dev, mode, kv, B, read_ctx):
     from qwen3_tts_tpu_torch.ops import talker_fused as tf
-    lw, x, pos, cache, widx, n_valid, kw = _tf_inputs(mode, kv, dev, B=B)
+    lw, x, pos, cache, widx, n_valid, kw = _tf_inputs(mode, kv, dev, B=B,
+                                                      read_ctx=read_ctx)
     ck, ct = _clone(cache), _clone(cache)
     widx_t = torch.tensor(widx, dtype=torch.int32, device=dev)
     before = tf.talker_step_fused.launches
@@ -455,6 +470,30 @@ def test_talker_fused_matches_twin(dev, mode, kv, B):
         step = rt.abs() * 2.0 ** -7
     err = ((rk - rt).abs() - step).clamp_min(0.0)
     assert err.max() <= TF_MAX_TOL * rt.square().mean().sqrt()
+
+
+def test_talker_fused_reuses_scratch_one_launch(dev):
+    """A second step of the same shape reuses the cached scratch and is
+    one kernel launch, with nothing else on the card."""
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    lw, x, pos, cache, widx, n_valid, kw = _tf_inputs("prefix", "bf16", dev)
+    widx_t = torch.tensor(widx, dtype=torch.int32, device=dev)
+    tf.talker_step_fused(lw, x, pos, cache, widx_t, n_valid, **kw)
+    torch.cuda.synchronize()
+    ids = {k: tuple(map(id, v)) for k, v in tf._SCRATCH.items()}
+    before = tf.talker_step_fused.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        y, _ = tf.talker_step_fused(lw, x, pos, cache, widx_t, n_valid, **kw)
+        torch.cuda.synchronize()
+    assert {k: tuple(map(id, v)) for k, v in tf._SCRATCH.items()} == ids
+    assert tf.talker_step_fused.launches == before + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in e.name.lower()
+             and "memset" not in e.name.lower()]
+    assert len(names) == 1 and "talker_step_kernel" in names[0], names
+    assert torch.isfinite(y).all()
 
 
 def test_talker_fused_refuses_unserved_calls(dev):

@@ -290,6 +290,51 @@ def test_fused_unsupported_raises(impl):
                                  n_past + 1, **KW)
 
 
+def test_scratch_cached_per_shape(monkeypatch):
+    """Flat scratch of the kernel's element counts, in its dtypes; the
+    products' part once per (device, their counts), the attention
+    partials once per theirs; a later step of the same shape reuses
+    both, a new read_ctx reallocates only the attention partials."""
+    monkeypatch.setattr(tfused, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    counts = (512, 6144, 2048, 48, 3072)
+    first = tfused._scratch(dev, counts)
+    assert [t.numel() for t in first] == list(counts)
+    assert [t.dtype for t in first] == [torch.bfloat16] + [torch.float32] * 4
+    assert all(a is b for a, b in zip(tfused._scratch(dev, counts), first))
+    other = tfused._scratch(dev, counts[:3] + (64, 4096))
+    assert all(a is b for a, b in zip(other[:3], first[:3]))
+    assert other[3] is not first[3] and other[4].numel() == 4096
+    assert tfused._scratch(dev, (768,) + counts[1:])[0] is not first[0]
+
+
+class _FakeLib:
+    """Stands in for the kernel library's q3_talker_scratch."""
+
+    def __init__(self, rc):
+        self.rc, self.calls = rc, []
+
+    def q3_talker_scratch(self, B, H, n_kv, read_ctx, out):
+        self.calls.append((B, H, n_kv, read_ctx))
+        for i in range(len(out)):
+            out[i] = 10 * (i + 1)
+        return self.rc
+
+
+@pytest.mark.parametrize("rc", [0, 1])
+def test_scratch_counts_come_from_the_kernel(monkeypatch, rc):
+    """The wrapper sizes its scratch by the kernel's own plan: one query
+    of the library per step shape, and a refusal raises."""
+    fake = _FakeLib(rc)
+    monkeypatch.setattr(tfused.kernels, "lib", lambda: fake)
+    if rc:
+        with pytest.raises(ValueError, match="no product plan"):
+            tfused._scratch_counts(3, 320, 2, 100)
+    else:
+        assert tfused._scratch_counts(3, 256, 2, 100) == (10, 20, 30, 40, 50)
+    assert len(fake.calls) == 1 and fake.calls[0][2:] == (2, 100)
+
+
 # ---- generate_chunk through the fused step against the JAX package ----
 
 GEN_CFG = _cfg(text_vocab_size=64, text_embd_dim=32, codec_vocab_size=3072,

@@ -199,3 +199,33 @@ def test_pack_block_reproduces_twins():
     # one bf16 ulp of a snake output where the f32 sums differ in order
     torch.testing.assert_close(y, ref, atol=5e-3 * ref.abs().max().item(),
                                rtol=0)
+
+
+@pytest.mark.parametrize("C,tile", [(768, 128), (384, 128), (192, 96),
+                                    (96, 96), (64, 0), (100, 0)])
+def test_chain_tile_n(C, tile):
+    """The residual chain's column tile serves the four decoder blocks'
+    widths without padding (96 where C is not a multiple of 128)."""
+    assert tvf.chain_tile_n(C) == tile
+    assert tile == 0 or C % tile == 0
+
+
+def test_chain_scratch_cached_per_shape(monkeypatch):
+    """The chain's bf16 s / y2 and f32 ping-pong buffers: views of flat
+    buffers kept per (device, C), reused by a call of the same or a
+    smaller shape and grown for a larger one."""
+    monkeypatch.setattr(tvf, "_CHAIN_SCRATCH", {})
+    dev = torch.device("cpu")
+    s, y2, tmp = tvf._chain_scratch(dev, 2, 40, 96)
+    assert (s.dtype, y2.dtype, tmp.dtype) == (torch.bfloat16,) * 2 + (
+        torch.float32,)
+    assert s.shape == y2.shape == tmp.shape == (2, 40, 96)
+    assert all(t.is_contiguous() for t in (s, y2, tmp))
+    again = tvf._chain_scratch(dev, 1, 30, 96)
+    assert [t.data_ptr() for t in again] == [t.data_ptr()
+                                             for t in (s, y2, tmp)]
+    assert again[0].shape == (1, 30, 96)
+    assert tvf._chain_scratch(dev, 2, 40, 192)[0].data_ptr() != s.data_ptr()
+    bigger = tvf._chain_scratch(dev, 3, 40, 96)
+    assert bigger[0].shape == (3, 40, 96)
+    assert len(tvf._CHAIN_SCRATCH) == 2
