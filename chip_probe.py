@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Planted-fault probe of four hand-written kernels on one NVIDIA GPU:
+"""Planted-fault probe of five hand-written kernels on one NVIDIA GPU:
 the talker megakernel, the code predictor, decode attention and the
-vocoder's residual chain.
+vocoder's residual chain and Snake + convT head.
 
 Run from the repository root: ``python3 chip_probe.py [name ...]`` (the
 named mutants only; all by default). For each kernel's sound source and
@@ -16,7 +16,9 @@ kernels of that copy:
 - ``check_flash_decode``: B 8 and 32, read_ctx 512 / 1,024 / 1,152, bf16
   and int8, prefix, mask, window and wrapped window (untimed);
 - ``check_res_chain``: the four decoder blocks' (C, T) of a 40-frame
-  chunk at B 2 and 16, each against the twin and run twice (untimed).
+  chunk at B 2 and 16, each against the twin and run twice (untimed);
+- ``check_snake_convt``: the four heads' (C, T) of a 40-frame chunk at
+  B 2, 16 and 48, each against the twin and run twice (untimed).
 It prints the check's lines and, per mutant, the cases that failed.
 Exits non-zero unless every sound kernel passes every case and every
 mutant fails one.
@@ -33,9 +35,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 CSRC = "qwen3_tts_tpu_torch/csrc/"
 TALKER, CODEPRED, ATTN = "talker_fused", "codepred", "flash_decode"
-CHAIN = "vocoder"
-# the prefix of the check's lines, by kernel source
-PREFIX = {TALKER: TALKER, CODEPRED: CODEPRED, ATTN: ATTN, CHAIN: "res_chain"}
+CHAIN, HEAD = "vocoder", "vocoder_head"
+# the prefix of the check's lines, by kernel
+PREFIX = {TALKER: TALKER, CODEPRED: CODEPRED, ATTN: ATTN, CHAIN: "res_chain",
+          HEAD: "snake_convt"}
 
 # name -> (kernel, edit): the edit is None for the sound source, else
 # (text of the sound source, its replacement) in csrc/<kernel>.cu, or
@@ -106,7 +109,7 @@ MUTANTS = {
         "min(t0 + tiles_per_split - 1, n_tiles)")),
     "res_chain: sound": (CHAIN, None),
     "res_chain: tap offset off by one dilation": (CHAIN, (
-        "CONV7 ? (6 - tap) * p.d : 0;", "CONV7 ? (7 - tap) * p.d : 0;")),
+        "kConv7 ? (6 - tap) * p.d : 0;", "kConv7 ? (7 - tap) * p.d : 0;")),
     "res_chain: snake2 skipped": (CHAIN, (
         "__floats2bfloat162_rn(snake(v0, p.sa[col], p.sib[col]),\n"
         "                                    snake(v1, p.sa[col + 1], "
@@ -120,6 +123,25 @@ MUTANTS = {
         "const float o0 = xv.x + v0, o1 = xv.y + v1;",
         "const float o0 = v0, o1 = v1;")),
     "res_chain: ring stage waited one group early": (CHAIN, (
+        "    cp_async_wait<RST - 1>();", "    cp_async_wait<RST>();")),
+    "head: sound": (HEAD, None),
+    # the tap-1 row after a stream's last row is then the next stream's
+    # first row (memory-safe; the last stream still reads zeros)
+    "head: zero row after each stream dropped": (HEAD, (
+        "if (t0 + r < T && !(tap && (last_row >> j & 1)))",
+        "if (t0 + r + tap < T)")),
+    "head: tap 1 reads row t": (HEAD, (
+        "ab + (size_t)(t0 + r + tap) * C", "ab + (size_t)(t0 + r) * C")),
+    "head: bias dropped": (HEAD, (
+        "*reinterpret_cast<float2*>(p.out + o) = make_float2(v0, v1);",
+        "*reinterpret_cast<float2*>(p.out + o) = make_float2("
+        "acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);")),
+    "head: snake parameters swapped": (HEAD, (
+        "x, s,\n                                     (size_t)B * T * C, C, a, "
+        "ib, st);",
+        "x, s,\n                                     (size_t)B * T * C, C, ib, "
+        "a, st);")),
+    "head: ring stage waited one group early": (HEAD, (
         "    cp_async_wait<RST - 1>();", "    cp_async_wait<RST>();")),
 }
 
@@ -136,10 +158,12 @@ kernel = sys.argv[1]
 try:
     if kernel == "flash_decode":
         cs.check_flash_decode(dev, gen, timed=False)
-    elif kernel == "vocoder":
+    elif kernel in ("vocoder", "vocoder_head"):
         from qwen3_tts_tpu_torch.config import VocoderConfig
-        cs.check_res_chain(cs.decoder_blocks(VocoderConfig(), dev, gen), dev,
-                           gen, timed=False)
+        check = (cs.check_res_chain if kernel == "vocoder"
+                 else cs.check_snake_convt)
+        check(cs.decoder_blocks(VocoderConfig(), dev, gen), dev, gen,
+              timed=False)
     else:
         cfg = TalkerConfig(text_vocab_size=16,
                            n_layers=28 if kernel == "talker_fused" else 1)
@@ -156,7 +180,9 @@ except AssertionError as e:
 
 def target(kernel, edit) -> str:
     """The path under csrc/ that the edit changes."""
-    return edit[2] if edit is not None and len(edit) > 2 else f"{kernel}.cu"
+    if edit is not None and len(edit) > 2:
+        return edit[2]
+    return "vocoder.cu" if kernel == HEAD else f"{kernel}.cu"
 
 
 def mutate(src: str, edit) -> str:

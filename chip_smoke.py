@@ -9,17 +9,20 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    shapes, with the tolerance stated on each line, and times both; the
    decode-attention kernel in prefix, bitmask, window and wrapped-window
    modes, with empty streams, for the bf16 and the int8 cache; the
-   residual chain at B 2 and 16, run twice (bitwise equal); the talker
-   megakernel at B 4 / 8 / 32 and 192, with its phase clock at B 4, 8
-   and 32;
+   residual chain at B 2 and 16 and the Snake + convT head at B 2, 16 and
+   48, each run twice (bitwise equal); the talker megakernel at B 4 / 8 /
+   32 and 192, with its phase clock at B 4, 8 and 32; and checks the code
+   predictor's QWEN3_TTS_CODEPRED dispatch: an mtp_w (the 1.7B shape) and
+   top_p < 1 take its XLA path on the card, not the kernel;
 3. drives ``Qwen3TTS.synthesize_batch`` at the full 0.6B widths (random
    weights from a fixed torch.Generator, an in-memory tokenizer): greedy
-   and at temperature 0.9, with the bf16 and the int8 KV cache; checks that
-   every request succeeds with finite audio of n_frames * 1920 samples,
-   that the lock-step path launched every kernel and the code predictor
-   one kernel a frame; then profiles one 40-frame run (device ms per
-   frame by kernel group, each vocoder kernel on its own, the card's busy
-   share);
+   and at temperature 0.9, with the bf16 and the int8 KV cache, and once
+   at temperature 0.9 with top_p 0.9; checks that every request succeeds
+   with finite audio of n_frames * 1920 samples, that the lock-step path
+   launched every kernel and the code predictor one kernel a frame (none
+   at top_p < 1, where its XLA path runs every frame); then profiles one
+   40-frame run (device ms per frame by kernel group, each vocoder kernel
+   on its own, the card's busy share);
 4. serves 20 requests through ``ContinuousBatcher`` (8 slots, greedy,
    bf16 and then int8 KV), 12 of them submitted mid-run: slots turn over,
    requests retire by EOS and by the frame cap, the ring wraps. Checks
@@ -33,9 +36,9 @@ is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before it. Without a CUDA device the script exits non-zero at once.
 
 ``python3 chip_smoke.py --compare DIR`` instead times the code predictor,
-decode attention, the talker megakernel and the residual chain through
-their wrappers in the checkout at DIR and in this one, in turns DIR,
-this, this, DIR.
+decode attention, the talker megakernel, the residual chain and the Snake
++ convT head through their wrappers in the checkout at DIR and in this
+one, in turns DIR, this, this, DIR.
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ CHAIN_SHAPES = ((768, 1280), (384, 6400), (192, 25600), (96, 76800))
 HEAD_SHAPES = ((1536, 768, 8, 160), (768, 384, 5, 1280), (384, 192, 4, 6400),
                (192, 96, 3, 25600))
 VOC_B = 2
-VOC_TIME_B = (VOC_B, 16)    # 16: vocoder_decode_subbatched's sub-batch
+VOC_TIME_B = (VOC_B, 16)    # the residual chain's
+HEAD_B = (VOC_B, 16, 48)    # the head's; 48: Qwen3TTS.VOC_MAX_BATCH
 # code-predictor logits, kernels vs twin: activations round to bf16 after
 # f32 sums taken in another order, so a rounding can land one bf16 ulp
 # apart and the difference compounds over 16 positions x 5 layers
@@ -92,12 +96,14 @@ SERVE_LONG = "hello world hello world hello world hello world."
 LOCKSTEP_TEXTS = ["hello world.", "hello hello world.", "world hello.",
                   "hello world hello world."]
 LOCKSTEP_TOKENS = 120
-# (QWEN3_TTS_TALKER, KV cache[, temperature]) of each main-path run: auto
-# takes the megakernel; one bf16 run of each path takes the per-layer
-# talker step, so that the decode-attention kernel runs on a real path too
-LOCKSTEP_RUNS = (("auto", "bf16", 0.0), ("auto", "bf16", 0.9),
-                 ("auto", "int8", 0.0), ("auto", "int8", 0.9),
-                 ("xla", "bf16", 0.0))
+# (QWEN3_TTS_TALKER, KV cache, temperature, top_p) of each main-path run:
+# auto takes the megakernel; one bf16 run takes the per-layer talker step,
+# so that the decode-attention kernel runs on a real path too; one run at
+# top_p < 1 takes the code predictor's XLA path (the kernel has no nucleus
+# filter)
+LOCKSTEP_RUNS = (("auto", "bf16", 0.0, 1.0), ("auto", "bf16", 0.9, 1.0),
+                 ("auto", "int8", 0.0, 1.0), ("auto", "int8", 0.9, 1.0),
+                 ("xla", "bf16", 0.0, 1.0), ("auto", "bf16", 0.9, 0.9))
 SERVE_RUNS = (("auto", "bf16"), ("auto", "int8"), ("xla", "bf16"))
 
 # talker megakernel vs twin, relative to the twin's RMS: y, and the K/V
@@ -336,6 +342,117 @@ def check_codepred(w, cfg, dev, gen, timed: bool = True) -> dict:
             "shape": f"B={CODEPRED_B}, one frame"}
 
 
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
+
+
+def check_codepred_dispatch(talker_w, cfg, dev, gen) -> None:
+    """QWEN3_TTS_CODEPRED on the card at B = CODEPRED_B:
+    - the 1.7B shape (a 2,048-wide talker, so an mtp_w into the 1,024-wide
+      code predictor) under auto takes the XLA-path branch: no
+      code-predictor kernel launch, one decode-attention launch a layer and
+      step over the 16-slot cache. Greedy: the logits within LOGIT_TOL of
+      the same call on CPU tensors up to each stream's first differing
+      code, and each difference a near-tie of the CPU logits (margin <=
+      LOGIT_TOL); teacher-forced (spiked noise): the forced codes exactly;
+    - fused with that mtp_w raises;
+    - top_p < 1 at the 0.6B dims under auto takes the XLA-path branch too,
+      and at top_p -> 0 its sampled codes are its greedy codes."""
+    from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.config import TalkerConfig
+    from qwen3_tts_tpu_torch.models import code_predictor as cp
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.ops import codepred_fused as cf
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    B = CODEPRED_B
+
+    def launches():
+        return (kernels.codepred_launches(), cf.predict_codes_fused.launches,
+                fd.flash_decode.launches)
+
+    big = TalkerConfig(text_vocab_size=16, n_layers=1, hidden_size=2048)
+    w = W.init_talker_weights(big, gen, dev)
+    w = {"codec_embd": w["codec_embd"], "code_pred": w["code_pred"]}
+    V, steps = big.code_pred_vocab_size, big.n_codebooks - 2
+    hidden = torch.randn(B, big.hidden_size, generator=gen, device=dev) * 0.5
+    cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    fails = []
+    before = launches()
+    lg = torch.empty(cf.CTX - 1, B, V, device=dev)
+    got = cp.predict_codes(w, big, hidden, cb0, 0.9, 50, greedy=True,
+                           logits_out=lg)
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip(launches(), before)]
+    if ran != [0, 0, big.code_pred_layers * steps]:
+        fails.append(f"mtp launches (kernel, wrapper, attention) {ran}")
+    lg_cpu = torch.empty(cf.CTX - 1, B, V)
+    ref = cp.predict_codes(_to(w, "cpu"), big, hidden.cpu(), cb0.cpu(), 0.9,
+                           50, greedy=True, logits_out=lg_cpu)
+    got, lg = got.cpu(), lg.cpu()
+    differs = got != ref
+    first = torch.where(differs.any(dim=1), differs.float().argmax(dim=1),
+                        cf.CTX - 2)
+    upto = torch.arange(cf.CTX - 1)[:, None] <= first[None, :]
+    err = float((lg - lg_cpu).abs()[upto].max())
+    gaps = _divergence_gaps(got, ref, lg_cpu, 1.0, 50, None)
+    if not (err <= LOGIT_TOL and all(g <= LOGIT_TOL for g in gaps)):
+        fails.append("mtp greedy disagrees with the CPU")
+    forced = torch.randint(0, V, (cf.CTX - 1, B, 1), generator=gen,
+                           device=dev)
+    spikes = torch.zeros(cf.CTX - 1, B, V, device=dev).scatter_(2, forced,
+                                                                1e30)
+    got_forced = cp.predict_codes(w, big, hidden, cb0, 1.0, 0, gumbel=spikes)
+    if not torch.equal(got_forced, forced[:, :, 0].t().int()):
+        fails.append("mtp forced codes")
+    ms = cuda_time(lambda: cp.predict_codes(w, big, hidden, cb0, 0.9, 50,
+                                            greedy=True), iters=3)
+    log(f"codepred dispatch, mtp_w (talker 2048 -> code predictor 1024) "
+        f"B={B} under auto: launches (kernel, wrapper, decode attention) "
+        f"{ran}; greedy code agreement with CPU tensors "
+        f"{float((~differs).float().mean()):.4f}, max|logit err| {err:.3e} "
+        f"up to first divergence, divergence margins "
+        f"{[round(g, 4) for g in gaps]} (need each <= {LOGIT_TOL}); forced "
+        f"codes exact {torch.equal(got_forced, forced[:, :, 0].t().int())}; "
+        f"XLA path {ms:.3f} ms a frame")
+    cp.set_codepred_impl("fused")
+    try:
+        cp.predict_codes(w, big, hidden, cb0, 0.9, 50, greedy=True)
+        fails.append("fused with an mtp_w did not raise")
+    except ValueError:
+        pass
+    finally:
+        cp.set_codepred_impl(None)
+    del w
+    hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev) * 0.5
+    before = launches()
+    codes = cp.predict_codes(talker_w, cfg, hidden, cb0, 0.9, 50, gen,
+                             top_p=0.9)
+    tiny = cp.predict_codes(talker_w, cfg, hidden, cb0, 0.9, 50, gen,
+                            top_p=1e-6)
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip(launches(), before)]
+    cp.set_codepred_impl("xla")
+    try:
+        greedy = cp.predict_codes(talker_w, cfg, hidden, cb0, 0.9, 50,
+                                  greedy=True)
+    finally:
+        cp.set_codepred_impl(None)
+    ok = (ran == [0, 0, 2 * cfg.code_pred_layers * steps]
+          and torch.equal(tiny, greedy) and 0 <= int(codes.min())
+          and int(codes.max()) < cfg.code_pred_vocab_size)
+    log(f"codepred dispatch, top_p 0.9 and 1e-6 at the 0.6B dims B={B} "
+        f"under auto: launches (kernel, wrapper, decode attention) {ran}; "
+        f"top_p 1e-6 sampled codes equal the XLA path's greedy codes "
+        f"{torch.equal(tiny, greedy)}")
+    if not ok:
+        fails.append("top_p")
+    if fails:
+        raise AssertionError(f"code-predictor dispatch: {fails}")
+
+
 # phases of each kind in one frame (csrc/codepred.cu): position 0 runs 4
 # whole layers and layer 4's QKV and attention; positions 1-15 five
 # layers, the output norm, the head and the sampler; the clock adds one
@@ -465,85 +582,89 @@ def _voc_report(name, source, replaces, errs, ms, plain, moved, flops,
 
 
 RES_CHAIN_KERNELS = ("res_gemm", "snake_bf16")   # csrc/vocoder.cu
+HEAD_KERNELS = ("snake_convt",)                  # its pre-pass and product
 
 
-def check_res_chain(blocks, dev, gen, timed: bool = True) -> dict:
-    """The residual chain at the four decoder blocks' shapes, B = 2 and
-    16: within tolerance of its twin, and two calls on one input bitwise
-    equal. Times the kernel at both widths (CUDA events, and the
-    profiler's device time) and the twin at B = 2 (unless not `timed`)."""
-    from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
-    ms, dev_ms, moved, flops = ({B: 0.0 for B in VOC_TIME_B}
-                                for _ in range(4))
+def _check_vocoder(name, runs, batches, prof_names, per_call, replaces, dev,
+                   gen, timed) -> dict:
+    """One vocoder kernel at the four decoder blocks' shapes (`runs`: per
+    block (C, T, kernel(x), twin(x), its packed parameters, flops per
+    stream)) and each B of `batches`: within tolerance of its twin, two
+    calls on one input bitwise equal. Times the kernel at each B (CUDA
+    events, and the profiler's device time by block) beside its bound, and
+    the twin at VOC_B (unless not `timed`)."""
+    ms, dev_ms, moved, flops = ({B: 0.0 for B in batches} for _ in range(4))
     plain, errs, unstable, blk_ms = 0.0, [], [], {}
-    for B in VOC_TIME_B:
-        for blk, (c, t) in zip(blocks, CHAIN_SHAPES):
+    for B in batches:
+        for c, t, kern, twin, params, fl in runs:
             x = torch.randn(B, t, c, generator=gen, device=dev)
-            got = vf.fused_residual_chain(x, blk)
-            again = vf.fused_residual_chain(x, blk)
-            ref = vf.residual_chain_twin(x, blk)
+            got, again, ref = kern(x), kern(x), twin(x)
+            if got.shape != ref.shape:
+                raise AssertionError(f"{name} shape {tuple(got.shape)}, twin "
+                                     f"{tuple(ref.shape)}")
             if not torch.equal(got, again):
                 unstable.append((B, c))
-            errs.append(_rms_check("res_chain", got, ref,
-                                   f"B={B} T={t} C={c}"))
-            # x in, y out, the three units' packed parameters; 3 units x
-            # 8 taps
-            moved[B] += nbytes(x, got, blk["kernel"]["res"])
-            flops[B] += 3 * 8 * 2 * B * t * c * c
+            errs.append(_rms_check(name, got, ref, f"B={B} T={t} C={c}"))
+            moved[B] += nbytes(x, got, params)     # x in, y out, parameters
+            flops[B] += B * fl
             if timed:
-                fn = lambda: vf.fused_residual_chain(x, blk)  # noqa: E731
-                ms[B] += cuda_time(fn, iters=5)
-                blk_ms[(B, c)] = device_ms(fn, 3, RES_CHAIN_KERNELS)
+                ms[B] += cuda_time(lambda: kern(x), iters=5)
+                blk_ms[(B, c)] = device_ms(lambda: kern(x), 3, prof_names)
                 dev_ms[B] += blk_ms[(B, c)]
                 if B == VOC_B:
-                    plain += cuda_time(
-                        lambda: vf.residual_chain_twin(x, blk), iters=5)
+                    plain += cuda_time(lambda: twin(x), iters=5)
             del x, got, again, ref
-    log(f"res_chain: two calls bitwise equal at every shape: "
+        torch.cuda.empty_cache()
+    log(f"{name}: two calls bitwise equal at every shape: "
         f"{not unstable} {unstable or ''}")
     if unstable:
-        raise AssertionError(f"res_chain is not deterministic: {unstable}")
-    for B in VOC_TIME_B if timed else ():
+        raise AssertionError(f"{name} is not deterministic: {unstable}")
+    for B in batches if timed else ():
         b = bound(moved[B], flops[B])
-        log(f"res_chain, 4 decoder blocks of one 40-frame chunk at B={B}: "
+        log(f"{name}, 4 decoder blocks of one 40-frame chunk at B={B}: "
             f"kernel {ms[B]:.3f} ms (device {dev_ms[B]:.3f} ms, "
             f"{flops[B] / dev_ms[B] / 1e9:.1f} TFLOP/s, roofline share "
             f"{b['bound_ms'] / dev_ms[B]:.1%}); bound {b['bound_ms']:.4f} ms "
             f"({b['bound_by']}: {moved[B] / 1e6:.1f} MB, "
-            f"{flops[B] / 1e9:.2f} GFLOP) on 7 launches a block; device ms "
-            f"by block (C): " + ", ".join(
-                f"{c} {blk_ms[(B, c)]:.3f}" for c, _ in CHAIN_SHAPES))
-    extra = {"device_ms": dev_ms[VOC_B],
-             "ms_by_batch": {str(B): ms[B] for B in VOC_TIME_B},
-             "device_ms_by_batch": {str(B): dev_ms[B] for B in VOC_TIME_B},
+            f"{flops[B] / 1e9:.2f} GFLOP) on {per_call} launches a block; "
+            f"device ms by block (C): " + ", ".join(
+                f"{r[0]} {blk_ms[(B, r[0])]:.3f}" for r in runs))
+    extra = {"launches_per_call": per_call, "device_ms": dev_ms[VOC_B],
+             "ms_by_batch": {str(B): ms[B] for B in batches},
+             "device_ms_by_batch": {str(B): dev_ms[B] for B in batches},
+             "device_ms_by_block": {f"B={B} C={c}": v
+                                    for (B, c), v in blk_ms.items()},
              "bound_ms_by_batch": {str(B): bound(moved[B], flops[B])[
-                 "bound_ms"] for B in VOC_TIME_B}}
-    return _voc_report("res_chain", "qwen3_tts_tpu_torch/csrc/vocoder.cu",
-                       "qwen3_tts_tpu/ops/vocoder_fused.py:233", errs,
-                       ms[VOC_B], plain, moved[VOC_B], flops[VOC_B], extra)
+                 "bound_ms"] for B in batches}}
+    return _voc_report(name, "qwen3_tts_tpu_torch/csrc/vocoder.cu", replaces,
+                       errs, ms[VOC_B], plain, moved[VOC_B], flops[VOC_B],
+                       extra)
 
 
-def check_snake_convt(blocks, dev, gen) -> dict:
-    """The Snake + convT head at the four decoder blocks' shapes."""
+def check_res_chain(blocks, dev, gen, timed: bool = True) -> dict:
+    """The residual chain at B = 2 and 16: 3 units x 8 taps of C x C a
+    row."""
     from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
-    ms = plain = moved = flops = 0.0
-    errs = []
-    for blk, (c, c2, r, t) in zip(blocks, HEAD_SHAPES):
-        x = torch.randn(VOC_B, t, c, generator=gen, device=dev)
-        got = vf.fused_snake_convt(x, blk, r)
-        ref = vf.snake_convt_twin(x, blk, r)
-        if got.shape != (VOC_B, t * r, c2):
-            raise AssertionError(f"snake_convt shape {tuple(got.shape)}")
-        errs.append(_rms_check("snake_convt", got, ref,
-                               f"B={VOC_B} T={t} C={c} rate={r}"))
-        ms += cuda_time(lambda: vf.fused_snake_convt(x, blk, r), iters=5)
-        plain += cuda_time(lambda: vf.snake_convt_twin(x, blk, r), iters=5)
-        # x in, y out, [Whi; Wlo] and its vectors; one K = 2C product a row
-        moved += nbytes(x, got, blk["kernel"]["head"])
-        flops += 2 * VOC_B * t * (2 * c) * (r * c2)
-    return _voc_report("snake_convt", "qwen3_tts_tpu_torch/csrc/vocoder.cu",
-                       "qwen3_tts_tpu/ops/vocoder_fused.py:151", errs, ms,
-                       plain, moved, flops)
+    runs = [(c, t, lambda x, blk=blk: vf.fused_residual_chain(x, blk),
+             lambda x, blk=blk: vf.residual_chain_twin(x, blk),
+             blk["kernel"]["res"], 3 * 8 * 2 * t * c * c)
+            for blk, (c, t) in zip(blocks, CHAIN_SHAPES)]
+    return _check_vocoder("res_chain", runs, VOC_TIME_B, RES_CHAIN_KERNELS, 7,
+                          "qwen3_tts_tpu/ops/vocoder_fused.py:233", dev, gen,
+                          timed)
+
+
+def check_snake_convt(blocks, dev, gen, timed: bool = True) -> dict:
+    """The Snake + convT head at B = 2, 16 and 48: one K = 2C product of
+    r * C2 columns a row."""
+    from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
+    runs = [(c, t, lambda x, blk=blk, r=r: vf.fused_snake_convt(x, blk, r),
+             lambda x, blk=blk, r=r: vf.snake_convt_twin(x, blk, r),
+             blk["kernel"]["head"], 2 * t * (2 * c) * (r * c2))
+            for blk, (c, c2, r, t) in zip(blocks, HEAD_SHAPES)]
+    return _check_vocoder("snake_convt", runs, HEAD_B, HEAD_KERNELS, 2,
+                          "qwen3_tts_tpu/ops/vocoder_fused.py:151", dev, gen,
+                          timed)
 
 
 def _attn_cache(B, S, dev, gen):
@@ -1045,23 +1166,34 @@ def _check_results(results, engine) -> None:
                                  f"{res.n_frames} frames")
 
 
-def _expect_launches(ran: dict, impl: str, what: str) -> None:
-    """Every kernel of the path launched; the other talker path did not."""
-    path = {"auto": "talker_fused", "xla": "flash_decode"}
-    other = {"auto": "flash_decode", "xla": "talker_fused"}[impl]
-    need = ("codepred", "res_chain", "snake_convt", path[impl])
-    if min(ran[k] for k in need) <= 0 or ran[other] != 0:
-        raise AssertionError(f"{what} ({impl}): kernel launches {ran}")
+def _expect_launches(ran: dict, impl: str, what: str,
+                     top_p: float = 1.0) -> None:
+    """Every kernel of the path launched and no other: the vocoder's two,
+    the talker step's (the megakernel under auto, decode attention under
+    xla) and the code predictor's (its kernel, or under top_p < 1 its XLA
+    path, whose attention is decode attention)."""
+    need = {"res_chain", "snake_convt",
+            {"auto": "talker_fused", "xla": "flash_decode"}[impl],
+            "codepred" if top_p >= 1.0 else "flash_decode"}
+    if min(ran[k] for k in need) <= 0 or any(
+            ran[k] for k in ran if k not in need):
+        raise AssertionError(f"{what} ({impl}, top_p={top_p}): kernel "
+                             f"launches {ran}")
 
 
-def _talker_steps(ran: dict, cfg) -> int:
+def _talker_steps(ran: dict, cfg, impl: str) -> int:
     """Talker decode steps of a run, from the launch counts."""
-    return ran["talker_fused"] + ran["flash_decode"] // cfg.n_layers
+    if impl == "auto":
+        return ran["talker_fused"]
+    return ran["flash_decode"] // cfg.n_layers
 
 
-def lockstep_run(engine, impl, kv, temperature, card, counters, dev) -> dict:
+def lockstep_run(engine, impl, kv, temperature, top_p, card, counters,
+                 dev) -> dict:
     """One synthesize_batch of 4 requests at the full widths under
-    QWEN3_TTS_TALKER=impl; returns its kernel launches."""
+    QWEN3_TTS_TALKER=impl; returns its kernel launches. The code predictor
+    makes one kernel launch a frame, or, at top_p < 1, none: its XLA path
+    runs each frame, with one decode-attention launch a layer and step."""
     from qwen3_tts_tpu_torch.models import talker
     from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
     os.environ["QWEN3_TTS_KV"] = kv
@@ -1076,7 +1208,7 @@ def lockstep_run(engine, impl, kv, temperature, card, counters, dev) -> dict:
         res = engine.synthesize_batch(
             LOCKSTEP_TEXTS, params=TTSParams(
                 max_audio_tokens=LOCKSTEP_TOKENS, temperature=temperature,
-                seed=SEED),
+                top_p=top_p, seed=SEED),
             generator=torch.Generator(device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
     finally:
@@ -1084,21 +1216,29 @@ def lockstep_run(engine, impl, kv, temperature, card, counters, dev) -> dict:
     wall = time.monotonic() - t0
     ran = {k: fn.launches for k, fn in counters.items()}
     _check_results(res, engine)
-    steps = _talker_steps(ran, engine.talker_cfg)
+    cfg = engine.talker_cfg
+    steps = _talker_steps(ran, cfg, impl)
     audio_s = sum(len(r.audio) for r in res) / engine.voc_cfg.sample_rate
-    log(f"synthesize_batch talker={impl} kv={kv} temperature={temperature}: "
-        f"{len(res)} requests, frames {[r.n_frames for r in res]}, "
+    log(f"synthesize_batch talker={impl} kv={kv} temperature={temperature} "
+        f"top_p={top_p}: {len(res)} requests, frames "
+        f"{[r.n_frames for r in res]}, "
         f"{audio_s:.2f} s of audio in {wall:.2f} s wall (generate "
         f"{res[0].t_generate_ms:.0f} ms, decode {res[0].t_decode_ms:.0f} ms)"
         f"; generate {res[0].t_generate_ms / steps:.2f} ms per lock-step "
         f"frame ({steps} frames) on {card}; kernel launches {ran}")
-    _expect_launches(ran, impl, "synthesize_batch")
+    _expect_launches(ran, impl, "synthesize_batch", top_p)
     coop = kernels.codepred_launches() - coop0
     log(f"  code predictor: {coop} cooperative launches for {steps} frames "
         f"({ran['codepred']} wrapper calls)")
-    if not coop == ran["codepred"] == steps:
+    if top_p >= 1.0 and not coop == ran["codepred"] == steps:
         raise AssertionError("the code predictor did not make exactly one "
                              "kernel launch per lock-step frame")
+    per_frame = cfg.code_pred_layers * (cfg.n_codebooks - 2)
+    if top_p < 1.0 and not (coop == ran["codepred"] == 0 and impl == "auto"
+                            and ran["flash_decode"] == steps * per_frame):
+        raise AssertionError(f"top_p={top_p}: the code-predictor kernel "
+                             f"launched, or its XLA path did not run each "
+                             f"frame ({per_frame} attention launches)")
     return ran
 
 
@@ -1218,7 +1358,7 @@ def serve_run(engine, impl, kv, card, counters, dev):
     n_eos = sum(f < cb.max_frames for f in frames)
     audio_s = (sum(len(results[r].audio) for r in rids)
                / engine.voc_cfg.sample_rate)
-    steps = _talker_steps(ran, engine.talker_cfg)
+    steps = _talker_steps(ran, engine.talker_cfg, impl)
     log(f"ContinuousBatcher talker={impl} kv={kv} slots={SERVE_SLOTS} "
         f"max_frames={SERVE_MAX_FRAMES}: {len(rids)} requests "
         f"({len(rids) - 8} submitted mid-run), {n_steps} steps, frames "
@@ -1352,6 +1492,14 @@ for B in cs.VOC_TIME_B:
     out[f"res_chain 4 blocks B={B}"] = [cs.cuda_time(fn, iters=5),
                                         cs.device_ms(fn, 3, ("",))]
     del xs
+    xs = [torch.randn(B, t, c, generator=gen, device=dev)
+          for c, _, _, t in cs.HEAD_SHAPES]
+    fn = lambda: [vf.fused_snake_convt(x, blk, r) for x, blk, (*_, r, _) in
+                  zip(xs, blocks, cs.HEAD_SHAPES)]
+    out[f"snake_convt 4 blocks B={B}"] = [cs.cuda_time(fn, iters=5),
+                                          cs.device_ms(fn, 3, ("",))]
+    del xs
+    torch.cuda.empty_cache()
 print("COMPARE " + json.dumps(out), flush=True)
 """
 # (B, read_ctx) of the talker steps --compare times
@@ -1362,7 +1510,7 @@ def compare(parent: str) -> int:
     """Time the code predictor (B 8 / 64 / 192), decode attention
     (window mode, read_ctx 1,152, B 8 / 32), the talker megakernel (B 4 at
     read_ctx 256, B 8 / 32 x read_ctx 256 / 1,152; bf16, prefix mode;
-    COMPARE_TALKER) and the residual chain
+    COMPARE_TALKER), the residual chain and the Snake + convT head
     (the 4 blocks of a chunk, B 2 / 16) through their public wrappers
     in the checkout at `parent` and in this one, in turns parent, this,
     this, parent, each in a child process of its own on this card: CUDA
@@ -1434,12 +1582,15 @@ def main() -> int:
     report, failed = [], []
     blocks = decoder_blocks(vcfg, dev, gen)
     for check, args in ((check_codepred, (talker_w, cfg, dev, gen)),
+                        (check_codepred_dispatch, (talker_w, cfg, dev, gen)),
                         (check_res_chain, (blocks, dev, gen)),
                         (check_snake_convt, (blocks, dev, gen)),
                         (check_flash_decode, (dev, gen)),
                         (check_talker_fused, (talker_w, cfg, dev, gen))):
         try:
-            report.append(check(*args))
+            entry = check(*args)
+            if entry:
+                report.append(entry)
         except Exception:
             traceback.print_exc()
             failed.append(check.__name__)
@@ -1460,8 +1611,9 @@ def main() -> int:
                 "flash_decode": fd.flash_decode,
                 "talker_fused": tf.talker_step_fused}
     lockstep = dict.fromkeys(counters, 0)
-    for impl, kv, temperature in LOCKSTEP_RUNS:
-        ran = lockstep_run(engine, impl, kv, temperature, card, counters, dev)
+    for impl, kv, temperature, top_p in LOCKSTEP_RUNS:
+        ran = lockstep_run(engine, impl, kv, temperature, top_p, card,
+                           counters, dev)
         lockstep = {k: lockstep[k] + ran[k] for k in counters}
     profile_lockstep(engine, card, dev)
     serving, captured = dict.fromkeys(counters, 0), []

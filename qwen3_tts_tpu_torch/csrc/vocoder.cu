@@ -39,111 +39,34 @@
 //   equal. Values as the twin (snake in f32, rounded to bf16, f32 sums);
 //   only the order of the sums differs.
 //
-// Head (FMA core, the next kernel to redesign): out[t][p*C2 + c] =
-// s[t] . Whi[:, p*C2 + c] + s[t+1] . Wlo[:, p*C2 + c] + b[c] with
-// s = snake(x) and s[T] = 0: one GEMM with K = 2C over the packed
-// [Whi; Wlo] matrix; each tile reads its rows plus the row after. A
-// 32-row x 128-column output tile per block, 32-deep K chunks staged in
-// shared memory as f32 values of bf16 operands, 4x4 outputs per thread.
+// Head: out[b, t, p*C2 + c] = s[t] . Whi[:, p*C2 + c] + s[t+1] . Wlo[:,
+// p*C2 + c] + bias[c], s = bf16(snake(x)), s[T] = 0 (the causal trim's zero
+// row): one GEMM with K = 2C over the packed [Whi; Wlo] matrix (pack_block),
+// N = r * C2 output columns, f32 out. The same tensor-core implicit GEMM as
+// the chain, in a mode of its own (kHead):
+// - snake once per element: the chain's pre-pass, under a kernel name of
+//   the head's own (so that a profile tells the two apart), writes s as a
+//   bf16 [B, T, C] scratch;
+// - K rows [0, C) read row t of s, rows [C, 2C) row t + 1: the chain's
+//   tap-shift loader with 2 taps and shift -tap, zero-filled at a stream's
+//   last row;
+// - the streams fold into the rows (row b * T + t): block 0's T = 160 would
+//   leave a stream's second 128-row tile three quarters empty, folded the
+//   B * T rows fill ceil(B * T / 128) tiles;
+// - column tiles of 128, or 96 where N is not a multiple of 128 (N = 288),
+//   K stages of 64 (C is a multiple of 64 in every block);
+// - the epilogue adds the bias and stores f32 pairs.
+// Two launches a call (pre-pass + product), no atomics, sums in a fixed
+// order: two calls on one input are bitwise equal. Bytes bound it at the
+// main path's shapes (it reads x and writes r / 2 times as many f32
+// values), but as built the tensor cores' 2C-deep product sets its time.
 #include <algorithm>
 
 #include "mma_ring.cuh"
 
 namespace {
 
-constexpr int TM = 32;          // output rows per block
-constexpr int TN = 128;         // output columns per block
-constexpr int KC = 32;          // K chunk staged in shared memory
-constexpr int APAD = TM + 4;    // padded row of the transposed A tile
-constexpr int NT = 256;         // threads per block
-
-// Bs[r][c] = W[kr0 + r][n0 + c] (zero past N); W row-major bf16 [*, N].
-__device__ __forceinline__ void load_b(float (*Bs)[TN],
-                                       const bf16* __restrict__ W, int N,
-                                       int kr0, int n0) {
-  for (int i = threadIdx.x; i < KC * (TN / 8); i += NT) {
-    const int r = i / (TN / 8), c8 = (i % (TN / 8)) * 8;
-    float w8[8];
-    if (n0 + c8 < N) {
-      unpack8(__ldg(reinterpret_cast<const uint4*>(
-                  W + (size_t)(kr0 + r) * N + n0 + c8)), w8);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) w8[j] = 0.f;
-    }
-    *reinterpret_cast<float4*>(&Bs[r][c8]) =
-        make_float4(w8[0], w8[1], w8[2], w8[3]);
-    *reinterpret_cast<float4*>(&Bs[r][c8 + 4]) =
-        make_float4(w8[4], w8[5], w8[6], w8[7]);
-  }
-}
-
-// acc[i][j] += sum_kk As[kk][ty*4+i] * Bs[kk][tx*4+j]
-__device__ __forceinline__ void fma_chunk(float (*As)[APAD],
-                                          float (*Bs)[TN],
-                                          float acc[4][4]) {
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
-#pragma unroll 8
-  for (int kk = 0; kk < KC; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-// Snake + stride-r transposed conv (K = 2r, causal trim) + bias.
-// x: [B, T, C] f32; W: [2C, N] bf16 = [Whi; Wlo] with N = r*C2;
-// out: [B, T, N] f32 (= [B, T*r, C2]).
-__global__ void __launch_bounds__(NT) snake_convt_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int T, int C,
-    int N, const bf16* __restrict__ W, const float* __restrict__ bias,
-    const float* __restrict__ a, const float* __restrict__ ib) {
-  __shared__ float As[KC][APAD];
-  __shared__ float Bs[KC][TN];
-  const int t0 = blockIdx.x * TM, n0 = blockIdx.y * TN, b = blockIdx.z;
-  const float* xb = x + (size_t)b * T * C;
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
-  float acc[4][4];
-  zero_acc(acc);
-  for (int kc0 = 0; kc0 < 2 * C; kc0 += KC) {
-    const int next = kc0 >= C;          // Wlo rows multiply s[t + 1]
-    const int c0 = kc0 - next * C;
-    for (int i = threadIdx.x; i < TM * KC; i += NT) {
-      const int t = i / KC, ci = c0 + i % KC;
-      const int src = t0 + t + next;
-      float v = 0.f;
-      if (src < T) v = round_bf(snake(xb[(size_t)src * C + ci], a[ci], ib[ci]));
-      As[i % KC][t] = v;
-    }
-    load_b(Bs, W, N, kc0, n0);
-    __syncthreads();
-    fma_chunk(As, Bs, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = t0 + ty * 4 + i, col = n0 + tx * 4 + j;
-      if (t < T && col < N)
-        out[((size_t)b * T + t) * N + col] = acc[i][j] + bias[col];
-    }
-}
-
-
-// ---- residual chain: tensor-core implicit GEMMs ----
+// ---- tensor-core implicit GEMMs: the chain's two products and the head ----
 constexpr int RM = 128;              // output rows (time steps) a CTA
 constexpr int RTHREADS = 256;
 
@@ -160,36 +83,55 @@ struct Tile {
   static constexpr int STAGE = A_STAGE + RK * W_ROW;
   static constexpr int SMEM = RST * STAGE;
   static constexpr int NT8 = BN / 32;            // n8 tiles a warp
+  static constexpr int A_ITEMS = RM * (RK / 8) / RTHREADS;  // A copies a
+                                                            // thread a stage
 };
 
+// conv7 (K = 7C, epilogue y2 = bf16(snake2(. + b1))), conv1 (K = C,
+// epilogue x + . + b2 and the next unit's s) or the head (K = 2C over rows
+// t and t + 1, epilogue . + bias)
+enum GemmMode { kConv7, kConv1, kHead };
+
 struct ResArgs {
-  const bf16* a;        // A rows [B, T, C] bf16: s (conv7) or y2 (conv1)
-  const bf16* w;        // [K, C] bf16: w7 as [7C, C], or w1
-  const float* bias;    // [C]: b1 or b2
+  const bf16* a;        // A rows [B, T, C] bf16: s (conv7, head) or y2 (conv1)
+  const bf16* w;        // [K, N] bf16: w7 as [7C, C], w1, or [Whi; Wlo]
+  const float* bias;    // [N]: b1, b2 or the head's bias
   const float* sa;      // snake constants of the epilogue: a2 / ib2
   const float* sib;     //   (conv7), the next unit's a1 / ib1 (conv1)
   bf16* y2;             // conv7: bf16(snake2(acc + b1)) [B, T, C]
   const float* x;       // conv1: the unit's input [B, T, C] f32
-  float* out;           // conv1: x + acc + b2
+  float* out;           // conv1: x + acc + b2; head: acc + bias [B, T, N]
   bf16* s_out;          // conv1: bf16(snake(out)) for the next unit, or null
-  int T, C, d;
+  int T, C, N, d;       // the chain: N = C; the head: T = every stream's
+  int t_stream;         //   rows (B * t_stream), one grid slice
 };
 
-// One product of a residual unit over a 128-row x BN-column tile of
-// stream blockIdx.z: conv7 (K = 7C, tap k reads rows t - (6 - k) d) with
-// the snake2 epilogue, or conv1 (K = C) with the residual epilogue.
-template <int BN, int RK_, bool CONV7>
-__global__ void __launch_bounds__(RTHREADS, 2) res_gemm_kernel(ResArgs p) {
+// One product over a 128-row x BN-column tile of stream blockIdx.z: conv7
+// (tap k reads rows t - (6 - k) d), conv1, or the head (tap k reads rows
+// t + k, zero after each stream's last row)
+template <int BN, int RK_, int MODE>
+__device__ __forceinline__ void gemm_tile(const ResArgs& p) {
   extern __shared__ __align__(16) char smem[];
   using TL = Tile<BN, RK_>;
   constexpr int RK = TL::RK, RST = TL::RST, A_ROW = TL::A_ROW;
-  constexpr int A_STAGE = TL::A_STAGE;
+  constexpr int A_STAGE = TL::A_STAGE, A_ITEMS = TL::A_ITEMS;
+  constexpr int TAPS = MODE == kConv7 ? 7 : (MODE == kHead ? 2 : 1);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp & 1, wn = warp >> 1;
   const int n0 = blockIdx.x * BN, t0 = blockIdx.y * RM, b = blockIdx.z;
-  const int C = p.C, T = p.T, per_tap = C / RK;
-  const int n_chunks = (CONV7 ? 7 : 1) * per_tap;
+  const int C = p.C, T = p.T, N = p.N, per_tap = C / RK;
+  const int n_chunks = TAPS * per_tap;
   const bf16* ab = p.a + (size_t)b * T * C;
+  // the head: bit j set where this thread's j-th A row ends a stream (its
+  // tap-1 row is the zero row)
+  uint32_t last_row = 0;
+  if constexpr (MODE == kHead) {
+#pragma unroll
+    for (int j = 0; j < A_ITEMS; ++j) {
+      const int r = (tid + j * RTHREADS) / (RK / 8);
+      last_row |= (uint32_t)((t0 + r + 1) % p.t_stream == 0) << j;
+    }
+  }
 
   // chunk c -> stage c % RST: its A rows (tap shift, zero outside
   // [0, T)), then its W rows
@@ -198,20 +140,33 @@ __global__ void __launch_bounds__(RTHREADS, 2) res_gemm_kernel(ResArgs p) {
       char* sa = smem + (c % RST) * TL::STAGE;
       char* sw = sa + A_STAGE;
       const int tap = c / per_tap, c0 = (c % per_tap) * RK;
-      const int shift = CONV7 ? (6 - tap) * p.d : 0;
-      for (int i = tid; i < RM * (RK / 8); i += RTHREADS) {
-        const int r = i / (RK / 8), ch = i % (RK / 8);
-        const int src = t0 + r - shift;
-        char* dst = sa + r * A_ROW + ch * 16;
-        if (src >= 0 && src < T)
-          cp_async16(dst, ab + (size_t)src * C + c0 + ch * 8);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      if constexpr (MODE == kHead) {
+#pragma unroll
+        for (int j = 0; j < A_ITEMS; ++j) {
+          const int i = tid + j * RTHREADS;
+          const int r = i / (RK / 8), ch = i % (RK / 8);
+          char* dst = sa + r * A_ROW + ch * 16;
+          if (t0 + r < T && !(tap && (last_row >> j & 1)))
+            cp_async16(dst, ab + (size_t)(t0 + r + tap) * C + c0 + ch * 8);
+          else
+            *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+        }
+      } else {
+        const int shift = MODE == kConv7 ? (6 - tap) * p.d : 0;
+        for (int i = tid; i < RM * (RK / 8); i += RTHREADS) {
+          const int r = i / (RK / 8), ch = i % (RK / 8);
+          const int src = t0 + r - shift;
+          char* dst = sa + r * A_ROW + ch * 16;
+          if (src >= 0 && src < T)
+            cp_async16(dst, ab + (size_t)src * C + c0 + ch * 8);
+          else
+            *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+        }
       }
-      const bf16* wk = p.w + (size_t)(tap * C + c0) * C + n0;
+      const bf16* wk = p.w + (size_t)(tap * C + c0) * N + n0;
       for (int i = tid; i < RK * (BN / 8); i += RTHREADS) {
         const int r = i / (BN / 8), ch = i % (BN / 8);
-        cp_async16(sw + r * TL::W_ROW + ch * 16, wk + (size_t)r * C + ch * 8);
+        cp_async16(sw + r * TL::W_ROW + ch * 16, wk + (size_t)r * N + ch * 8);
       }
     }
     cp_async_commit();                  // empty past the end: counts stay
@@ -261,10 +216,12 @@ __global__ void __launch_bounds__(RTHREADS, 2) res_gemm_kernel(ResArgs p) {
         const int t = t0 + wm * 64 + mt * 16 + r0 + hf * 8;
         const int col = n0 + wn * (BN / 4) + j * 8 + cq;
         if (t >= T) continue;
-        const size_t o = ((size_t)b * T + t) * C + col;
+        const size_t o = ((size_t)b * T + t) * N + col;
         const float v0 = acc[mt][j][2 * hf] + p.bias[col];
         const float v1 = acc[mt][j][2 * hf + 1] + p.bias[col + 1];
-        if constexpr (CONV7) {
+        if constexpr (MODE == kHead) {
+          *reinterpret_cast<float2*>(p.out + o) = make_float2(v0, v1);
+        } else if constexpr (MODE == kConv7) {
           *reinterpret_cast<__nv_bfloat162*>(p.y2 + o) =
               __floats2bfloat162_rn(snake(v0, p.sa[col], p.sib[col]),
                                     snake(v1, p.sa[col + 1], p.sib[col + 1]));
@@ -281,11 +238,24 @@ __global__ void __launch_bounds__(RTHREADS, 2) res_gemm_kernel(ResArgs p) {
       }
 }
 
+// The chain's products and the head's under names of their own, so that
+// a profile tells them apart
+template <int BN, int RK, bool CONV7>
+__global__ void __launch_bounds__(RTHREADS, 2) res_gemm_kernel(ResArgs p) {
+  gemm_tile<BN, RK, CONV7 ? kConv7 : kConv1>(p);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(RTHREADS, 2)
+snake_convt_gemm_kernel(ResArgs p) {
+  gemm_tile<BN, 64, kHead>(p);
+}
+
 // s = bf16(snake(x)) over [rows, C], 4 values a thread
-__global__ void snake_bf16_kernel(const float4* __restrict__ x,
-                                  uint2* __restrict__ s, size_t n4, int C,
-                                  const float* __restrict__ a,
-                                  const float* __restrict__ ib) {
+__device__ __forceinline__ void snake_rows(const float4* __restrict__ x,
+                                           uint2* __restrict__ s, size_t n4,
+                                           int C, const float* __restrict__ a,
+                                           const float* __restrict__ ib) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     const float4 v = x[i];
@@ -299,30 +269,63 @@ __global__ void snake_bf16_kernel(const float4* __restrict__ x,
   }
 }
 
-template <int BN, int RK, bool CONV7>
-cudaError_t launch_res(const ResArgs& p, int B, cudaStream_t st) {
-  const int smem = Tile<BN, RK>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      res_gemm_kernel<BN, RK, CONV7>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  res_gemm_kernel<BN, RK, CONV7><<<dim3(p.C / BN, (p.T + RM - 1) / RM, B),
-                                   RTHREADS, smem, st>>>(p);
+__global__ void snake_bf16_kernel(const float4* __restrict__ x,
+                                  uint2* __restrict__ s, size_t n4, int C,
+                                  const float* __restrict__ a,
+                                  const float* __restrict__ ib) {
+  snake_rows(x, s, n4, C, a, ib);
+}
+
+__global__ void snake_convt_snake_kernel(const float4* __restrict__ x,
+                                         uint2* __restrict__ s, size_t n4,
+                                         int C, const float* __restrict__ a,
+                                         const float* __restrict__ ib) {
+  snake_rows(x, s, n4, C, a, ib);
+}
+
+using SnakeKernel = void (*)(const float4*, uint2*, size_t, int, const float*,
+                             const float*);
+
+cudaError_t launch_snake(SnakeKernel kern, const float* x, void* s,
+                         size_t n, int C, const float* a, const float* ib,
+                         cudaStream_t st) {
+  const size_t n4 = n / 4;
+  const int blocks = (int)std::min<size_t>((n4 + 255) / 256, 4096);
+  kern<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(x),
+                               static_cast<uint2*>(s), n4, C, a, ib);
   return cudaGetLastError();
 }
 
-// the column tile for C: 128, else 96 (C = 96, 192); 0 where neither fits
-int res_tile_n(int C) { return C % 128 == 0 ? 128 : (C % 96 == 0 ? 96 : 0); }
+template <int BN, int RK, int MODE>
+cudaError_t launch_gemm(const ResArgs& p, int B, cudaStream_t st) {
+  const int smem = Tile<BN, RK>::SMEM;
+  void (*kern)(ResArgs);
+  if constexpr (MODE == kHead) {
+    static_assert(RK == 64, "the head takes 64-row K stages");
+    kern = snake_convt_gemm_kernel<BN>;
+  } else {
+    kern = res_gemm_kernel<BN, RK, MODE == kConv7>;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(p.N / BN, (p.T + RM - 1) / RM, B), RTHREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
 
-template <bool CONV7>
+// the column tile for n output columns: 128, else 96 (n = 96, 192, 288);
+// 0 where neither fits
+int tile_n(int n) { return n % 128 == 0 ? 128 : (n % 96 == 0 ? 96 : 0); }
+
+template <int MODE>
 int launch_res_any(const ResArgs& p, int B, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool deep = p.C % 64 == 0;
-  switch (res_tile_n(p.C)) {
-    case 128: return (int)launch_res<128, 64, CONV7>(p, B, st);
+  switch (tile_n(p.C)) {
+    case 128: return (int)launch_gemm<128, 64, MODE>(p, B, st);
     case 96:
-      return (int)(deep ? launch_res<96, 64, CONV7>(p, B, st)
-                        : launch_res<96, 32, CONV7>(p, B, st));
+      return (int)(deep ? launch_gemm<96, 64, MODE>(p, B, st)
+                        : launch_gemm<96, 32, MODE>(p, B, st));
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -334,12 +337,8 @@ extern "C" {
 // s = bf16(snake(x; a, ib)), x [B, T, C] f32 -> s bf16
 int q3_snake_bf16(const float* x, void* s, int B, int T, int C,
                   const float* a, const float* ib, void* stream) {
-  const size_t n4 = (size_t)B * T * C / 4;
-  const int blocks = (int)std::min<size_t>((n4 + 255) / 256, 4096);
-  snake_bf16_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(x), static_cast<uint2*>(s), n4, C, a,
-      ib);
-  return (int)cudaGetLastError();
+  return (int)launch_snake(snake_bf16_kernel, x, s, (size_t)B * T * C, C, a,
+                           ib, (cudaStream_t)stream);
 }
 
 // y2 = bf16(snake(conv7_d(s) + b1; a2, ib2)); s, y2 [B, T, C] bf16,
@@ -355,9 +354,9 @@ int q3_res_conv7(const void* s, void* y2, int B, int T, int C, int d,
   p.sib = ib2;
   p.y2 = static_cast<bf16*>(y2);
   p.T = T;
-  p.C = C;
+  p.C = p.N = C;
   p.d = d;
-  return launch_res_any<true>(p, B, stream);
+  return launch_res_any<kConv7>(p, B, stream);
 }
 
 // out = x + (y2 @ w1 + b2); s_out, when given, = bf16(snake(out; a, ib))
@@ -374,17 +373,33 @@ int q3_res_conv1(const void* y2, const float* x, float* out, void* s_out,
   p.out = out;
   p.s_out = static_cast<bf16*>(s_out);
   p.T = T;
-  p.C = C;
-  return launch_res_any<false>(p, B, stream);
+  p.C = p.N = C;
+  return launch_res_any<kConv1>(p, B, stream);
 }
 
-int q3_snake_convt(const float* x, float* out, int B, int T, int C, int N,
-                   const void* W, const float* bias, const float* a,
+// The Snake + convT head: s = bf16(snake(x; a, ib)) into the scratch s
+// [B, T, C] bf16, then out [B, T, N] f32 = [s[t] | s[t + 1]] @ W + bias
+// per stream, s[T] = 0; W [2C, N] bf16 = [Whi; Wlo]. C a multiple of 64,
+// N of 128 or 96. Two launches; returns the first launch error.
+int q3_snake_convt(const float* x, void* s, float* out, int B, int T, int C,
+                   int N, const void* W, const float* bias, const float* a,
                    const float* ib, void* stream) {
-  snake_convt_kernel<<<dim3((T + TM - 1) / TM, (N + TN - 1) / TN, B), NT, 0,
-                       (cudaStream_t)stream>>>(x, out, T, C, N,
-                                               (const bf16*)W, bias, a, ib);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (C % 64 != 0 || tile_n(N) == 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = launch_snake(snake_convt_snake_kernel, x, s,
+                                     (size_t)B * T * C, C, a, ib, st);
+  if (e != cudaSuccess) return (int)e;
+  ResArgs p{};
+  p.a = static_cast<const bf16*>(s);
+  p.w = static_cast<const bf16*>(W);
+  p.bias = bias;
+  p.out = out;
+  p.T = B * T;
+  p.t_stream = T;
+  p.C = C;
+  p.N = N;
+  return (int)(tile_n(N) == 128 ? launch_gemm<128, 64, kHead>(p, 1, st)
+                                : launch_gemm<96, 64, kHead>(p, 1, st));
 }
 
 }  // extern "C"

@@ -12,14 +12,13 @@ The decode step has two implementations, chosen per call by
   ``supported`` holds, in lock-step and ring mode alike, else ``xla``;
   on the CPU always ``xla``.
 The JAX package's ``fused_interpret`` (Pallas interpret mode) has no
-counterpart: ``fused`` on CPU tensors runs the twin.
+counterpart: ``fused`` on CPU tensors runs the twin (models/impl_switch.py).
 
 Every tensor carries a batch dimension over concurrent streams.
 """
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import torch
@@ -28,36 +27,12 @@ import torch.nn.functional as F
 from ..config import TalkerConfig
 from ..ops import talker_fused
 from ..ops.layers import dot, rms_norm
+from .impl_switch import ImplSwitch
 from .stack import stack_prefill, stack_step, write_prefill_to_cache
 
-_IMPL = None
-_IMPL_VALID = (None, "auto", "fused", "xla")
-
-
-def set_talker_step_impl(impl: str | None) -> None:
-    """Select the decode step's implementation for every later call
-    (None: read QWEN3_TTS_TALKER, default "auto")."""
-    global _IMPL
-    _check_impl(impl)
-    _IMPL = impl
-
-
-def _check_impl(impl) -> None:
-    if impl == "fused_interpret":
-        raise ValueError("QWEN3_TTS_TALKER=fused_interpret is not ported: "
-                         "use 'fused', which runs the kernel's torch twin "
-                         "on CPU tensors")
-    if impl not in _IMPL_VALID:
-        raise ValueError(f"impl must be one of {_IMPL_VALID}")
-
-
-def _resolve_impl() -> str:
-    if _IMPL is not None:
-        return _IMPL
-    impl = os.environ.get("QWEN3_TTS_TALKER", "auto")
-    if impl == "fused_interpret":
-        _check_impl(impl)
-    return impl if impl in _IMPL_VALID else "auto"
+_SWITCH = ImplSwitch("QWEN3_TTS_TALKER")
+set_talker_step_impl = _SWITCH.set
+_resolve_impl = _SWITCH.resolve
 
 
 def project_text_tokens(w, tokens: torch.Tensor) -> torch.Tensor:

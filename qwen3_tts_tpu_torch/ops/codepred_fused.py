@@ -65,6 +65,25 @@ def _noise(gumbel, generator, B, vocab, device):
     return gumbel
 
 
+def supported(cfg, B: int, w) -> bool:
+    """The kernel's preconditions: the 0.6B code predictor's dims (H, heads,
+    D, I, V, L and 16 positions), bf16 weights, heads and embeddings, no
+    mtp projection (the 1.7B shape has one), B >= 1. The TPU kernel's
+    conditions on B (a multiple of 8, halves that fit in VMEM) are not
+    carried over: the CUDA kernel serves any B >= 1."""
+    cp = w["code_pred"]
+    lw = cp["layers"]
+    dims = (cfg.code_pred_hidden_size, cfg.code_pred_n_attention_heads,
+            cfg.code_pred_n_kv_heads, cfg.code_pred_head_dim,
+            cfg.code_pred_intermediate_size, cfg.code_pred_vocab_size,
+            cfg.code_pred_layers, cfg.n_codebooks)
+    bf16 = [lw[n] for n in ("wqkv", "wo", "w_gu", "w_down")] + [
+        cp["heads"], cp["embd"], w["codec_embd"]]
+    return (dims == (H, NH, NKV, D, I, V, L, CTX)
+            and cp.get("mtp_w") is None and B >= 1
+            and all(t.dtype == torch.bfloat16 for t in bf16))
+
+
 def predict_codes_twin(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
                        temperature: float, top_k: int,
                        generator: torch.Generator | None = None,
@@ -149,22 +168,21 @@ def predict_codes_fused(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
     gumbel: optional [15, B, V] noise; logits_out: optional [15, B, V] f32
     that receives each sampled position's logits.
     A CPU tensor runs the twin; a CUDA tensor launches the kernel or
-    raises (the kernel serves the 0.6B dims with bf16 weights)."""
+    raises (where ``supported`` does not hold)."""
     if not hidden.is_cuda:
         return predict_codes_twin(w, cfg, hidden, cb0, temperature, top_k,
                                   generator, greedy=greedy, gumbel=gumbel,
                                   logits_out=logits_out)
     cp = w["code_pred"]
     lw = cp["layers"]
-    dims = (cfg.code_pred_hidden_size, cfg.code_pred_n_attention_heads,
-            cfg.code_pred_n_kv_heads, cfg.code_pred_head_dim,
-            cfg.code_pred_intermediate_size, cfg.code_pred_vocab_size,
-            cfg.code_pred_layers, cfg.n_codebooks)
-    if dims != (H, NH, NKV, D, I, V, L, CTX) or cp.get("mtp_w") is not None:
-        raise ValueError(f"code-predictor kernels serve H={H} heads={NH}/{NKV}"
-                         f" D={D} I={I} V={V} L={L}, no mtp; got {dims}")
     dev = hidden.device
     B = hidden.shape[0]
+    if not supported(cfg, B, w):
+        raise ValueError(f"the code-predictor kernel serves H={H} heads="
+                         f"{NH}/{NKV} D={D} I={I} V={V} L={L}, bf16 weights, "
+                         f"no mtp projection and B >= 1; got H="
+                         f"{cfg.code_pred_hidden_size}, L={cfg.code_pred_layers}"
+                         f", mtp {cp.get('mtp_w') is not None}, B={B}")
     bf, f32 = torch.bfloat16, torch.float32
     req = kernels.require
     req(hidden, "hidden", f32, (B, H))
@@ -180,9 +198,9 @@ def predict_codes_fused(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
     req(cp["heads"], "heads", bf, (CTX - 1, H, V))
     req(cp["embd"], "embd", bf, (CTX - 1, V, H))
     req(w["codec_embd"], "codec_embd", bf)
-    if w["codec_embd"].dim() != 2 or w["codec_embd"].shape[1] != H or B < 1:
-        raise ValueError(f"codec_embd: expected [n, {H}] and B >= 1, got "
-                         f"{tuple(w['codec_embd'].shape)}, B={B}")
+    if w["codec_embd"].dim() != 2 or w["codec_embd"].shape[1] != H:
+        raise ValueError(f"codec_embd: expected [n, {H}], got "
+                         f"{tuple(w['codec_embd'].shape)}")
     sample_greedy = greedy or temperature <= 0.0
     noise = None
     if not sample_greedy:

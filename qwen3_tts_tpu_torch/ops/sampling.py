@@ -1,5 +1,5 @@
-"""Sampling: temperature/top-k, CB0 suppression, repetition penalty, EOS
-ramp (port of qwen3_tts_tpu/ops/sampling.py).
+"""Sampling: temperature/top-k/top-p, CB0 suppression, repetition penalty,
+EOS ramp (port of qwen3_tts_tpu/ops/sampling.py).
 
 A categorical draw is argmax(logits + Gumbel noise), which is what
 ``jax.random.categorical`` computes; every sampler takes the noise as an
@@ -31,22 +31,35 @@ def apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
     return logits.masked_fill(logits < threshold, NEG_INF)
 
 
-def _check_top_p(top_p: float) -> None:
-    if top_p < 1.0:
-        raise NotImplementedError("top_p < 1 is not ported yet")
+def apply_top_p(scaled: torch.Tensor, top_p: float,
+                top_k: int) -> torch.Tensor:
+    """Nucleus filter, applied after top-k: keep the smallest prefix of
+    descending-probability entries whose mass reaches top_p, the boundary
+    entry included (HF semantics), so the argmax always survives; every
+    entry tied with the smallest kept value survives too. Only the top_k
+    largest (all, when top_k <= 0 or >= vocab) can carry mass."""
+    vocab = scaled.shape[-1]
+    k = top_k if 0 < top_k < vocab else vocab
+    vals = torch.topk(scaled, k, dim=-1).values          # descending
+    probs = torch.softmax(vals, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) <= top_p
+    kth = torch.where(keep, vals, torch.inf).amin(dim=-1, keepdim=True)
+    return scaled.masked_fill(scaled < kth, NEG_INF)
 
 
 def sample_codes(logits: torch.Tensor, temperature: float, top_k: int,
                  generator: torch.Generator | None = None,
                  greedy: bool = False, top_p: float = 1.0,
                  gumbel: torch.Tensor | None = None) -> torch.Tensor:
-    """Temperature + top-k sampling of code-predictor logits [B, V] f32;
-    greedy (first argmax) when `greedy` or temperature <= 0. -> [B] int32."""
-    _check_top_p(top_p)
+    """Temperature + top-k (+ nucleus when top_p < 1) sampling of
+    code-predictor logits [B, V] f32; greedy (first argmax) when `greedy`
+    or temperature <= 0. -> [B] int32."""
     g = torch.argmax(logits, dim=-1).to(torch.int32)
     if greedy or temperature <= 0.0:
         return g
     scaled = apply_top_k(logits / max(temperature, 1e-6), top_k)
+    if top_p < 1.0:
+        scaled = apply_top_p(scaled, top_p, top_k)
     if gumbel is None:
         gumbel = gumbel_noise(scaled.shape, generator, scaled.device)
     return torch.argmax(gumbel + scaled, dim=-1).to(torch.int32)
@@ -63,11 +76,14 @@ def sample_cb0(logits: torch.Tensor, seen_mask: torch.Tensor,
       1. suppress ids in [suppress_start, V) except EOS
       2. repetition penalty over previously emitted CB0 ids (seen_mask)
       3. EOS ramp after expected_frames frames
-      4. greedy argmax, or temperature -> top-k (EOS survives) -> sample
+      4. greedy argmax, or temperature -> top-k (EOS survives) -> nucleus
+         when top_p < 1 (over the top_k + 1 survivors; EOS survives it
+         too, so the EOS ramp can still end the stream) -> sample
 
+    With top_k <= 0 and top_p < 1 the nucleus sees top_k + 1 = 1 entry, so
+    only the argmax and EOS survive: the JAX package does the same.
     logits: [B, V] f32; seen_mask: [B, V] bool; frame_idx, expected_frames:
     [B] int32. Returns [B] int32."""
-    _check_top_p(top_p)
     vocab = logits.shape[-1]
     ids = torch.arange(vocab, device=logits.device)
     suppress = (ids >= suppress_start) & (ids != eos_id)
@@ -93,6 +109,9 @@ def sample_cb0(logits: torch.Tensor, seen_mask: torch.Tensor,
     eos_saved = scaled[:, eos_id].clone()
     filtered = apply_top_k(scaled, top_k)
     filtered[:, eos_id] = eos_saved
+    if top_p < 1.0:
+        filtered = apply_top_p(filtered, top_p, top_k + 1)
+        filtered[:, eos_id] = eos_saved
     if gumbel is None:
         gumbel = gumbel_noise(filtered.shape, generator, filtered.device)
     return torch.argmax(gumbel + filtered, dim=-1).to(torch.int32)

@@ -17,7 +17,11 @@ Replaces the Pallas kernels of qwen3_tts_tpu/ops/vocoder_fused.py:
 - ``fused_snake_convt``: decoder-block head, snake + stride-r transposed
   conv (K = 2r) with the causal trim, + bias. Phase-major packing
   Whi[:, p*C2 + c] = W[:, c, p + r], Wlo[:, p*C2 + c] = W[:, c, p] makes it
-  one GEMM over [s[t] | s[t+1]]. Twin: the XLA head.
+  one GEMM over [s[t] | s[t+1]] (s[T] = 0): a snake pre-pass writes
+  s = bf16(snake(x)) once per element into a bf16 scratch cached per
+  (device, C) (``_head_scratch``), then the chain's tensor-core implicit
+  GEMM in a mode of its own reads rows t and t + 1 of s, the streams
+  folded into its rows. Two launches a call. Twin: the XLA head.
 
 Matmul operands are bf16 with f32 accumulation, as in the JAX package
 (the production vocoder weights are bf16, models/vocoder.cast_weights);
@@ -34,12 +38,13 @@ import torch
 from .. import kernels
 
 DILATIONS = (1, 3, 9)
-K_CHUNK = 32        # the kernels' K chunk: channel counts must be multiples
-# the residual chain's column tiles (csrc/vocoder.cu): C must be a
-# multiple of one of them
-CHAIN_TILES_N = (128, 96)
+# the GEMMs' column tiles (csrc/vocoder.cu): the chain's C and the head's
+# r * C2 must be a multiple of one of them
+TILES_N = (128, 96)
+HEAD_K_STAGE = 64   # the head's K rows a ring stage: C must be a multiple
 
 _CHAIN_SCRATCH: dict = {}   # (device, C) -> flat (s, y2, tmp)
+_HEAD_SCRATCH: dict = {}    # (device, C) -> flat (s,)
 
 
 def _snake_consts(alpha_log, beta_log):
@@ -90,25 +95,34 @@ def residual_chain_twin(x: torch.Tensor, blk_w) -> torch.Tensor:
     return x
 
 
-def chain_tile_n(C: int) -> int:
-    """The residual chain kernel's column tile for C channels (0: none
-    serves C)."""
-    return next((n for n in CHAIN_TILES_N if C % n == 0), 0)
+def tile_n(n: int) -> int:
+    """The GEMM kernels' column tile for n output columns (0: none serves
+    n)."""
+    return next((t for t in TILES_N if n % t == 0), 0)
+
+
+def _scratch(store: dict, dev, B: int, T: int, C: int, dtypes) -> tuple:
+    """[B, T, C] views of flat buffers of `dtypes`, kept in `store` per
+    (device, C) and grown to the largest B * T seen (calls on one stream
+    run in order, and every launch writes what the next reads)."""
+    n = B * T * C
+    key = (str(dev), C)
+    bufs = store.get(key)
+    if bufs is None or bufs[0].numel() < n:
+        bufs = store[key] = tuple(torch.empty(n, dtype=dt, device=dev)
+                                  for dt in dtypes)
+    return tuple(t[:n].view(B, T, C) for t in bufs)
 
 
 def _chain_scratch(dev, B: int, T: int, C: int) -> tuple:
-    """(s, y2, tmp) for one chain call: s and y2 bf16 [B, T, C], tmp f32
-    [B, T, C], views of flat buffers kept per (device, C) and grown to the
-    largest B * T seen (calls on one stream run in order, and every
-    launch writes what the next reads)."""
-    n = B * T * C
-    key = (str(dev), C)
-    bufs = _CHAIN_SCRATCH.get(key)
-    if bufs is None or bufs[0].numel() < n:
-        bufs = _CHAIN_SCRATCH[key] = tuple(
-            torch.empty(n, dtype=dt, device=dev)
-            for dt in (torch.bfloat16, torch.bfloat16, torch.float32))
-    return tuple(t[:n].view(B, T, C) for t in bufs)
+    """(s, y2, tmp) for one chain call: s and y2 bf16, tmp f32."""
+    return _scratch(_CHAIN_SCRATCH, dev, B, T, C,
+                    (torch.bfloat16, torch.bfloat16, torch.float32))
+
+
+def _head_scratch(dev, B: int, T: int, C: int) -> torch.Tensor:
+    """The head's s = bf16(snake(x)) [B, T, C]."""
+    return _scratch(_HEAD_SCRATCH, dev, B, T, C, (torch.bfloat16,))[0]
 
 
 def fused_residual_chain(x: torch.Tensor, blk_w) -> torch.Tensor:
@@ -120,9 +134,9 @@ def fused_residual_chain(x: torch.Tensor, blk_w) -> torch.Tensor:
         raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
     B, T, C = x.shape
     kernels.require(x, "x", torch.float32)
-    if not chain_tile_n(C):
+    if not tile_n(C):
         raise ValueError(f"kernel serves C a multiple of one of "
-                         f"{CHAIN_TILES_N}, got C={C}")
+                         f"{TILES_N}, got C={C}")
     res = _packed(blk_w, "res")
     if len(res) != 3:
         raise ValueError(f"kernel serves 3 residual blocks, got {len(res)}")
@@ -183,17 +197,19 @@ def fused_snake_convt(x: torch.Tensor, blk_w, rate: int) -> torch.Tensor:
     if K != 2 * rate:
         raise ValueError(f"kernel serves convT kernels of 2*rate taps, got "
                          f"K={K} at rate={rate}")
-    if C % K_CHUNK or N % 8:
-        raise ValueError(f"kernel serves C % {K_CHUNK} == 0 and rate*C2 % 8 "
-                         f"== 0, got C={C}, rate*C2={N}")
+    if C % HEAD_K_STAGE or not tile_n(N):
+        raise ValueError(f"kernel serves C a multiple of {HEAD_K_STAGE} and "
+                         f"rate*C2 a multiple of one of {TILES_N}, got C={C}"
+                         f", rate*C2={N}")
     w, bias, a, ib = _packed(blk_w, "head")
     kernels.require(w, "w", torch.bfloat16, (2 * C, N))
     kernels.require(bias, "bias", torch.float32, (N,))
     kernels.require(a, "a", torch.float32, (C,))
     kernels.require(ib, "ib", torch.float32, (C,))
+    s = _head_scratch(x.device, B, T, C)
     out = torch.empty(B, T, N, dtype=torch.float32, device=x.device)
     kernels.check(kernels.lib().q3_snake_convt(
-        x.data_ptr(), out.data_ptr(), B, T, C, N, w.data_ptr(),
+        x.data_ptr(), s.data_ptr(), out.data_ptr(), B, T, C, N, w.data_ptr(),
         bias.data_ptr(), a.data_ptr(), ib.data_ptr(),
         kernels.stream(x.device)), "q3_snake_convt")
     fused_snake_convt.launches += 1

@@ -81,7 +81,7 @@ class TTSParams:
     """Generation parameters."""
     max_audio_tokens: int = 4096
     temperature: float = 0.9
-    top_p: float = 1.0          # < 1 is not ported yet
+    top_p: float = 1.0          # nucleus filter after top-k when < 1
     top_k: int = 50
     repetition_penalty: float = 1.05
     language_id: int = 2050     # English

@@ -5,7 +5,11 @@
   Gumbel draws fed in.
 - ops.codepred_fused twin against the JAX Pallas megakernel run in
   interpret mode at the real dims (B=8, greedy).
+- the QWEN3_TTS_CODEPRED switch, top_p < 1, and the mtp projection of the
+  1.7B shape, against the JAX XLA path.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +69,145 @@ def test_predict_codes_matches_xla_path(tiny, greedy):
                             torch.from_numpy(cb0), 0.8, 20, greedy=greedy,
                             gumbel=torch.from_numpy(noise))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.fixture
+def impl():
+    yield tcp.set_codepred_impl
+    tcp.set_codepred_impl(None)
+
+
+def _xla_path_pair(jw, tw, cfg, hidden, cb0, greedy, top_p=1.0, seed=5,
+                   temperature=0.8):
+    """(JAX XLA path codes, the port's predict_codes codes) on the same
+    inputs, the port fed JAX's draws."""
+    key = jax.random.PRNGKey(seed)
+    want = jcp.predict_codes(jw, cfg, jnp.asarray(hidden), jnp.asarray(cb0),
+                             jnp.float32(temperature), 20, key,
+                             greedy=greedy, top_p=top_p)
+    noise = _xla_path_noise(key, cfg.n_codebooks - 1,
+                            (hidden.shape[0], cfg.code_pred_vocab_size))
+    got = tcp.predict_codes(tw, port_cfg(cfg), torch.from_numpy(hidden),
+                            torch.from_numpy(cb0), temperature, 20,
+                            greedy=greedy, top_p=top_p,
+                            gumbel=torch.from_numpy(noise))
+    return np.asarray(want), got.numpy()
+
+
+@pytest.mark.parametrize("top_p", [0.9, 0.5])
+def test_predict_codes_top_p_matches_xla_path(tiny, top_p):
+    jw, tw, hidden, cb0 = tiny
+    want, got = _xla_path_pair(jw, tw, CFG, hidden, cb0, False, top_p)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_predict_codes_tiny_top_p_is_greedy(tiny):
+    """top_p -> 0 keeps only each position's argmax: sampled draws give
+    the JAX package's greedy codes."""
+    jw, tw, hidden, cb0 = tiny
+    want, _ = _xla_path_pair(jw, tw, CFG, hidden, cb0, True)
+    for seed in (1, 2):
+        got = tcp.predict_codes(tw, TCFG, torch.from_numpy(hidden),
+                                torch.from_numpy(cb0), 0.8, 20,
+                                torch.Generator().manual_seed(seed),
+                                top_p=1e-6)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("how", ["auto", "xla", "env_auto", "env_xla",
+                                 "env_unknown"])
+def test_switch_on_cpu_takes_xla_path(tiny, impl, monkeypatch, how):
+    """auto and xla on CPU tensors run the XLA-path port (never the
+    kernel's wrapper); an unknown QWEN3_TTS_CODEPRED reads as auto."""
+    jw, tw, hidden, cb0 = tiny
+    want, _ = _xla_path_pair(jw, tw, CFG, hidden, cb0, True)
+    if how.startswith("env_"):
+        monkeypatch.setenv("QWEN3_TTS_CODEPRED", how[4:])
+    else:
+        impl(how)
+    monkeypatch.setattr(tcf, "predict_codes_fused", lambda *a, **k: (
+        _ for _ in ()).throw(AssertionError("took the kernel's wrapper")))
+    got = tcp.predict_codes(tw, TCFG, torch.from_numpy(hidden),
+                            torch.from_numpy(cb0), 0.8, 20, greedy=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_switch_fused_interpret_raises(tiny, impl, monkeypatch):
+    _, tw, hidden, cb0 = tiny
+    with pytest.raises(ValueError, match="'fused'"):
+        impl("fused_interpret")
+    impl(None)
+    monkeypatch.setenv("QWEN3_TTS_CODEPRED", "fused_interpret")
+    with pytest.raises(ValueError, match="'fused'"):
+        tcp.predict_codes(tw, TCFG, torch.from_numpy(hidden),
+                          torch.from_numpy(cb0), 0.8, 20, greedy=True)
+
+
+@pytest.fixture(scope="module")
+def real():
+    """Code-predictor weights at the 0.6B dims (the kernel's), drawn by the
+    port, and a 1.7B-shaped copy (talker width 2,048, so an mtp_w)."""
+    gen = torch.Generator().manual_seed(3)
+    cfg = TCFG.__class__(text_vocab_size=16, n_layers=1)
+    w = W.init_talker_weights(cfg, gen, "cpu")
+    w = {"codec_embd": w["codec_embd"], "code_pred": w["code_pred"]}
+    rng = np.random.default_rng(4)
+    hidden = (rng.standard_normal((2, cfg.hidden_size)) * 0.5).astype(
+        np.float32)
+    cb0 = rng.integers(0, cfg.code_pred_vocab_size, 2).astype(np.int32)
+    return cfg, w, torch.from_numpy(hidden), torch.from_numpy(cb0)
+
+
+def test_switch_fused_on_cpu_runs_the_twin(real, impl, monkeypatch):
+    cfg, w, hidden, cb0 = real
+    assert tcf.supported(cfg, 2, w)
+    ran = []
+    twin = tcf.predict_codes_twin
+    monkeypatch.setattr(tcf, "predict_codes_twin",
+                        lambda *a, **k: ran.append(1) or twin(*a, **k))
+    impl("fused")
+    got = tcp.predict_codes(w, cfg, hidden, cb0, 0.8, 20, greedy=True)
+    assert ran == [1]
+    np.testing.assert_array_equal(
+        got.numpy(), twin(w, cfg, hidden, cb0, 0.8, 20, greedy=True).numpy())
+
+
+@pytest.mark.parametrize("case", ["top_p", "mtp", "f32_weights", "dims"])
+def test_switch_fused_refuses_what_the_kernel_does_not_serve(real, impl,
+                                                             case):
+    """fused raises, on either device, where auto would take the XLA path:
+    top_p < 1, an mtp projection, weights not in bf16, other dims."""
+    cfg, w, hidden, cb0 = real
+    top_p = 0.9 if case == "top_p" else 1.0
+    if case == "mtp":
+        w = dict(w, code_pred=dict(w["code_pred"], mtp_w=torch.zeros(
+            cfg.hidden_size, cfg.code_pred_hidden_size)))
+    elif case == "f32_weights":
+        cp = w["code_pred"]
+        w = dict(w, code_pred=dict(cp, layers=dict(
+            cp["layers"], wo=cp["layers"]["wo"].float())))
+    elif case == "dims":
+        cfg = dataclasses.replace(cfg, code_pred_layers=4)
+    assert tcf.supported(cfg, 2, w) == (case == "top_p")
+    impl("fused")
+    with pytest.raises(ValueError, match="QWEN3_TTS_CODEPRED=fused"):
+        tcp.predict_codes(w, cfg, hidden, cb0, 0.8, 20, top_p=top_p)
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_mtp_config_matches_xla_path(greedy):
+    """A tiny config with code_pred_hidden_size != hidden_size (the 1.7B
+    shape: an mtp_w projects talker space into the code predictor's) under
+    auto, against the JAX XLA path."""
+    cfg = dataclasses.replace(CFG, hidden_size=96)
+    jw = init_talker_weights(np.random.default_rng(7), cfg)
+    assert jw["code_pred"]["mtp_w"].shape == (96, 64)
+    tw = W.talker_weights_from_numpy(jax.tree.map(np.asarray, jw), "cpu")
+    rng = np.random.default_rng(8)
+    hidden = rng.standard_normal((B, 96)).astype(np.float32)
+    cb0 = rng.integers(0, 2048, B).astype(np.int32)
+    want, got = _xla_path_pair(jw, tw, cfg, hidden, cb0, greedy)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_frame_step_embedding(tiny):

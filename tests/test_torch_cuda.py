@@ -122,6 +122,117 @@ def test_codepred_refuses_other_dims(dev):
             2, dtype=torch.int32, device=dev), 0.9, 50, greedy=True)
 
 
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
+
+
+def _near_tie_divergences(got, ref, lg_got, lg_ref):
+    """Per stream: the logits of both runs up to its first differing code
+    (where the fed-back codes still agree) within LOGIT_TOL, and the
+    reference's margin between its code and the other's there a near-tie
+    (<= LOGIT_TOL). Returns the failures."""
+    bad = []
+    for b in range(got.shape[0]):
+        differs = torch.nonzero(got[b] != ref[b]).flatten()
+        p = int(differs[0]) if len(differs) else got.shape[1] - 1
+        err = (lg_got[:p + 1, b] - lg_ref[:p + 1, b]).abs().max().item()
+        if err > LOGIT_TOL:
+            bad.append((b, p, "logits", err))
+        if len(differs):
+            lg = lg_ref[p, b]
+            margin = (lg[ref[b, p]] - lg[got[b, p]]).item()
+            if margin > LOGIT_TOL:
+                bad.append((b, p, "margin", margin))
+    return bad
+
+
+# the 1.7B shape in small: an mtp_w projects the 512-wide talker space
+# into a 256-wide code predictor; D = 128 and 4 / 2 heads, which the
+# decode-attention kernel serves (G = 2)
+MTP_CFG = dict(text_vocab_size=16, n_layers=1, hidden_size=512,
+               n_attention_heads=4, n_key_value_heads=2, head_dim=128,
+               intermediate_size=512, code_pred_hidden_size=256,
+               code_pred_intermediate_size=512, code_pred_n_attention_heads=4,
+               code_pred_n_kv_heads=2, code_pred_head_dim=128,
+               code_pred_vocab_size=256)
+
+
+def test_codepred_auto_mtp_takes_xla_path(dev):
+    """QWEN3_TTS_CODEPRED=auto with an mtp_w on CUDA tensors: the XLA-path
+    branch, whose attention is the decode-attention kernel over the
+    16-slot cache (a launch per layer and step), and no code-predictor
+    kernel. Greedy codes equal those of
+    the same call on CPU tensors; the two devices round bf16 in other
+    places, so a stream may part only at a near-tie of the CPU logits."""
+    from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.models import code_predictor as cp
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    cfg = TalkerConfig(**MTP_CFG)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    w = W.init_talker_weights(cfg, gen, dev)
+    w = {"codec_embd": w["codec_embd"], "code_pred": w["code_pred"]}
+    B, V = 4, cfg.code_pred_vocab_size
+    assert w["code_pred"]["mtp_w"] is not None and not cf.supported(cfg, B, w)
+    hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev)
+    cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    before = (kernels.codepred_launches(), cf.predict_codes_fused.launches,
+              fd.flash_decode.launches)
+    lg, lg_cpu = torch.empty(15, B, V, device=dev), torch.empty(15, B, V)
+    got = cp.predict_codes(w, cfg, hidden, cb0, 0.9, 50, greedy=True,
+                           logits_out=lg)
+    torch.cuda.synchronize()
+    assert (kernels.codepred_launches(),
+            cf.predict_codes_fused.launches) == before[:2]
+    assert fd.flash_decode.launches == before[2] + cfg.code_pred_layers * 14
+    ref = cp.predict_codes(_tree_to(w, "cpu"), cfg, hidden.cpu(), cb0.cpu(),
+                           0.9, 50, greedy=True, logits_out=lg_cpu)
+    assert got.shape == (B, 15) and got.dtype == torch.int32
+    assert not _near_tie_divergences(got.cpu(), ref, lg.cpu(), lg_cpu)
+
+
+def test_codepred_auto_top_p_takes_xla_path(dev, cp_weights):
+    """top_p < 1 under auto at the kernel's own dims: the XLA-path branch
+    (no code-predictor kernel), codes in range; at top_p -> 0 only each
+    position's argmax survives, so sampled draws give the greedy codes of
+    the same branch."""
+    from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.models import code_predictor as cp
+    cfg, w = cp_weights
+    gen = torch.Generator(device=dev).manual_seed(22)
+    B, V = 8, cfg.code_pred_vocab_size
+    hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev) * 0.5
+    cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    before = kernels.codepred_launches(), cf.predict_codes_fused.launches
+    codes = cp.predict_codes(w, cfg, hidden, cb0, 0.9, 50, gen, top_p=0.9)
+    tiny = cp.predict_codes(w, cfg, hidden, cb0, 0.9, 50, gen, top_p=1e-6)
+    torch.cuda.synchronize()
+    assert (kernels.codepred_launches(),
+            cf.predict_codes_fused.launches) == before
+    assert codes.shape == (B, 15) and 0 <= codes.min() <= codes.max() < V
+    cp.set_codepred_impl("xla")
+    try:
+        greedy = cp.predict_codes(w, cfg, hidden, cb0, 0.9, 50, greedy=True)
+    finally:
+        cp.set_codepred_impl(None)
+    assert torch.equal(tiny, greedy)
+
+
+def test_codepred_fused_refuses_mtp(dev, monkeypatch):
+    from qwen3_tts_tpu_torch.models import code_predictor as cp
+    cfg = TalkerConfig(**MTP_CFG)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    w = W.init_talker_weights(cfg, gen, dev)
+    monkeypatch.setenv("QWEN3_TTS_CODEPRED", "fused")
+    with pytest.raises(ValueError, match="QWEN3_TTS_CODEPRED=fused"):
+        cp.predict_codes(w, cfg, torch.zeros(2, 512, device=dev),
+                         torch.zeros(2, dtype=torch.int32, device=dev), 0.9,
+                         50, greedy=True)
+
+
 def _blocks(seed, dev):
     """Packed bf16 decoder blocks at the real widths, conv kernels at
     1/sqrt(fan_in) (the chain stays O(1)), random snake parameters and
@@ -162,17 +273,24 @@ def test_residual_chain(dev, blk_idx, t, B):
     _assert_close_rms(got, ref)
 
 
-@pytest.mark.parametrize("blk_idx,t", [(0, 160), (3, 25600)])
-def test_snake_convt(dev, blk_idx, t):
+# the four heads' T of a 40-frame chunk at B = 2 and 16; B = 3 and 1 with
+# T off the 128-row tile (a stream's last row inside a tile)
+@pytest.mark.parametrize("blk_idx,t,B", [
+    (0, 160, 2), (1, 1280, 2), (2, 6400, 2), (3, 25600, 2),
+    (0, 160, 16), (1, 1280, 16), (2, 6400, 16), (3, 25600, 16),
+    (0, 37, 3), (3, 1001, 1)])
+def test_snake_convt(dev, blk_idx, t, B):
     blocks, gen = _blocks(10 + blk_idx, dev)
     blk = blocks[blk_idx]
     rate = VocoderConfig().upsample_rates[blk_idx]
-    x = torch.randn(2, t, blk["conv_t_w"].shape[0], generator=gen,
+    x = torch.randn(B, t, blk["conv_t_w"].shape[0], generator=gen,
                     device=dev)
     before = vf.fused_snake_convt.launches
     got = vf.fused_snake_convt(x, blk, rate)
+    again = vf.fused_snake_convt(x, blk, rate)
     ref = vf.snake_convt_twin(x, blk, rate)
-    assert vf.fused_snake_convt.launches == before + 1
+    assert vf.fused_snake_convt.launches == before + 2
+    assert torch.equal(got, again)                  # deterministic
     assert got.shape == ref.shape
     _assert_close_rms(got, ref)
 
@@ -185,6 +303,8 @@ def test_vocoder_wrappers_refuse_unserved_shapes(dev):
         vf.fused_residual_chain(x.transpose(0, 1), blk)
     with pytest.raises(ValueError):                 # K != 2 * rate
         vf.fused_snake_convt(torch.randn(1, 8, 192, device=dev), blk, 4)
+    with pytest.raises(ValueError):                 # C not a multiple of 64
+        vf.fused_snake_convt(torch.randn(1, 8, 96, device=dev), blk, 3)
     with pytest.raises(ValueError):                 # not packed
         vf.fused_residual_chain(x, {k: v for k, v in blk.items()
                                     if k != "kernel"})
@@ -308,6 +428,26 @@ def test_flash_decode_shapes(dev, case, kv):
     assert (got - ref).abs().max().item() <= ATTN_TOL
     if nv is not None and 0 in nv:
         assert got[nv.index(0)].abs().max().item() == 0.0
+
+
+def test_flash_decode_code_predictor_cache(dev):
+    """The XLA-path code predictor's attention on the card: 16 query heads
+    over 8 kv heads (G = 2) in a 16-slot bf16 cache, shorter than one
+    64-slot tile (views of a stacked [L, 2, B, 8, 16, 128] cache), every
+    valid length 1..16, against the twin."""
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B = 16
+    cache = torch.randn(3, 2, B, 8, 16, 128, generator=gen,
+                        device=dev).bfloat16()
+    q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
+    n_valid = torch.arange(1, B + 1, dtype=torch.int32, device=dev)
+    k, v = cache[1, 0], cache[1, 1]
+    got = fd.flash_decode(q, k, v, n_valid)
+    ref = fd.flash_decode_twin(q, k, v, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= ATTN_TOL
 
 
 def test_flash_decode_refuses_unserved_calls(dev):

@@ -110,7 +110,86 @@ def test_sample_cb0_draws_from_generator():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-def test_top_p_not_ported():
-    x = torch.from_numpy(_logits(7))
-    with pytest.raises(NotImplementedError):
-        ts.sample_codes(x, 0.9, 50, top_p=0.9)
+@pytest.mark.parametrize("top_k", [0, 50, V])
+@pytest.mark.parametrize("top_p", [0.1, 0.5, 0.9])
+def test_apply_top_p(top_p, top_k):
+    """After top-k, the same surviving set and values as the JAX filter."""
+    x = _logits(8)
+    want = js.apply_top_p(js.apply_top_k(jnp.asarray(x), top_k), top_p, top_k)
+    got = ts.apply_top_p(ts.apply_top_k(torch.from_numpy(x), top_k), top_p,
+                         top_k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    kept = got.numpy() > js.NEG_INF / 2
+    assert kept[np.arange(B), x.argmax(-1)].all()    # the argmax survives
+    assert (kept.sum(-1) < (top_k if 0 < top_k < V else V)).any()
+
+
+@pytest.mark.parametrize("top_k", [0, 50])
+def test_sample_codes_top_p(top_k):
+    x = _logits(9)
+    key = jax.random.PRNGKey(13)
+    want = js.sample_codes(jnp.asarray(x), jnp.float32(0.8), top_k, key,
+                           top_p=0.7)
+    got = ts.sample_codes(torch.from_numpy(x), 0.8, top_k, top_p=0.7,
+                          gumbel=torch.from_numpy(_gumbel(key, x.shape)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_sample_codes_tiny_top_p_is_greedy():
+    """top_p -> 0 leaves only the argmax: sampled draws give JAX's greedy
+    codes (row 0's 4-way tie at the top survives whole, so it is left
+    out)."""
+    x = _logits(10)[1:]
+    want = js.sample_codes(jnp.asarray(x), jnp.float32(0.8), 50,
+                           jax.random.PRNGKey(0), greedy=True)
+    for seed in range(3):
+        got = ts.sample_codes(torch.from_numpy(x), 0.8, 50, top_p=1e-6,
+                              generator=torch.Generator().manual_seed(seed))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _cb0_call(pkg, logits, seen, frame_idx, expected, top_k, top_p, key):
+    kw = dict(eos_id=2150, suppress_start=2048, top_p=top_p)
+    if pkg is js:
+        return np.asarray(js.sample_cb0(
+            jnp.asarray(logits), jnp.asarray(seen), jnp.asarray(frame_idx),
+            jnp.asarray(expected), jnp.float32(1.05), jnp.float32(0.9), top_k,
+            key, **kw))
+    return ts.sample_cb0(
+        torch.from_numpy(logits), torch.from_numpy(seen),
+        torch.from_numpy(frame_idx), torch.from_numpy(expected), 1.05, 0.9,
+        top_k, gumbel=torch.from_numpy(_gumbel(key, logits.shape)),
+        **kw).numpy()
+
+
+@pytest.mark.parametrize("top_k", [0, 50])
+def test_sample_cb0_top_p_keeps_eos(top_k):
+    """The nucleus filter runs over the top_k + 1 survivors and EOS is put
+    back after it: with the noise spiked on EOS every stream samples EOS,
+    however little mass it has; with JAX's own draws the codes equal
+    JAX's. top_k = 0 is ROADMAP C.3's cell: the nucleus sees one entry, so
+    only the argmax and EOS can come out, in both packages."""
+    logits, seen, frame_idx, expected = _cb0_inputs(12)
+    logits[:, 2150] = logits.min() - 5.0            # EOS far below the rest
+    frame_idx[:] = 0                                # no EOS ramp
+    key = jax.random.PRNGKey(21)
+    want = _cb0_call(js, logits, seen, frame_idx, expected, top_k, 0.9, key)
+    got = _cb0_call(ts, logits, seen, frame_idx, expected, top_k, 0.9, key)
+    np.testing.assert_array_equal(got, want)
+    spiked = np.zeros(logits.shape, np.float32)
+    spiked[:, 2150] = 1e30
+    eos = ts.sample_cb0(
+        torch.from_numpy(logits), torch.from_numpy(seen),
+        torch.from_numpy(frame_idx), torch.from_numpy(expected), 1.05, 0.9,
+        top_k, eos_id=2150, suppress_start=2048, top_p=0.9,
+        gumbel=torch.from_numpy(spiked))
+    assert (eos.numpy() == 2150).all()
+    if top_k == 0:
+        greedy = _cb0_call(ts, logits, seen, frame_idx, expected, 0, 1.0,
+                           key)
+        ts_greedy = ts.sample_cb0(
+            torch.from_numpy(logits), torch.from_numpy(seen),
+            torch.from_numpy(frame_idx), torch.from_numpy(expected), 1.05,
+            0.9, 0, eos_id=2150, suppress_start=2048, greedy=True).numpy()
+        assert ((got == ts_greedy) | (got == 2150)).all()
+        assert not (greedy == ts_greedy).all()      # top_p = 1 samples

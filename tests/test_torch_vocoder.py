@@ -206,8 +206,56 @@ def test_pack_block_reproduces_twins():
 def test_chain_tile_n(C, tile):
     """The residual chain's column tile serves the four decoder blocks'
     widths without padding (96 where C is not a multiple of 128)."""
-    assert tvf.chain_tile_n(C) == tile
+    assert tvf.tile_n(C) == tile
     assert tile == 0 or C % tile == 0
+
+
+# the four heads' (C, r * C2) at the vocoder's widths
+@pytest.mark.parametrize("C,N,tile", [(1536, 6144, 128), (768, 1920, 128),
+                                      (384, 768, 128), (192, 288, 96)])
+def test_head_tiles(C, N, tile):
+    """Every head's width is served without padding: N by a column tile,
+    its K = 2C depth by whole 64-row stages."""
+    assert tvf.tile_n(N) == tile and N % tile == 0
+    assert C % tvf.HEAD_K_STAGE == 0
+
+
+def test_head_folds_streams_into_rows():
+    """The head kernel's form: the B streams' rows stacked (row b*T + t),
+    each row's K = 2C operand [s[row] | s[row + 1]] with the row after a
+    stream's last one zeroed, times pack_block's [Whi; Wlo], equals the
+    twin stream by stream."""
+    B, T, C, C2, r = 3, 5, 64, 32, 4
+    a, b, w, bias = _head_block(C, C2, r, 13)
+    blk = {"snake_a": torch.from_numpy(a), "snake_b": torch.from_numpy(b),
+           "conv_t_w": torch.from_numpy(w).to(torch.bfloat16),
+           "conv_t_b": torch.from_numpy(bias), "res": []}
+    wp, bp, ap, ibp = tvf.pack_block(blk)["head"]
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (B, T, C)).astype(np.float32))
+    s = _snake_bf16(x, ap, ibp).reshape(B * T, C)
+    ends = (torch.arange(B * T) + 1) % T == 0
+    s_next = torch.cat([s[1:], torch.zeros(1, C)]).masked_fill(
+        ends[:, None], 0.0)
+    head = (torch.cat([s, s_next], -1) @ wp.float() + bp).view(B, T * r, C2)
+    torch.testing.assert_close(head, tvf.snake_convt_twin(x, blk, r),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_head_scratch_cached_per_width(monkeypatch):
+    """The head's bf16 s: a view of a flat buffer kept per (device, C),
+    reused by a smaller call, grown for a larger one, apart from the
+    chain's buffers of the same C."""
+    monkeypatch.setattr(tvf, "_HEAD_SCRATCH", {})
+    monkeypatch.setattr(tvf, "_CHAIN_SCRATCH", {})
+    dev = torch.device("cpu")
+    s = tvf._head_scratch(dev, 2, 40, 192)
+    assert s.dtype == torch.bfloat16 and s.shape == (2, 40, 192)
+    assert tvf._head_scratch(dev, 1, 70, 192).data_ptr() == s.data_ptr()
+    assert tvf._head_scratch(dev, 3, 40, 192).shape == (3, 40, 192)
+    assert tvf._chain_scratch(dev, 2, 40, 192)[0].data_ptr() != \
+        tvf._head_scratch(dev, 2, 40, 192).data_ptr()
+    assert len(tvf._HEAD_SCRATCH) == 1 and len(tvf._CHAIN_SCRATCH) == 1
 
 
 def test_chain_scratch_cached_per_shape(monkeypatch):
