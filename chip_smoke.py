@@ -29,7 +29,18 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    every result as in 3, that the serving path launched every kernel and
    the decode-attention kernel in window mode with wrapped windows, and
    holds the kernel against its twin on masks captured from the live ring
-   after it wrapped.
+   after it wrapped;
+5. load and clone: writes a full-width model directory (the TTS and the
+   codec GGUF, with a speaker encoder) from the random weights, loads it
+   with ``Qwen3TTS().load_models`` (and with QWEN3_TTS_LOW_MEM=1) and
+   checks every tensor on the card bitwise; holds the speaker encoder,
+   with TF32 at PyTorch's defaults, against CPU tensors and its batch
+   enrolment against single clips, and times it; runs
+   ``synthesize_with_voice`` and ``synthesize_batch`` with cloned voices
+   (the low-memory engine's audio bitwise equal), one run under
+   QWEN3_TTS_TALKER=xla, and the CLI in-process (-r with its .embd cache,
+   -e, --serve --continuous over piped lines); every kernel must launch
+   on this path too.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -200,17 +211,30 @@ def _kernel_events(prof):
             and "memset" not in e.name.lower()]
 
 
+# the profiler drops kernels that run near the start of its capture window
+# on some hosts (ROADMAP C.5): sessions open this long before the work and
+# close this long after it
+PROFILER_PAD_S = 0.05
+
+
 def device_ms(fn, iters: int, names: tuple) -> float:
     """Mean device ms per call of the kernels whose name holds one of
-    `names` (torch.profiler), after one warm-up call."""
+    `names` (torch.profiler), after one warm-up call. A session that
+    recorded no kernel at all is taken again, up to 3 times in all."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = _kernel_events(prof)
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_PAD_S)
+        events = _kernel_events(prof)
+        if events:
+            break
+        log("  (the profiler session came back empty; taken again)")
     total = sum(end - start for name, start, end in events
                 if any(n in name for n in names))
     if total <= 0:
@@ -231,6 +255,220 @@ def device_info() -> tuple[str, str]:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(card)                      # name, power limit as nvidia-smi prints
     return name, card
+
+
+def _gguf_tensors(talker_cfg, talker_w, spk_w):
+    """(GGML name, tensor) of the TTS file, under the converter's names
+    (tools/convert_checkpoints.py): linear weights back to [out, in], the
+    fused and stacked tensors split per layer and per codebook."""
+    out = []
+
+    def stack(prefix, lw, n_layers, n_q, n_kv, inter):
+        for i in range(n_layers):
+            p = f"{prefix}.blk.{i}"
+            q, k, v = lw["wqkv"][i].split([n_q, n_kv, n_kv], dim=1)
+            g, u = lw["w_gu"][i].split([inter, inter], dim=1)
+            out.extend([
+                (f"{p}.attn_norm.weight", lw["attn_norm"][i]),
+                (f"{p}.attn_q.weight", q.t()), (f"{p}.attn_k.weight", k.t()),
+                (f"{p}.attn_v.weight", v.t()),
+                (f"{p}.attn_output.weight", lw["wo"][i].t()),
+                (f"{p}.attn_q_norm.weight", lw["q_norm"][i]),
+                (f"{p}.attn_k_norm.weight", lw["k_norm"][i]),
+                (f"{p}.ffn_norm.weight", lw["ffn_norm"][i]),
+                (f"{p}.ffn_gate.weight", g.t()), (f"{p}.ffn_up.weight", u.t()),
+                (f"{p}.ffn_down.weight", lw["w_down"][i].t())])
+
+    c, w = talker_cfg, talker_w
+    tp = w["text_proj"]
+    out.extend([("talker.text_embd.weight", w["text_embd"]),
+                ("talker.text_proj.fc1.weight", tp["fc1_w"].t()),
+                ("talker.text_proj.fc1.bias", tp["fc1_b"]),
+                ("talker.text_proj.fc2.weight", tp["fc2_w"].t()),
+                ("talker.text_proj.fc2.bias", tp["fc2_b"]),
+                ("talker.codec_embd.weight", w["codec_embd"]),
+                ("talker.codec_head.weight", w["codec_head"].t()),
+                ("talker.output_norm.weight", w["output_norm"])])
+    stack("talker", w["layers"], c.n_layers, c.n_attention_heads * c.head_dim,
+          c.n_key_value_heads * c.head_dim, c.intermediate_size)
+    cp = w["code_pred"]
+    stack("code_pred", cp["layers"], c.code_pred_layers,
+          c.code_pred_n_attention_heads * c.code_pred_head_dim,
+          c.code_pred_n_kv_heads * c.code_pred_head_dim,
+          c.code_pred_intermediate_size)
+    out.append(("code_pred.output_norm.weight", cp["output_norm"]))
+    for i in range(c.n_codebooks - 1):
+        out += [(f"code_pred.codec_embd.{i}.weight", cp["embd"][i]),
+                (f"code_pred.lm_head.{i}.weight", cp["heads"][i].t())]
+    if cp["mtp_w"] is not None:
+        out.append(("code_pred.mtp_proj.weight", cp["mtp_w"].t()))
+        if cp["mtp_b"] is not None:
+            out.append(("code_pred.mtp_proj.bias", cp["mtp_b"]))
+    out += [("spk_enc.conv0.weight", spk_w["conv0_w"]),
+            ("spk_enc.conv0.bias", spk_w["conv0_b"])]
+    for i, b in zip((1, 2, 3), spk_w["blocks"]):
+        p = f"spk_enc.blk.{i}"
+        for j in range(b["res2net_w"].shape[0]):
+            out += [(f"{p}.res2net.{j}.weight", b["res2net_w"][j]),
+                    (f"{p}.res2net.{j}.bias", b["res2net_b"][j])]
+        for key, name in (("tdnn1", "tdnn1"), ("tdnn2", "tdnn2"),
+                          ("se1", "se.conv1"), ("se2", "se.conv2")):
+            out += [(f"{p}.{name}.weight", b[f"{key}_w"]),
+                    (f"{p}.{name}.bias", b[f"{key}_b"])]
+    for key, name in (("mfa", "mfa"), ("asp_tdnn", "asp.tdnn"),
+                      ("asp_conv", "asp.conv"), ("fc", "fc")):
+        out += [(f"spk_enc.{name}.weight", spk_w[f"{key}_w"]),
+                (f"spk_enc.{name}.bias", spk_w[f"{key}_b"])]
+    return out
+
+
+def _codec_tensors(voc_cfg, voc_w):
+    """(GGML name, tensor) of the codec file (the vocoder), under the
+    converter's names."""
+    w, t = voc_w, voc_w["pre_tfm"]
+    out = [("tok_dec.vq_first.0.codebook", w["vq_first_codebook"]),
+           ("tok_dec.vq_first.output_proj.weight",
+            w["vq_first_out_proj"].t()[..., None]),
+           ("tok_dec.vq_rest.output_proj.weight",
+            w["vq_rest_out_proj"].t()[..., None]),
+           ("tok_dec.pre_conv.weight", w["pre_conv_w"]),
+           ("tok_dec.pre_conv.bias", w["pre_conv_b"]),
+           ("tok_dec.pre_tfm.input_proj.weight", t["in_w"].t()),
+           ("tok_dec.pre_tfm.input_proj.bias", t["in_b"]),
+           ("tok_dec.pre_tfm.output_proj.weight", t["out_w"].t()),
+           ("tok_dec.pre_tfm.output_proj.bias", t["out_b"]),
+           ("tok_dec.pre_tfm.norm.weight", t["norm"]),
+           ("tok_dec.dec.0.conv.weight", w["dec0_w"]),
+           ("tok_dec.dec.0.conv.bias", w["dec0_b"]),
+           ("tok_dec.dec.5.snake.alpha", w["dec5_a"]),
+           ("tok_dec.dec.5.snake.beta", w["dec5_b"]),
+           ("tok_dec.dec.6.conv.weight", w["dec6_w"]),
+           ("tok_dec.dec.6.conv.bias", w["dec6_b"])]
+    for i in range(voc_cfg.n_codebooks - 1):
+        out.append((f"tok_dec.vq_rest.{i}.codebook",
+                    w["vq_rest_codebooks"][i]))
+    lay = t["layers"]
+    for i in range(lay["wq"].shape[0]):
+        p = f"tok_dec.pre_tfm.blk.{i}"
+        for key, name in (("wq", "attn_q"), ("wk", "attn_k"),
+                          ("wv", "attn_v"), ("wo", "attn_output"),
+                          ("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
+                          ("w_down", "ffn_down")):
+            out.append((f"{p}.{name}.weight", lay[key][i].t()))
+        for key, name in (("attn_norm", "attn_norm.weight"),
+                          ("ffn_norm", "ffn_norm.weight"),
+                          ("attn_scale", "attn_scale"),
+                          ("ffn_scale", "ffn_scale")):
+            out.append((f"{p}.{name}", lay[key][i]))
+    for i, u in enumerate(w["upsample"]):
+        p = f"tok_dec.upsample.{i}"
+        out += [(f"{p}.conv.weight", u["conv_t_w"]),
+                (f"{p}.conv.bias", u["conv_t_b"]),
+                (f"{p}.dwconv.weight", u["dw_w"]),
+                (f"{p}.dwconv.bias", u["dw_b"]),
+                (f"{p}.norm.weight", u["ln_w"]), (f"{p}.norm.bias", u["ln_b"]),
+                (f"{p}.pwconv1.weight", u["pw1_w"].t()),
+                (f"{p}.pwconv1.bias", u["pw1_b"]),
+                (f"{p}.pwconv2.weight", u["pw2_w"].t()),
+                (f"{p}.pwconv2.bias", u["pw2_b"]), (f"{p}.gamma", u["gamma"])]
+    for blk, d in zip((1, 2, 3, 4), w["dec_blocks"]):
+        p = f"tok_dec.dec.{blk}"
+        out += [(f"{p}.snake.alpha", d["snake_a"]),
+                (f"{p}.snake.beta", d["snake_b"]),
+                (f"{p}.conv_t.weight", d["conv_t_w"]),
+                (f"{p}.conv_t.bias", d["conv_t_b"])]
+        for j, r in zip((2, 3, 4), d["res"]):
+            q = f"{p}.res.{j}"
+            out += [(f"{q}.act1.alpha", r["a1"]), (f"{q}.act1.beta", r["b1"]),
+                    (f"{q}.conv1.weight", r["c1_w"]),
+                    (f"{q}.conv1.bias", r["c1_b"]),
+                    (f"{q}.act2.alpha", r["a2"]), (f"{q}.act2.beta", r["b2"]),
+                    (f"{q}.conv2.weight", r["c2_w"]),
+                    (f"{q}.conv2.bias", r["c2_b"])]
+    return out
+
+
+def write_model_dir(path, tokenizer, talker_cfg, talker_w, spk_cfg, spk_w,
+                    voc_cfg, voc_w) -> None:
+    """A model directory (the TTS and the codec GGUF) holding these
+    weights and this tokenizer's vocabulary, written with the port's
+    GGUFWriter under the converter's tensor names and metadata keys. bf16
+    tensors are stored as BF16 and f32 as F32, so a load gives back the
+    same bits."""
+    from qwen3_tts_tpu_torch.io import gguf
+    from qwen3_tts_tpu_torch.runtime.pipeline import CODEC_FILE, TTS_FILE
+
+    def add(wr, name, t):
+        t = t.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            wr.add_tensor(name, t.view(torch.int16).numpy().view(np.uint16),
+                          gguf.GGML_BF16)
+        else:
+            wr.add_tensor(name, t.float().numpy(), gguf.GGML_F32)
+
+    c, sp = talker_cfg, tokenizer.special
+    wr = gguf.GGUFWriter("qwen3-tts")
+    for key, value in (
+            ("block_count", c.n_layers), ("embedding_length", c.hidden_size),
+            ("feed_forward_length", c.intermediate_size),
+            ("attention.head_count", c.n_attention_heads),
+            ("attention.head_count_kv", c.n_key_value_heads),
+            ("attention.key_length", c.head_dim),
+            ("vocab_size", c.codec_vocab_size),
+            ("text_vocab_size", c.text_vocab_size),
+            ("text_hidden_size", c.text_embd_dim),
+            ("num_code_groups", c.n_codebooks),
+            ("code_predictor.layer_count", c.code_pred_layers),
+            ("code_predictor.vocab_size", c.code_pred_vocab_size),
+            ("code_predictor.embedding_length", c.code_pred_hidden_size),
+            ("code_predictor.feed_forward_length",
+             c.code_pred_intermediate_size),
+            ("code_predictor.attention.head_count",
+             c.code_pred_n_attention_heads),
+            ("code_predictor.attention.head_count_kv", c.code_pred_n_kv_heads),
+            ("code_predictor.attention.key_length", c.code_pred_head_dim),
+            ("speaker_encoder.embedding_length", spk_cfg.embedding_dim),
+            ("speaker_encoder.sample_rate", spk_cfg.sample_rate),
+            ("codec.pad_id", c.codec_pad_id), ("codec.bos_id", c.codec_bos_id),
+            ("codec.eos_id", c.codec_eos_id),
+            ("codec.think_id", c.codec_think_id),
+            ("codec.nothink_id", c.codec_nothink_id),
+            ("codec.think_bos_id", c.codec_think_bos_id),
+            ("codec.think_eos_id", c.codec_think_eos_id),
+            ("language.english_id", c.english_language_id),
+            ("tts_bos_token_id", c.tts_bos_token_id),
+            ("tts_eos_token_id", c.tts_eos_token_id),
+            ("tts_pad_token_id", c.tts_pad_token_id)):
+        wr.add(f"qwen3-tts.{key}", value)
+    wr.add_f32_scalar("qwen3-tts.rope.freq_base", c.rope_theta)
+    wr.add_f32_scalar("qwen3-tts.attention.layer_norm_rms_epsilon",
+                      c.rms_norm_eps)
+    merges = [f"{a} {b}" for (a, b), _ in sorted(
+        tokenizer.bpe_ranks.items(), key=lambda kv: kv[1])]
+    wr.add("tokenizer.ggml.model", "gpt2")
+    wr.add("tokenizer.ggml.tokens", tokenizer.id_to_token)
+    wr.add("tokenizer.ggml.merges", merges)
+    wr.add("tokenizer.ggml.bos_token_id", sp.bos_token_id)
+    wr.add("tokenizer.ggml.eos_token_id", sp.eos_token_id)
+    wr.add("tokenizer.ggml.padding_token_id", sp.pad_token_id)
+    for name, t in _gguf_tensors(talker_cfg, talker_w, spk_w):
+        add(wr, name, t)
+    wr.write(os.path.join(path, TTS_FILE))
+
+    v = voc_cfg
+    wr = gguf.GGUFWriter("qwen3-tts-tokenizer")
+    for key, value in (("num_codebooks", v.n_codebooks),
+                       ("codebook_size", v.codebook_size),
+                       ("sample_rate", v.sample_rate),
+                       ("decoder.hidden_size", v.hidden_dim),
+                       ("decoder.num_layers", v.n_pre_tfm_layers),
+                       ("decoder.num_heads", v.n_heads),
+                       ("decoder.latent_dim", v.latent_dim),
+                       ("upsample_rates", list(v.upsample_rates))):
+        wr.add(f"qwen3-tts-tokenizer.{key}", value)
+    for name, t in _codec_tensors(voc_cfg, voc_w):
+        add(wr, name, t)
+    wr.write(os.path.join(path, CODEC_FILE))
 
 
 def _divergence_gaps(got, ref, logits, tinv, top_k, noise):
@@ -345,6 +583,8 @@ def check_codepred(w, cfg, dev, gen, timed: bool = True) -> dict:
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
     return None if tree is None else tree.to(device)
 
 
@@ -1267,10 +1507,12 @@ def profile_lockstep(engine, card, dev) -> None:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
             t0 = time.monotonic()
             res = engine.synthesize_batch(LOCKSTEP_TEXTS, params=params)
             torch.cuda.synchronize()
             wall = (time.monotonic() - t0) * 1e3
+            time.sleep(PROFILER_PAD_S)
     finally:
         talker.set_talker_step_impl(None)
     events = _kernel_events(prof)
@@ -1433,6 +1675,280 @@ def check_captured(captures, talker_w, cfg, dev, gen) -> None:
             raise AssertionError("a kernel disagrees on a live ring")
     if not captures or n_wrapped == 0:
         raise AssertionError("no live ring state with a wrapped window")
+
+
+def _leaves(tree, path="w"):
+    """(path, tensor) of every tensor in nested dicts / lists / tuples."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
+
+
+def _check_bits(got, want, device, what) -> int:
+    """Every tensor of `got` on `device`, of `want`'s dtype, shape and
+    bits; returns the tensor count."""
+    got_l, want_l = dict(_leaves(got)), dict(_leaves(want))
+    if set(got_l) != set(want_l):
+        raise AssertionError(f"{what}: the loaded tree has other tensors: "
+                             f"{sorted(set(got_l) ^ set(want_l))[:8]}")
+    for path, g in got_l.items():
+        w = want_l[path]
+        if g.device != device or g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what} {path}: {g.device} {g.dtype} "
+                                 f"{tuple(g.shape)}, want {device} {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        gb, wb = (t.detach().cpu().contiguous().view(torch.uint8)
+                  for t in (g, w))
+        if not torch.equal(gb, wb):
+            raise AssertionError(f"{what} {path}: bits differ")
+    return len(got_l)
+
+
+def _load(model_dir, low_mem: bool):
+    """Qwen3TTS().load_models(model_dir) as a user calls it (no device
+    argument): the engine, its load seconds and the card memory it holds
+    (allocated bytes after the load less before)."""
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS
+    os.environ["QWEN3_TTS_LOW_MEM"] = "1" if low_mem else "0"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    try:
+        eng = Qwen3TTS()
+        if not eng.load_models(model_dir):
+            raise AssertionError(f"load_models failed: {eng.error_msg}")
+    finally:
+        os.environ.pop("QWEN3_TTS_LOW_MEM")
+    seconds = time.monotonic() - t0
+    return eng, seconds, torch.cuda.memory_allocated() - before
+
+
+CLONE_TOKENS = 120
+CLONE_CLIP_S = (2, 3, 4, 5, 6, 7, 8, 10)     # the batch enrolment's clips
+SPK_TIMED = ((3.0, None), (10.0, None), (None, 8), (None, 32))
+
+
+def _clip(seconds, sr, seed):
+    """A voiced-like test clip: two partials and noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 110 + 40 * rng.random()
+    return (0.4 * np.sin(2 * np.pi * f0 * t)
+            + 0.2 * np.sin(2 * np.pi * 3.1 * f0 * t)
+            + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def _check_speaker_encoder(eng, ref_wav, dev, card) -> np.ndarray:
+    """encode_speaker with TF32 at PyTorch's defaults inside the call,
+    against the same encoder on CPU tensors; the batch enrolment against
+    single clips; the encoder's times. Returns the batch's embeddings."""
+    from qwen3_tts_tpu_torch.models import speaker_encoder as spk
+    from qwen3_tts_tpu_torch.runtime import audio_io
+    # PyTorch's defaults: cuDNN may use TF32, cuBLAS may not
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        emb = eng.encode_speaker(ref_wav)    # loads the encoder: first use
+        if emb is None:
+            raise AssertionError(f"encode_speaker failed: {eng.error_msg}")
+        cfg = eng.spk_cfg
+        samples, sr = audio_io.load_wav(ref_wav)
+        mel = spk.mel_spectrogram(audio_io.resample_linear(
+            samples, sr, cfg.sample_rate), cfg)
+        pad = np.zeros((1, spk.bucket_frames(len(mel)), cfg.n_mels),
+                       np.float32)
+        pad[0, :len(mel)] = mel
+        n = torch.tensor([len(mel)])
+        cpu_w = _to(eng.spk_w, "cpu")
+        want = spk.encode(cpu_w, cfg, torch.from_numpy(pad), n)[0].numpy()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            tf32 = spk._encode(eng.spk_w, cfg, torch.from_numpy(pad).to(dev),
+                               n.to(dev))[0].cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    rms = float(np.sqrt(np.mean(want ** 2)))
+    err = float(np.abs(emb - want).max())
+    log(f"speaker encoder on the card, TF32 at PyTorch's defaults (cuDNN on):"
+        f" {sr} Hz reference resampled to {cfg.sample_rate}, {len(mel)} "
+        f"frames in a {pad.shape[1]}-frame bucket; max|err| {err:.3e} "
+        f"against CPU tensors, RMS {rms:.3e} (need <= 1e-4 x RMS); the "
+        f"encoder with cuDNN TF32 left on would give "
+        f"{np.abs(tf32 - want).max():.3e}")
+    if not (emb.shape == (cfg.embedding_dim,) and err <= 1e-4 * rms):
+        raise AssertionError("speaker embedding differs from the CPU's")
+
+    clips = [_clip(s, cfg.sample_rate, i) for i, s in enumerate(CLONE_CLIP_S)]
+    batch = eng.encode_speaker_batch(clips, cfg.sample_rate)
+    single = np.stack([eng.encode_speaker_samples(c, cfg.sample_rate)
+                       for c in clips])
+    gap = float(np.abs(batch - single).max())
+    log(f"encode_speaker_batch of {len(clips)} clips of {CLONE_CLIP_S} s "
+        f"against single clips: max|err| {gap:.3e} (need atol 1e-3 + rtol "
+        f"1e-3)")
+    np.testing.assert_allclose(batch, single, atol=1e-3, rtol=1e-3)
+
+    times = []
+    for seconds, n_clips in SPK_TIMED:
+        if n_clips is None:
+            clip = _clip(seconds, cfg.sample_rate, 99)
+            fn = lambda: eng.encode_speaker_samples(clip, cfg.sample_rate)
+            what = f"{seconds:g} s clip"
+        else:
+            group = [clips[i % len(clips)] for i in range(n_clips)]
+            fn = lambda: eng.encode_speaker_batch(group, cfg.sample_rate)
+            what = f"batch of {n_clips} clips (2-10 s)"
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(5):
+            fn()                 # returns host numpy: synchronised
+        times.append(f"{what} {(time.monotonic() - t0) / 5 * 1e3:.2f} ms")
+    log(f"speaker encoder wall ms per call (host mel for one clip, device "
+        f"mel for a batch; 5 calls after one warm-up) on {card}: "
+        + ", ".join(times))
+    return batch
+
+
+def load_and_clone(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
+                   dev) -> dict:
+    """The model-loading and voice-cloning entry points at the full
+    widths: a model directory written from random weights, loaded as a
+    user loads it (normal and QWEN3_TTS_LOW_MEM=1), checked bitwise; the
+    speaker encoder; synthesize_with_voice and synthesize_batch with
+    cloned voices; the CLI in-process. Returns the kernel launches of its
+    synthesis runs."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from qwen3_tts_tpu_torch import cli
+    from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig
+    from qwen3_tts_tpu_torch.models import speaker_encoder as spk
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.runtime import audio_io
+    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    scfg = SpeakerEncoderConfig(embedding_dim=cfg.hidden_size)
+    spk_w = spk.init_speaker_encoder_weights(scfg, gen, dev)
+    root = tempfile.mkdtemp(prefix="q3tts_models_")
+    try:
+        t0 = time.monotonic()
+        write_model_dir(root, tok, cfg, talker_w, scfg, spk_w, vcfg, voc_w)
+        size = sum(os.path.getsize(os.path.join(root, f))
+                   for f in os.listdir(root))
+        log(f"model directory written: {size / 1e9:.3f} GB "
+            f"({sorted(os.listdir(root))}) in {time.monotonic() - t0:.1f} s")
+
+        eng, secs, held = _load(root, low_mem=False)
+        n = _check_bits(eng.talker_w, talker_w, dev, "talker")
+        n += _check_bits(eng.voc_w, engine.voc_w, dev, "vocoder")
+        low, low_secs, low_held = _load(root, low_mem=True)
+        host = [t for _, t in _leaves(low.voc_w)]
+        if not all(t.device.type == "cpu" and t.is_pinned() for t in host):
+            raise AssertionError("low-memory vocoder weights not pinned host")
+        _check_bits(_to(low.voc_w, dev), engine.voc_w, dev, "low-mem vocoder")
+        log(f"load_models at the full widths on {card}: {secs:.2f} s, "
+            f"{held / 2**30:.3f} GiB of card memory after loading "
+            f"(allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB in "
+            f"all); {n} tensors on {dev}, bitwise equal to the written "
+            f"weights; QWEN3_TTS_LOW_MEM=1: {low_secs:.2f} s, "
+            f"{low_held / 2**30:.3f} GiB of card memory, the vocoder's "
+            f"{len(host)} tensors in pinned host memory")
+
+        ref = os.path.join(root, "ref16k.wav")
+        audio_io.save_wav(ref, _clip(3.0, 16000, 5), 16000)
+        batch_emb = _check_speaker_encoder(eng, ref, dev, card)
+        _check_bits(eng.spk_w, spk_w, dev, "speaker encoder")
+
+        params = TTSParams(max_audio_tokens=CLONE_TOKENS, temperature=0.0,
+                           seed=SEED, print_timing=False)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        res = eng.synthesize_with_voice(LOCKSTEP_TEXTS[0], ref, params)
+        _check_results([res], eng)
+        embs = list(batch_emb[:len(LOCKSTEP_TEXTS)])
+        steps = counters["talker_fused"].launches
+        t0 = time.monotonic()
+        got = eng.synthesize_batch(LOCKSTEP_TEXTS, embs, params)
+        wall = time.monotonic() - t0
+        steps = counters["talker_fused"].launches - steps
+        _check_results(got, eng)
+        log(f"synthesize_with_voice: {res.n_frames} frames, t_encode_ms "
+            f"{res.t_encode_ms:.1f}, t_generate_ms {res.t_generate_ms:.1f}, "
+            f"t_total_ms {res.t_total_ms:.1f}; synthesize_batch with "
+            f"{len(embs)} cloned voices, greedy: frames "
+            f"{[r.n_frames for r in got]}, {wall:.2f} s wall, generate "
+            f"{got[0].t_generate_ms / steps:.2f} ms per lock-step frame "
+            f"({steps} frames) on {card}")
+        low_got = low.synthesize_batch(LOCKSTEP_TEXTS, embs, params)
+        for a, b in zip(got, low_got):
+            if not np.array_equal(a.audio, b.audio):
+                raise AssertionError("low-memory audio differs")
+        log("low-memory engine: the same audio, bitwise, for "
+            f"{len(low_got)} cloned voices")
+        talker.set_talker_step_impl("xla")
+        try:
+            xla = eng.synthesize_with_embedding(
+                LOCKSTEP_TEXTS[1], embs[1], TTSParams(
+                    max_audio_tokens=40, temperature=0.0, seed=SEED,
+                    print_timing=False))
+        finally:
+            talker.set_talker_step_impl(None)
+        _check_results([xla], eng)
+        del low, low_got
+
+        out = os.path.join(root, "cli.wav")
+        base = ["-m", root, "-t", LOCKSTEP_TEXTS[2], "--temperature", "0",
+                "--seed", str(SEED), "--max-tokens", "60"]
+        if cli.main(base + ["-r", ref, "-o", out]) != 0:
+            raise AssertionError("cli -r failed")
+        cached = audio_io.load_embedding(ref + ".embd")
+        wav, sr = audio_io.load_wav(out)
+        if cached is None or cached.shape != (cfg.hidden_size,) or \
+                len(wav) % vcfg.samples_per_frame or not len(wav):
+            raise AssertionError("cli -r: no .embd cache or a bad WAV")
+        if cli.main(base + ["-e", ref + ".embd", "-o", out + "2"]) != 0 or \
+                not np.array_equal(audio_io.load_wav(out + "2")[0], wav):
+            raise AssertionError("cli -e on the cache gave other audio")
+        outs = [os.path.join(root, f"serve{i}.wav") for i in range(3)]
+        r_fd, w_fd = os.pipe()
+        with os.fdopen(w_fd, "w") as w:
+            w.write("".join(f"{t}\t{o}\n"
+                            for t, o in zip(LOCKSTEP_TEXTS, outs)))
+        stdout, stdin = io.StringIO(), sys.stdin
+        try:
+            with os.fdopen(r_fd) as sys.stdin, \
+                    contextlib.redirect_stdout(stdout):
+                rc = cli.main(["-m", root, "--serve", "--continuous",
+                               "--batch", "4", "--max-frames", "96",
+                               "--temperature", "0", "--seed", str(SEED),
+                               "-e", ref + ".embd"])
+        finally:
+            sys.stdin = stdin
+        lines = [l for l in stdout.getvalue().splitlines()
+                 if l.startswith(("OK", "ERR"))]
+        if rc != 0 or len(lines) != 3 or not all(
+                l.startswith("OK\t") for l in lines) or not all(
+                os.path.exists(o) for o in outs):
+            raise AssertionError(f"cli --serve --continuous: rc {rc}, "
+                                 f"{lines}")
+        torch.cuda.synchronize()
+        ran = {k: fn.launches for k, fn in counters.items()}
+        log(f"cli: -r (WAV of {len(wav)} samples, .embd cache of "
+            f"{len(cached)} floats), -e on the cache (the same audio), "
+            f"--serve --continuous --batch 4 over 3 piped lines: {lines}; "
+            f"kernel launches of the clone path {ran}")
+        if min(ran.values()) <= 0:
+            raise AssertionError(f"the clone path skipped a kernel: {ran}")
+        return ran
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 COMPARE_CHILD = r"""
@@ -1622,10 +2138,13 @@ def main() -> int:
         serving = {k: serving[k] + ran[k] for k in counters}
         captured += caps
     check_captured(captured, talker_w, cfg, dev, gen)
+    clone = load_and_clone(tok, cfg, talker_w, vcfg, voc_w, engine, card,
+                           counters, dev)
     for entry in report:
-        a, b = lockstep[entry["name"]], serving[entry["name"]]
-        entry.update(launches=a + b, launches_lockstep=a,
-                     launches_serving=b)
+        a, b, c = (lockstep[entry["name"]], serving[entry["name"]],
+                   clone[entry["name"]])
+        entry.update(launches=a + b + c, launches_lockstep=a,
+                     launches_serving=b, launches_clone=c)
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on a main path")
     print(json.dumps({"kernels": report}), flush=True)

@@ -11,10 +11,15 @@ Convolutions round their input to the weight dtype and accumulate in f32
 decoder blocks run the hand-written kernels of ops/vocoder_fused.py: the
 residual chain always, the Snake + convT head with trim="causal"; their
 parameters are packed once by ``pack_kernel_weights``.
+``load_vocoder_weights`` reads the codec GGUF onto a device in f32, as the
+JAX loader does; the pipeline casts (``cast_weights``) and packs.
 """
 
 from __future__ import annotations
 
+from typing import Any
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -215,6 +220,115 @@ def vocoder_decode_subbatched(w, cfg: VocoderConfig, codes: torch.Tensor,
     x = _front_impl(w, cfg, codes)
     return torch.cat([_tail_impl(w, cfg, x[i:i + sub], trim, pcm16)
                       for i in range(0, B, sub)])
+
+
+def _maybe_normalize_codebook(r, cb_name: str, usage_name: str, device,
+                              stager) -> torch.Tensor:
+    """codebook = embedding_sum / clamp(usage, 1e-5) when the file has a
+    usage tensor (the converter pre-divides and drops them; both layouts
+    load). Divided on the host in f32, as the JAX loader does."""
+    if usage_name not in r.tensors:
+        return r.tensor(cb_name, device, torch.float32, stager)
+    cb = r.tensor_data(cb_name).astype(np.float32)
+    usage = r.tensor_data(usage_name).astype(np.float32)
+    return torch.from_numpy(cb / np.maximum(usage, 1e-5)[:, None]).to(device)
+
+
+def load_vocoder_weights(r, cfg: VocoderConfig, device,
+                         stager=None) -> dict[str, Any]:
+    """The vocoder from the codec GGUF (`r`, an io.gguf.GGUFReader) on
+    `device`, every tensor f32 as the JAX loader gives it: linear weights
+    [in, out], convolutions in torch order. Callers cast (cast_weights)
+    and pack (pack_kernel_weights)."""
+    def t(name):
+        return r.tensor(name, device, torch.float32, stager)
+
+    def lin(name):
+        return t(name).t().contiguous()
+
+    def proj(name):              # a k=1 conv [out, in, 1] used as [in, out]
+        w = t(name)
+        return w.reshape(w.shape[0], w.shape[1]).t().contiguous()
+
+    def tfm_layer(i):
+        p = f"tok_dec.pre_tfm.blk.{i}"
+        return {
+            "attn_norm": t(f"{p}.attn_norm.weight"),
+            "wq": lin(f"{p}.attn_q.weight"), "wk": lin(f"{p}.attn_k.weight"),
+            "wv": lin(f"{p}.attn_v.weight"),
+            "wo": lin(f"{p}.attn_output.weight"),
+            "attn_scale": t(f"{p}.attn_scale"),
+            "ffn_norm": t(f"{p}.ffn_norm.weight"),
+            "w_gate": lin(f"{p}.ffn_gate.weight"),
+            "w_up": lin(f"{p}.ffn_up.weight"),
+            "w_down": lin(f"{p}.ffn_down.weight"),
+            "ffn_scale": t(f"{p}.ffn_scale"),
+        }
+
+    def upsample_block(i):
+        p = f"tok_dec.upsample.{i}"
+        return {
+            "conv_t_w": t(f"{p}.conv.weight"), "conv_t_b": t(f"{p}.conv.bias"),
+            "dw_w": t(f"{p}.dwconv.weight"), "dw_b": t(f"{p}.dwconv.bias"),
+            "ln_w": t(f"{p}.norm.weight"), "ln_b": t(f"{p}.norm.bias"),
+            "pw1_w": lin(f"{p}.pwconv1.weight"),
+            "pw1_b": t(f"{p}.pwconv1.bias"),
+            "pw2_w": lin(f"{p}.pwconv2.weight"),
+            "pw2_b": t(f"{p}.pwconv2.bias"),
+            "gamma": t(f"{p}.gamma"),
+        }
+
+    def res_block(blk, res):
+        p = f"tok_dec.dec.{blk}.res.{res}"
+        return {
+            "a1": t(f"{p}.act1.alpha"), "b1": t(f"{p}.act1.beta"),
+            "c1_w": t(f"{p}.conv1.weight"), "c1_b": t(f"{p}.conv1.bias"),
+            "a2": t(f"{p}.act2.alpha"), "b2": t(f"{p}.act2.beta"),
+            "c2_w": t(f"{p}.conv2.weight"), "c2_b": t(f"{p}.conv2.bias"),
+        }
+
+    def dec_block(blk):
+        p = f"tok_dec.dec.{blk}"
+        return {
+            "snake_a": t(f"{p}.snake.alpha"), "snake_b": t(f"{p}.snake.beta"),
+            "conv_t_w": t(f"{p}.conv_t.weight"),
+            "conv_t_b": t(f"{p}.conv_t.bias"),
+            # the file numbers the residual blocks 2..4 (after snake, convT)
+            "res": [res_block(blk, j) for j in (2, 3, 4)],
+        }
+
+    layers = [tfm_layer(i) for i in range(cfg.n_pre_tfm_layers)]
+    return {
+        "vq_first_codebook": _maybe_normalize_codebook(
+            r, "tok_dec.vq_first.0.codebook", "tok_dec.vq_first.0.usage",
+            device, stager),
+        "vq_first_out_proj": proj("tok_dec.vq_first.output_proj.weight"),
+        "vq_rest_codebooks": torch.stack([
+            _maybe_normalize_codebook(
+                r, f"tok_dec.vq_rest.{i}.codebook",
+                f"tok_dec.vq_rest.{i}.usage", device, stager)
+            for i in range(cfg.n_codebooks - 1)]),
+        "vq_rest_out_proj": proj("tok_dec.vq_rest.output_proj.weight"),
+        "pre_conv_w": t("tok_dec.pre_conv.weight"),
+        "pre_conv_b": t("tok_dec.pre_conv.bias"),
+        "pre_tfm": {
+            "in_w": lin("tok_dec.pre_tfm.input_proj.weight"),
+            "in_b": t("tok_dec.pre_tfm.input_proj.bias"),
+            "out_w": lin("tok_dec.pre_tfm.output_proj.weight"),
+            "out_b": t("tok_dec.pre_tfm.output_proj.bias"),
+            "norm": t("tok_dec.pre_tfm.norm.weight"),
+            "layers": {k: torch.stack([lay[k] for lay in layers])
+                       for k in layers[0]},
+        },
+        "upsample": [upsample_block(i) for i in range(2)],
+        "dec0_w": t("tok_dec.dec.0.conv.weight"),
+        "dec0_b": t("tok_dec.dec.0.conv.bias"),
+        "dec_blocks": [dec_block(i) for i in (1, 2, 3, 4)],
+        "dec5_a": t("tok_dec.dec.5.snake.alpha"),
+        "dec5_b": t("tok_dec.dec.5.snake.beta"),
+        "dec6_w": t("tok_dec.dec.6.conv.weight"),
+        "dec6_b": t("tok_dec.dec.6.conv.bias"),
+    }
 
 
 def cast_weights(w, dtype=torch.bfloat16):

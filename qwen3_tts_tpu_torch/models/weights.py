@@ -1,5 +1,5 @@
 """Weights as nested dicts of tensors, in the JAX package's layouts
-(port of the random-init parts of qwen3_tts_tpu/models/weights.py and
+(port of qwen3_tts_tpu/models/weights.py and the random init of
 qwen3_tts_tpu/models/vocoder.py).
 
 Layouts: linear weights [in, out]; stacked per-layer tensors [L, ...];
@@ -7,9 +7,12 @@ fused ``wqkv`` ([q | k | v] columns) and ``w_gu`` ([gate | up]);
 ``code_pred.embd`` [15, V, H] and ``code_pred.heads`` [15, H, V]; vocoder
 convolutions in torch order ([C_out, C_in, K], convT [C_in, C_out, K]).
 
-GGUF loading is not ported yet; the random inits draw on the device from
-a ``torch.Generator`` at the JAX package's scales, so that activations
-stay in range at full width.
+``load_talker_weights`` reads the TTS GGUF straight onto a device
+(io/gguf.GGUFReader.tensor): each tensor crosses once in its file type and
+is transposed, fused, stacked and cast there. The tree is bitwise the JAX
+loader's. The random inits draw on the device from a ``torch.Generator``
+at the JAX package's scales, so that activations stay in range at full
+width.
 """
 
 from __future__ import annotations
@@ -48,6 +51,96 @@ def tree_from_numpy(tree, device):
 
 # the talker (+ code predictor) and vocoder pytrees convert alike
 talker_weights_from_numpy = vocoder_weights_from_numpy = tree_from_numpy
+
+
+def _linear(r, name: str, device, stager) -> torch.Tensor:
+    """A [out, in] GGUF linear weight as [in, out] bf16 (a view: callers
+    stack or copy it)."""
+    return r.tensor(name, device, MATMUL_DTYPE, stager).t()
+
+
+def _vec(r, name: str, device, stager) -> torch.Tensor:
+    return r.tensor(name, device, NORM_DTYPE, stager)
+
+
+def _embd(r, name: str, device, stager) -> torch.Tensor:
+    """An embedding table stays [vocab, dim] (row gather)."""
+    return r.tensor(name, device, MATMUL_DTYPE, stager)
+
+
+def load_decoder_stack(r, prefix: str, n_layers: int, device,
+                       stager=None) -> dict[str, Any]:
+    """A Qwen2-style decoder stack (talker or code predictor) from tensors
+    {prefix}.blk.{i}.{attn_norm, attn_q, attn_k, attn_v, attn_output,
+    attn_q_norm, attn_k_norm, ffn_norm, ffn_gate, ffn_up, ffn_down}, with
+    Q/K/V and gate/up fused along the output dimension."""
+    def lw(name):
+        return torch.stack([
+            _linear(r, f"{prefix}.blk.{i}.{name}.weight", device, stager)
+            for i in range(n_layers)])
+
+    def lv(name):
+        return torch.stack([
+            _vec(r, f"{prefix}.blk.{i}.{name}.weight", device, stager)
+            for i in range(n_layers)])
+
+    return {
+        "attn_norm": lv("attn_norm"),
+        "wqkv": torch.cat([lw("attn_q"), lw("attn_k"), lw("attn_v")], dim=-1),
+        "wo": lw("attn_output"),
+        "q_norm": lv("attn_q_norm"),
+        "k_norm": lv("attn_k_norm"),
+        "ffn_norm": lv("ffn_norm"),
+        "w_gu": torch.cat([lw("ffn_gate"), lw("ffn_up")], dim=-1),
+        "w_down": lw("ffn_down"),
+    }
+
+
+def load_talker_weights(r, cfg: TalkerConfig, device,
+                        stager=None) -> dict[str, Any]:
+    """Talker + code-predictor weights from the TTS GGUF (`r`, an
+    io.gguf.GGUFReader) on `device`. ``code_pred.mtp_w`` / ``mtp_b`` are
+    None unless the file has ``code_pred.mtp_proj`` (the 1.7B shape)."""
+    def lin(name):
+        return _linear(r, name, device, stager).contiguous()
+
+    def vec(name):
+        return _vec(r, name, device, stager)
+
+    n_rest = cfg.n_codebooks - 1
+    w: dict[str, Any] = {
+        "text_embd": _embd(r, "talker.text_embd.weight", device, stager),
+        "text_proj": {
+            "fc1_w": lin("talker.text_proj.fc1.weight"),
+            "fc1_b": vec("talker.text_proj.fc1.bias"),
+            "fc2_w": lin("talker.text_proj.fc2.weight"),
+            "fc2_b": vec("talker.text_proj.fc2.bias"),
+        },
+        "codec_embd": _embd(r, "talker.codec_embd.weight", device, stager),
+        "codec_head": lin("talker.codec_head.weight"),
+        "output_norm": vec("talker.output_norm.weight"),
+        "layers": load_decoder_stack(r, "talker", cfg.n_layers, device,
+                                     stager),
+    }
+    cp: dict[str, Any] = {
+        "layers": load_decoder_stack(r, "code_pred", cfg.code_pred_layers,
+                                     device, stager),
+        "output_norm": vec("code_pred.output_norm.weight"),
+        "embd": torch.stack([
+            _embd(r, f"code_pred.codec_embd.{i}.weight", device, stager)
+            for i in range(n_rest)]),
+        "heads": torch.stack([
+            _linear(r, f"code_pred.lm_head.{i}.weight", device, stager)
+            for i in range(n_rest)]),
+        "mtp_w": None,
+        "mtp_b": None,
+    }
+    if "code_pred.mtp_proj.weight" in r.tensors:
+        cp["mtp_w"] = lin("code_pred.mtp_proj.weight")
+        if "code_pred.mtp_proj.bias" in r.tensors:
+            cp["mtp_b"] = vec("code_pred.mtp_proj.bias")
+    w["code_pred"] = cp
+    return w
 
 
 def _decoder_stack(rn, norm, n_layers, hidden, n_heads, n_kv, head_dim,

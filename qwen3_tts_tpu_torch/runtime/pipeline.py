@@ -1,21 +1,34 @@
-"""Synthesis pipeline: text -> 24 kHz waveform for a batch of streams in
-lock-step, with the streaming 40-frame vocoder decode (slim port of
-qwen3_tts_tpu/runtime/pipeline.py). runtime/serve.py builds continuous
-batching on this engine.
+"""Synthesis pipeline: load models, synthesize, clone voices (port of
+qwen3_tts_tpu/runtime/pipeline.py). Text -> 24 kHz waveform for a batch
+of streams in lock-step, with the streaming 40-frame vocoder decode;
+runtime/serve.py builds continuous batching on this engine.
+
+``Qwen3TTS().load_models(dir)`` reads a model directory
+(qwen3-tts-0.6b-f16.gguf, qwen3-tts-tokenizer-f16.gguf) straight onto the
+card: each tensor crosses once as its file's bytes and is cast there. The
+speaker encoder loads on first use. ``from_components`` assembles an
+engine from tensors already in memory.
+
+Devices: an engine lives on one device, ``cuda`` (the first card) unless
+the caller asks for ``cpu``; without a card, loading for ``cuda`` fails,
+it never falls back to the CPU. On the card the vocoder's matrices are
+bf16, the dtype the vocoder kernels were written and checked for (the
+JAX package casts them on its accelerator too); on the CPU they stay f32,
+as the JAX package keeps them there. ``QWEN3_TTS_LOW_MEM=1`` keeps the
+vocoder's weights, its kernels' packed copies included, in pinned host
+memory and stages them to the card for each decode.
 
 Audio leaves the card as int16 PCM through ``readback_submit``: a
-non-blocking copy into pinned host memory whose end a CUDA event marks,
-the torch counterpart of the JAX package's readback thread. ``PCMRef``
-names one stream's row of such a copy and resolves it lazily.
+non-blocking copy into pinned host memory whose end a CUDA event marks.
+``PCMRef`` names one stream's row of such a copy and resolves it lazily.
 
-Not ported yet: GGUF loading (``load_models``), the speaker encoder and
-voice cloning. Left out by design: the AOT executable cache, the device
-mesh and the profiler hooks. Engines are assembled with
-``from_components``.
+Left out by design: the AOT executable cache and the device mesh.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -23,12 +36,19 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..config import TalkerConfig, VocoderConfig
+from ..config import SpeakerEncoderConfig, TalkerConfig, VocoderConfig
+from ..io.gguf import GGUFReader, HostStager
+from ..models import speaker_encoder as spk
 from ..models import talker, vocoder
+from ..models import weights as W
 from ..tokenizer import TextTokenizer
+from ..utils.trace import StageTimer, memory_snapshot, profile_trace
+from . import audio_io
 from .generate import (ctx_bucket, generate_chunk, init_state,
                        kv_quant_enabled, make_consts, required_ctx)
 
+TTS_FILE = "qwen3-tts-0.6b-f16.gguf"
+CODEC_FILE = "qwen3-tts-tokenizer-f16.gguf"
 CHUNK_FRAMES = 40  # streaming vocoder interval
 
 
@@ -86,6 +106,7 @@ class TTSParams:
     repetition_penalty: float = 1.05
     language_id: int = 2050     # English
     seed: int | None = None
+    print_timing: bool = True   # a stage report on stderr per batch
     streaming_vocoder: bool = True   # 40-frame chunked decode
 
 
@@ -97,17 +118,35 @@ class TTSResult:
     error_msg: str = ""
     n_frames: int = 0
     t_tokenize_ms: float = 0.0
+    t_encode_ms: float = 0.0    # synthesize_with_voice: the speaker encode
     t_generate_ms: float = 0.0
     t_decode_ms: float = 0.0
     t_total_ms: float = 0.0
     # serving only (ContinuousBatcher): wall time from submit to admission;
     # t_total_ms counts from admission, so a client waits the sum
     t_queue_ms: float = 0.0
+    mem_rss_peak_bytes: int = 0
     device_mem_bytes: int = 0
 
 
 def _now_ms() -> float:
     return time.monotonic() * 1e3
+
+
+def _log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
 
 def _sync(device: torch.device) -> None:
@@ -116,7 +155,9 @@ def _sync(device: torch.device) -> None:
 
 
 class Qwen3TTS:
-    """End-to-end engine: text -> waveform, batched over streams."""
+    """End-to-end engine: text -> waveform, batched over streams, with
+    voice cloning. ``Qwen3TTS().load_models(dir)`` or
+    ``Qwen3TTS.from_components(...)`` make a usable engine."""
 
     # Vocoder activations at the 76,800-sample tail stages are large: cap
     # the decode batch and split bigger waves.
@@ -125,30 +166,204 @@ class Qwen3TTS:
     # smallest bucket covering n.
     VOC_BUCKETS = (1, 4, 8, 16, 32, 64, 128)
 
-    def __init__(self, tokenizer: TextTokenizer, talker_cfg: TalkerConfig,
-                 talker_w, voc_cfg: VocoderConfig, voc_w,
-                 device: torch.device) -> None:
+    def __init__(self, tokenizer: TextTokenizer | None = None,
+                 talker_cfg: TalkerConfig | None = None, talker_w=None,
+                 voc_cfg: VocoderConfig | None = None, voc_w=None,
+                 device=None, spk_cfg: SpeakerEncoderConfig | None = None,
+                 spk_w=None) -> None:
         self.tokenizer = tokenizer
         self.talker_cfg = talker_cfg
         self.talker_w = talker_w
         self.voc_cfg = voc_cfg
         self.voc_w = voc_w
-        self.device = torch.device(device)
+        self.device = None if device is None else torch.device(device)
+        self.spk_cfg = spk_cfg
+        self.spk_w = spk_w
+        self.low_mem = False
+        self.error_msg = ""
+        self._tts_model_path: str | None = None
 
     @classmethod
     def from_components(cls, tokenizer, talker_cfg, talker_w, voc_cfg, voc_w,
-                        device) -> "Qwen3TTS":
+                        device, spk_cfg=None, spk_w=None) -> "Qwen3TTS":
         """Assemble an engine from in-memory components whose tensors
         already live on `device`; the vocoder kernels' parameters are
         packed here, once."""
         return cls(tokenizer, talker_cfg, talker_w, voc_cfg,
-                   vocoder.pack_kernel_weights(voc_w), device)
+                   vocoder.pack_kernel_weights(voc_w), device, spk_cfg,
+                   spk_w)
+
+    # -- loading -------------------------------------------------------------
+    def load_models(self, model_dir: str, device="cuda") -> bool:
+        """Load the tokenizer, talker and vocoder from `model_dir` onto
+        `device` (the speaker encoder loads on first use). Returns False
+        with error_msg set when a file is missing or malformed, or when
+        `device` is a card and there is none."""
+        try:
+            dev = torch.device(device)
+        except RuntimeError as e:
+            self.error_msg = f"Failed to load models: {e}"
+            return False
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                self.error_msg = ("Failed to load models: no CUDA device "
+                                  "(load with device='cpu' to run on the "
+                                  "CPU)")
+                return False
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+        low_mem = os.environ.get("QWEN3_TTS_LOW_MEM", "")
+        low_mem = bool(low_mem) and low_mem != "0"
+        if low_mem:
+            _log("  Low-memory mode enabled (host-resident vocoder weights)")
+        t0 = _now_ms()
+        stager = HostStager() if dev.type == "cuda" else None
+        tts_path = os.path.join(model_dir, TTS_FILE)
+        try:
+            with GGUFReader(tts_path) as r:
+                t1 = _now_ms()
+                tokenizer = TextTokenizer.from_gguf(r)
+                _log(f"  Text tokenizer loaded: vocab_size="
+                     f"{len(tokenizer.id_to_token)} ({_now_ms() - t1:.0f} ms)")
+                t1 = _now_ms()
+                talker_cfg = TalkerConfig.from_gguf(r)
+                talker_w = W.load_talker_weights(r, talker_cfg, dev, stager)
+                _log(f"  Talker loaded: hidden_size={talker_cfg.hidden_size}"
+                     f", n_layers={talker_cfg.n_layers} on {dev} "
+                     f"({_now_ms() - t1:.0f} ms)")
+            _log("  Speaker encoder: deferred (lazy load)")
+            t1 = _now_ms()
+            with GGUFReader(os.path.join(model_dir, CODEC_FILE)) as r:
+                voc_cfg = VocoderConfig.from_gguf(r)
+                voc_w = vocoder.load_vocoder_weights(r, voc_cfg, dev, stager)
+            if dev.type == "cuda":
+                voc_w = vocoder.cast_weights(voc_w)
+            voc_w = vocoder.pack_kernel_weights(voc_w)
+            if low_mem and dev.type == "cuda":
+                voc_w = _tree_map(_pinned, voc_w)
+            _log(f"  Vocoder loaded: sample_rate={voc_cfg.sample_rate}, "
+                 f"n_codebooks={voc_cfg.n_codebooks} "
+                 f"({_now_ms() - t1:.0f} ms)")
+        except (OSError, ValueError, KeyError) as e:
+            self.error_msg = f"Failed to load models: {e}"
+            return False
+        self.tokenizer, self.talker_cfg, self.talker_w = (
+            tokenizer, talker_cfg, talker_w)
+        self.voc_cfg, self.voc_w = voc_cfg, voc_w
+        self.spk_cfg = self.spk_w = None
+        self.device, self.low_mem = dev, low_mem
+        self._tts_model_path = tts_path
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _log(f"All models loaded in {_now_ms() - t0:.0f} ms")
+        return True
+
+    def _ensure_speaker_encoder(self) -> bool:
+        if self.spk_w is not None:
+            return True
+        if not self._tts_model_path:
+            self.error_msg = "speaker encoder unavailable (no model path)"
+            return False
+        try:
+            with GGUFReader(self._tts_model_path) as r:
+                cfg = SpeakerEncoderConfig.from_gguf(r)
+                self.spk_w = spk.load_speaker_encoder_weights(
+                    r, cfg, self.device,
+                    HostStager() if self.device.type == "cuda" else None)
+                self.spk_cfg = cfg
+            return True
+        except (OSError, ValueError, KeyError) as e:
+            self.error_msg = f"Failed to load speaker encoder: {e}"
+            return False
+
+    # -- speaker encoding ----------------------------------------------------
+    def encode_speaker(self, reference_audio: str) -> np.ndarray | None:
+        """Reference WAV -> voice embedding [embedding_dim] (host f32), or
+        None with error_msg set."""
+        if not self._ensure_speaker_encoder():
+            return None
+        try:
+            samples, sr = audio_io.load_wav(reference_audio)
+        except (OSError, ValueError) as e:
+            self.error_msg = f"Failed to load reference audio: {e}"
+            return None
+        return self.encode_speaker_samples(samples, sr)
+
+    def encode_speaker_samples(self, samples: np.ndarray,
+                               sample_rate: int) -> np.ndarray | None:
+        """One clip: the host mel, padded to a 128-frame bucket, then the
+        encoder on the engine's device."""
+        if not self._ensure_speaker_encoder():
+            return None
+        cfg = self.spk_cfg
+        if sample_rate != cfg.sample_rate:
+            samples = audio_io.resample_linear(samples, sample_rate,
+                                               cfg.sample_rate)
+        mel = spk.mel_spectrogram(np.asarray(samples, np.float32), cfg)
+        t = mel.shape[0]
+        mel_pad = np.zeros((1, spk.bucket_frames(t), cfg.n_mels), np.float32)
+        mel_pad[0, :t] = mel
+        with torch.inference_mode():
+            emb = spk.encode(self.spk_w, cfg,
+                             torch.as_tensor(mel_pad, device=self.device),
+                             torch.tensor([t], device=self.device))
+        return emb[0].cpu().numpy()
+
+    def encode_speaker_batch(self, clips: list[np.ndarray],
+                             sample_rate: int) -> np.ndarray | None:
+        """Bulk enrolment: N clips -> [N, embedding_dim] in one encode,
+        the mel computed on the device (spk.mel_spectrogram_batch) over
+        clips padded to one 1 s sample bucket."""
+        if not self._ensure_speaker_encoder():
+            return None
+        cfg = self.spk_cfg
+        if not clips:
+            return np.zeros((0, cfg.embedding_dim), np.float32)
+        res = [audio_io.resample_linear(np.asarray(c, np.float32),
+                                        sample_rate, cfg.sample_rate)
+               if sample_rate != cfg.sample_rate else
+               np.asarray(c, np.float32) for c in clips]
+        n = np.array([len(c) for c in res], np.int32)
+        if (n <= 0).any():
+            self.error_msg = "empty reference clip in batch"
+            return None
+        batch = np.zeros((len(res), spk.bucket_samples(int(n.max()), cfg)),
+                         np.float32)
+        for i, c in enumerate(res):
+            batch[i, :len(c)] = c
+        with torch.inference_mode():
+            mel, n_frames = spk.mel_spectrogram_batch(
+                torch.as_tensor(batch, device=self.device),
+                torch.as_tensor(n, device=self.device), cfg)
+            emb = spk.encode(self.spk_w, cfg, mel, n_frames)
+        return emb.cpu().numpy()
 
     # -- synthesis -----------------------------------------------------------
     def synthesize(self, text: str, params: TTSParams | None = None,
                    generator: torch.Generator | None = None) -> TTSResult:
         """One stream, default voice (zero speaker embedding)."""
         return self.synthesize_batch([text], None, params, generator)[0]
+
+    def synthesize_with_embedding(self, text: str, embedding: np.ndarray,
+                                  params: TTSParams | None = None,
+                                  generator: torch.Generator | None = None
+                                  ) -> TTSResult:
+        return self.synthesize_batch([text], [embedding], params,
+                                     generator)[0]
+
+    def synthesize_with_voice(self, text: str, reference_audio: str,
+                              params: TTSParams | None = None,
+                              generator: torch.Generator | None = None
+                              ) -> TTSResult:
+        """Clone the voice of a reference WAV: encode it, then synthesize
+        with its embedding; t_encode_ms is the time outside synthesis."""
+        t0 = _now_ms()
+        emb = self.encode_speaker(reference_audio)
+        if emb is None:
+            return TTSResult(error_msg=self.error_msg)
+        res = self.synthesize_batch([text], [emb], params, generator)[0]
+        res.t_encode_ms = _now_ms() - t0 - res.t_total_ms
+        return res
 
     def synthesize_batch(self, texts: Sequence[str],
                          embeddings: Sequence[np.ndarray] | None = None,
@@ -160,15 +375,28 @@ class Qwen3TTS:
 
         generator: the sampling noise source, on self.device; when None, one
         is seeded from params.seed (or at random). on_chunk(stream, samples)
-        fires per decoded 40-frame chunk."""
+        fires per decoded 40-frame chunk. QWEN3_TTS_PROFILE=<dir> writes a
+        torch.profiler trace of the call (utils/trace.py)."""
+        with profile_trace("synthesize_batch"):
+            return self._synthesize_batch_impl(texts, embeddings, params,
+                                               generator, on_chunk)
+
+    def _synthesize_batch_impl(self, texts, embeddings, params, generator,
+                               on_chunk) -> list[TTSResult]:
         p = params or TTSParams()
+        results = [TTSResult() for _ in texts]
+        if self.talker_w is None or self.tokenizer is None:
+            for r in results:
+                r.error_msg = "Models not loaded"
+            return results
         cfg = self.talker_cfg
         dev = self.device
-        results = [TTSResult() for _ in texts]
         t_total0 = _now_ms()
+        timer = StageTimer()
 
-        token_lists = [self.tokenizer.encode_for_tts(t) for t in texts]
-        t_tok = _now_ms() - t_total0
+        with timer.stage("Tokenization"):
+            token_lists = [self.tokenizer.encode_for_tts(t) for t in texts]
+        t_tok = timer.stages["Tokenization"]
         bad = set()
         for i, (r, toks) in enumerate(zip(results, token_lists)):
             if len(toks) < 4:
@@ -255,6 +483,9 @@ class Qwen3TTS:
             _sync(dev)
             t_decode += _now_ms() - td0
 
+        timer.add("Code generation", t_gen)
+        timer.add("Vocoder decode", t_decode)
+        rss = memory_snapshot()["rss_peak_bytes"]
         dev_mem = (torch.cuda.max_memory_allocated(dev)
                    if dev.type == "cuda" else 0)
         for r in results:
@@ -262,7 +493,14 @@ class Qwen3TTS:
             r.t_generate_ms = t_gen
             r.t_decode_ms = t_decode
             r.t_total_ms = _now_ms() - t_total0
+            r.mem_rss_peak_bytes = rss
             r.device_mem_bytes = dev_mem
+        if p.print_timing and results[0].success:
+            timer.report(audio_seconds=sum(len(x.audio) for x in results)
+                         / results[0].sample_rate)
+            _log(f"  Streams:         {len(results)}")
+            _log(f"  RSS peak:        {rss / 2**20:.0f} MB; "
+                 f"device mem peak: {dev_mem / 2**20:.0f} MB")
         return results
 
     # -- vocoder paths -------------------------------------------------------
@@ -272,8 +510,8 @@ class Qwen3TTS:
         codes = torch.as_tensor(frames[None], dtype=torch.int32,
                                 device=self.device)
         with torch.inference_mode():
-            audio = vocoder.vocoder_decode(self.voc_w, self.voc_cfg, codes,
-                                           trim)
+            audio = vocoder.vocoder_decode(self._vocoder_weights(),
+                                           self.voc_cfg, codes, trim)
         return audio[0].cpu().numpy()
 
     def decode_codes_chunked(self, frames: np.ndarray,
@@ -312,9 +550,20 @@ class Qwen3TTS:
                    if d <= cap and n % d == 0)
         codes_t = torch.as_tensor(codes, dtype=torch.int32, device=self.device)
         audio = vocoder.vocoder_decode_subbatched(
-            self.voc_w, self.voc_cfg, codes_t, trim="causal", pcm16=pcm16,
-            sub=sub)
+            self._vocoder_weights(), self.voc_cfg, codes_t, trim="causal",
+            pcm16=pcm16, sub=sub)
         return audio if pcm16 else audio.cpu().numpy()
+
+    def _vocoder_weights(self):
+        """The vocoder's weights on the engine's device. In low-memory
+        mode, copies of the pinned host tensors for this decode: copied on
+        the current stream ahead of the decode's kernels, and freed to the
+        caching allocator, stream-ordered, once the caller drops them. The
+        host tensors belong to the engine, so they outlive every copy."""
+        if not self.low_mem:
+            return self.voc_w
+        return _tree_map(lambda t: t.to(self.device, non_blocking=True),
+                         self.voc_w)
 
     def readback_submit(self, dev_audio: torch.Tensor) -> Readback:
         """Start ONE whole-batch [nb, T] copy to the host; returns it."""

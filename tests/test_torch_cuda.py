@@ -6,6 +6,8 @@ JAX, skip tests/conftest.py (which imports it):
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
+import time
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,8 @@ from qwen3_tts_tpu_torch.ops import vocoder_fused as vf  # noqa: E402
 from qwen3_tts_tpu_torch.runtime.pipeline import (  # noqa: E402
     Qwen3TTS, TTSParams)
 from qwen3_tts_tpu_torch.tokenizer import TextTokenizer  # noqa: E402
+
+import chip_smoke  # noqa: E402  (the repository root: its model writer)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +88,27 @@ def test_codepred_forced_frame(dev, cp_weights, B):
     assert (lk - lt).abs().max().item() <= LOGIT_TOL
 
 
+def _profiled_kernels(fn) -> list:
+    """Names of the kernels (copies and fills left out) that a
+    torch.profiler session saw while fn ran once and the card finished.
+    The session opens PROFILER_PAD_S before fn and closes as long after
+    the synchronize: on some hosts the profiler drops the kernels that
+    run near the edges of its capture window (ROADMAP C.5)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_PAD_S)
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower()]
+
+
+PROFILER_PAD_S = 0.05
+
+
 def test_codepred_one_launch_per_frame(dev, cp_weights):
     """A frame is one cooperative kernel launch: the C side's count moves
     by one, and the profiler sees one kernel and nothing else on the
@@ -99,16 +124,10 @@ def test_codepred_one_launch_per_frame(dev, cp_weights):
     cf.predict_codes_fused(w, cfg, hidden, cb0, 0.9, 50, gumbel=noise)
     torch.cuda.synchronize()                        # scratch allocated
     before = kernels.codepred_launches(), cf.predict_codes_fused.launches
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        cf.predict_codes_fused(w, cfg, hidden, cb0, 0.9, 50, gumbel=noise)
-        torch.cuda.synchronize()
+    names = _profiled_kernels(lambda: cf.predict_codes_fused(
+        w, cfg, hidden, cb0, 0.9, 50, gumbel=noise))
     assert kernels.codepred_launches() == before[0] + 1
     assert cf.predict_codes_fused.launches == before[1] + 1
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "memcpy" not in e.name.lower()
-             and "memset" not in e.name.lower()]
     assert len(names) == 1 and "codepred_frame_kernel" in names[0], names
 
 
@@ -622,16 +641,12 @@ def test_talker_fused_reuses_scratch_one_launch(dev):
     torch.cuda.synchronize()
     ids = {k: tuple(map(id, v)) for k, v in tf._SCRATCH.items()}
     before = tf.talker_step_fused.launches
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        y, _ = tf.talker_step_fused(lw, x, pos, cache, widx_t, n_valid, **kw)
-        torch.cuda.synchronize()
+    out = []
+    names = _profiled_kernels(lambda: out.append(tf.talker_step_fused(
+        lw, x, pos, cache, widx_t, n_valid, **kw)[0]))
+    y = out[0]
     assert {k: tuple(map(id, v)) for k, v in tf._SCRATCH.items()} == ids
     assert tf.talker_step_fused.launches == before + 1
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "memcpy" not in e.name.lower()
-             and "memset" not in e.name.lower()]
     assert len(names) == 1 and "talker_step_kernel" in names[0], names
     assert torch.isfinite(y).all()
 
@@ -662,3 +677,125 @@ def test_synthesize_batch_auto_runs_talker_kernel(dev):
     _check_results(res, eng)
     assert tf.talker_step_fused.launches > before[0]
     assert fd.flash_decode.launches == before[1]
+
+
+@pytest.fixture(scope="module")
+def model_dir(dev, tmp_path_factory):
+    """A small-depth model directory (2 talker layers; the code predictor,
+    vocoder and speaker encoder at their full widths) written by
+    chip_smoke's writer, and the weights written."""
+    from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig
+    from qwen3_tts_tpu_torch.models import speaker_encoder as spk
+    eng = _engine(dev, 11)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    scfg = SpeakerEncoderConfig()
+    spk_w = spk.init_speaker_encoder_weights(scfg, gen, dev)
+    voc_w = {k: v for k, v in eng.voc_w.items() if k != "dec_blocks"}
+    voc_w["dec_blocks"] = [{k: v for k, v in b.items() if k != "kernel"}
+                           for b in eng.voc_w["dec_blocks"]]
+    root = tmp_path_factory.mktemp("card_model")
+    chip_smoke.write_model_dir(str(root), eng.tokenizer, eng.talker_cfg,
+                               eng.talker_w, scfg, spk_w, eng.voc_cfg, voc_w)
+    return str(root), eng, spk_w
+
+
+def test_load_models_onto_the_card(dev, model_dir):
+    """Qwen3TTS().load_models(dir) with no device argument: every tensor
+    on cuda:0, bitwise the weights written; the loaded engine runs."""
+    root, eng, spk_w = model_dir
+    loaded = Qwen3TTS()
+    assert loaded.load_models(root), loaded.error_msg
+    assert loaded.device == dev
+    chip_smoke._check_bits(loaded.talker_w, eng.talker_w, dev, "talker")
+    chip_smoke._check_bits(loaded.voc_w, eng.voc_w, dev, "vocoder")
+    assert loaded._ensure_speaker_encoder()
+    chip_smoke._check_bits(loaded.spk_w, spk_w, dev, "speaker encoder")
+    res = loaded.synthesize_batch(["hello world.", "he"], params=TTSParams(
+        max_audio_tokens=16, temperature=0.0, seed=0, print_timing=False))
+    _check_results(res, loaded)
+
+
+def test_low_mem_engine_stages_its_vocoder(dev, model_dir, monkeypatch):
+    """QWEN3_TTS_LOW_MEM=1: the vocoder's weights, packed ones included,
+    stay in pinned host memory; the card holds less; the audio is the
+    normal engine's, bitwise."""
+    root, _, _ = model_dir
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    normal = Qwen3TTS()
+    assert normal.load_models(root)
+    held = torch.cuda.memory_allocated(dev) - base
+    monkeypatch.setenv("QWEN3_TTS_LOW_MEM", "1")
+    low = Qwen3TTS()
+    assert low.load_models(root)
+    low_held = torch.cuda.memory_allocated(dev) - base - held
+    leaves = [t for _, t in chip_smoke._leaves(low.voc_w)]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in leaves)
+    voc_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    assert low_held <= held - voc_bytes
+    p = TTSParams(max_audio_tokens=24, temperature=0.0, seed=0,
+                  print_timing=False)
+    a = normal.synthesize_batch(["hello world.", "he"], params=p)
+    b = low.synthesize_batch(["hello world.", "he"], params=p)
+    for x, y in zip(a, b):
+        assert x.success and y.success
+        assert np.array_equal(x.audio, y.audio)
+
+
+def test_speaker_encoder_on_card_with_default_tf32(dev):
+    """The encoder keeps f32 itself: with TF32 at PyTorch's defaults
+    (cuDNN allowed, unlike the dev fixture) its embedding is within 1e-4
+    of the RMS of the same encoder's on CPU tensors."""
+    from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig
+    from qwen3_tts_tpu_torch.models import speaker_encoder as spk
+    cfg = SpeakerEncoderConfig()
+    w = spk.init_speaker_encoder_weights(
+        cfg, torch.Generator(device=dev).manual_seed(21), dev)
+    rng = np.random.default_rng(22)
+    mel = np.zeros((2, 384, cfg.n_mels), np.float32)
+    mel[:, :300] = rng.standard_normal((2, 300, cfg.n_mels))
+    n = torch.tensor([300, 211])
+    want = spk.encode(chip_smoke._to(w, "cpu"), cfg, torch.from_numpy(mel), n)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = spk.encode(w, cfg, torch.from_numpy(mel).to(dev), n.to(dev))
+        assert torch.backends.cudnn.allow_tf32       # restored after
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    rms = want.square().mean().sqrt()
+    assert (got.cpu() - want).abs().max() <= 1e-4 * rms
+
+
+def test_device_mel_matches_host_mel(dev):
+    """mel_spectrogram_batch on the card (cuFFT) against the host numpy
+    mel, clip by clip, at the full mel geometry."""
+    from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig
+    from qwen3_tts_tpu_torch.models import speaker_encoder as spk
+    cfg = SpeakerEncoderConfig()
+    rng = np.random.default_rng(23)
+    lens = [24000, 17001, 50000]
+    clips = [(rng.standard_normal(n) * 0.3).astype(np.float32) for n in lens]
+    batch = np.zeros((3, spk.bucket_samples(max(lens), cfg)), np.float32)
+    for i, c in enumerate(clips):
+        batch[i, :len(c)] = c
+    mel, n_frames = spk.mel_spectrogram_batch(
+        torch.from_numpy(batch).to(dev), torch.tensor(lens, device=dev), cfg)
+    mel, n_frames = mel.cpu().numpy(), n_frames.cpu().numpy()
+    for i, c in enumerate(clips):
+        want = spk.mel_spectrogram(c, cfg)
+        assert n_frames[i] == len(want)
+        np.testing.assert_allclose(mel[i, :len(want)], want, atol=1e-4,
+                                   rtol=1e-4)
+        assert np.all(mel[i, len(want):] == 0.0)
+
+
+def test_stager_copies_in_chunks(dev):
+    """HostStager: a payload of several chunks crosses whole through the
+    two alternating pinned buffers."""
+    from qwen3_tts_tpu_torch.io.gguf import HostStager
+    raw = np.random.default_rng(24).integers(0, 256, 5000).astype(np.uint8)
+    out = HostStager(chunk=1024).to_device(raw, dev)
+    assert out.device == dev and np.array_equal(out.cpu().numpy(), raw)

@@ -1,8 +1,8 @@
 """The port against tests/golden/tiny_activations.npz, the JAX package's
 frozen tiny-model activations: the same recipe as tools/make_goldens.py
-(its talker and vocoder parts), run through qwen3_tts_tpu_torch with the
-JAX package's weights. Discrete outputs must be equal; float outputs hold
-test_goldens.py's tolerances."""
+(its talker, vocoder and speaker-encoder parts), run through
+qwen3_tts_tpu_torch with the JAX package's weights. Discrete outputs must
+be equal; float outputs hold test_goldens.py's tolerances."""
 
 import dataclasses
 from pathlib import Path
@@ -14,10 +14,12 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from qwen3_tts_tpu.models import speaker_encoder as jspk  # noqa: E402
 from qwen3_tts_tpu.models import vocoder as jvoc  # noqa: E402
 from qwen3_tts_tpu.models.weights import (init_talker_weights,  # noqa: E402
                                           tiny_talker_config)
 from qwen3_tts_tpu_torch.models import code_predictor, talker  # noqa: E402
+from qwen3_tts_tpu_torch.models import speaker_encoder  # noqa: E402
 from qwen3_tts_tpu_torch.models import vocoder  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.runtime.generate import (  # noqa: E402
@@ -75,6 +77,18 @@ def current():
     vcodes = torch.as_tensor(rng.integers(0, 2048, (1, 6, 16)),
                              dtype=torch.int32)
     out["vocoder_audio"] = vocoder.vocoder_decode(vw, vcfg, vcodes).numpy()
+
+    sw = W.tree_from_numpy(jax.tree.map(
+        np.asarray, jspk.init_speaker_encoder_weights(
+            np.random.default_rng(2026), jspk.tiny_speaker_encoder_config())),
+        "cpu")
+    scfg = speaker_encoder.tiny_speaker_encoder_config()
+    mel = torch.as_tensor(rng.standard_normal((1, 32, scfg.n_mels)),
+                          dtype=torch.float32)
+    out["speaker_embedding"] = speaker_encoder.encode(
+        sw, scfg, mel, torch.tensor([32])).numpy()
+    samples = rng.standard_normal(600).astype(np.float32)
+    out["mel_spectrogram"] = speaker_encoder.mel_spectrogram(samples, scfg)
     return out
 
 
@@ -84,6 +98,8 @@ def current():
     ("prefill_logits", 5e-3),
     ("prefill_hidden", 1e-3),
     ("vocoder_audio", 1e-4),
+    ("speaker_embedding", 1e-3),
+    ("mel_spectrogram", 1e-4),
 ])
 def test_activation_matches_golden(current, golden, name, atol):
     got, want = current[name], golden[name]

@@ -93,9 +93,10 @@ def test_decode_codes_chunked_length(engines):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and a tiny synthesis runs, in a
-    process where importing jax or anything of the JAX package fails; no
-    module of either is loaded afterwards."""
+    """Every module of the port imports (the CLI, GGUF, speaker-encoder,
+    trace and audio modules by name), and a tiny synthesis and speaker
+    encode run, in a process where importing jax or anything of the JAX
+    package fails; no module of either is loaded afterwards."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -104,6 +105,9 @@ def test_port_imports_no_jax():
         import qwen3_tts_tpu_torch as P
         for m in pkgutil.walk_packages(P.__path__, P.__name__ + "."):
             importlib.import_module(m.name)
+        for name in ("cli", "io.gguf", "models.speaker_encoder",
+                     "utils.trace", "runtime.audio_io"):
+            importlib.import_module("qwen3_tts_tpu_torch." + name)
         import torch
         from qwen3_tts_tpu_torch.config import TokenizerSpecialTokens
         from qwen3_tts_tpu_torch.tokenizer import TextTokenizer
@@ -122,6 +126,14 @@ def test_port_imports_no_jax():
             W.init_vocoder_weights(vcfg, gen, "cpu"), "cpu")
         r = eng.synthesize("aaa", TTSParams(max_audio_tokens=8, seed=1))
         assert r.success and len(r.audio) == r.n_frames * 64, r.error_msg
+        from qwen3_tts_tpu_torch import cli
+        from qwen3_tts_tpu_torch.models import speaker_encoder as spk
+        scfg = spk.tiny_speaker_encoder_config()
+        emb = spk.encode(spk.init_speaker_encoder_weights(scfg, gen, "cpu"),
+                         scfg, torch.zeros(1, 32, scfg.n_mels),
+                         torch.tensor([32]))
+        assert emb.shape == (1, scfg.embedding_dim)
+        assert cli.build_parser().parse_args(["-m", "m"]).device == "cuda"
         loaded = [k for k, v in sys.modules.items() if v is not None
                   and k.split(".")[0] in ("jax", "qwen3_tts_tpu")]
         assert not loaded, loaded
