@@ -20,9 +20,7 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    at temperature 0.9 with top_p 0.9; checks that every request succeeds
    with finite audio of n_frames * 1920 samples, that the lock-step path
    launched every kernel and the code predictor one kernel a frame (none
-   at top_p < 1, where its XLA path runs every frame); then profiles one
-   40-frame run (device ms per frame by kernel group, each vocoder kernel
-   on its own, the card's busy share);
+   at top_p < 1, where its XLA path runs every frame);
 4. serves 20 requests through ``ContinuousBatcher`` (8 slots, greedy,
    bf16 and then int8 KV), 12 of them submitted mid-run: slots turn over,
    requests retire by EOS and by the frame cap, the ring wraps. Checks
@@ -40,7 +38,21 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    (the low-memory engine's audio bitwise equal), one run under
    QWEN3_TTS_TALKER=xla, and the CLI in-process (-r with its .embd cache,
    -e, --serve --continuous over piped lines); every kernel must launch
-   on this path too.
+   on this path too;
+6. graphs: every path above already ran its chunks and vocoder decodes
+   as CUDA graphs (runtime/graphs.py; captured on first use, replayed
+   after). This phase sets them against QWEN3_TTS_AOT=0 in one process:
+   lock-step generate ms a frame replayed and eager (auto bf16 greedy,
+   xla bf16, T=0.9 with top_p 0.9), with audio bitwise equal; the capture
+   and replay times of a 40-frame chunk graph and of a one-frame graph
+   (auto and xla); a fresh engine's 8-slot batcher warmed up (seconds,
+   graphs captured, capture time each, the pool's card memory) and
+   served on phase 4's traffic against an unwarmed eager batcher (wall
+   per 8-slot frame, audio bitwise equal, no bucket captured after the
+   warmup); and the profile of a replayed 40-frame chunk (device ms per
+   frame by kernel group, each vocoder kernel on its own, the card's busy
+   share; one code-predictor and one talker launch a frame) beside an
+   eager one.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1490,14 +1502,19 @@ PROFILE_GROUPS = (("code predictor", ("codepred",)),
                   ("Snake+convT head", ("snake_convt",)))
 
 
-def profile_lockstep(engine, card, dev) -> None:
+def profile_lockstep(engine, card, dev, mode: str) -> float:
     """One greedy bf16 synthesize_batch (4 requests, one 40-frame chunk)
     under torch.profiler and QWEN3_TTS_TALKER=auto: device ms per
     lock-step frame by kernel group, the rest of the kernels, and the
-    share of the wall the card was busy (union of kernel intervals)."""
+    share of the wall the card was busy (union of kernel intervals).
+    mode "graph": the chunk and the vocoder replay their CUDA graphs (the
+    warm call before captured them), and the profile must show one
+    code-predictor and one talker launch a frame; "eager": QWEN3_TTS_AOT=0.
+    Returns (busy share, busy device ms per frame)."""
     from qwen3_tts_tpu_torch.models import talker
     from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
     os.environ["QWEN3_TTS_KV"] = "bf16"
+    os.environ["QWEN3_TTS_AOT"] = "0" if mode == "eager" else "1"
     talker.set_talker_step_impl("auto")
     params = TTSParams(max_audio_tokens=PROFILE_TOKENS, temperature=0.0,
                        seed=SEED)
@@ -1515,6 +1532,7 @@ def profile_lockstep(engine, card, dev) -> None:
             time.sleep(PROFILER_PAD_S)
     finally:
         talker.set_talker_step_impl(None)
+        os.environ.pop("QWEN3_TTS_AOT", None)
     events = _kernel_events(prof)
     frames = max(r.n_frames for r in res)
     groups, rest = {}, 0.0
@@ -1529,14 +1547,22 @@ def profile_lockstep(engine, card, dev) -> None:
     for _, start, end in sorted(events, key=lambda e: e[1]):
         busy += max(0.0, end - max(start, last))
         last = max(last, end)
+    n_cp = sum("codepred_frame_kernel" in e[0] for e in events)
+    n_tf = sum("talker_step_kernel" in e[0] for e in events)
     split = ", ".join(f"{k} {v / 1e3 / frames:.3f}" for k, v in groups.items())
-    log(f"profiled synthesize_batch talker=auto kv=bf16 greedy, {frames} "
-        f"lock-step frames, wall {wall:.1f} ms (generate "
+    log(f"profiled synthesize_batch ({mode}) talker=auto kv=bf16 greedy, "
+        f"{frames} lock-step frames, wall {wall:.1f} ms (generate "
         f"{res[0].t_generate_ms:.1f} ms, decode {res[0].t_decode_ms:.1f} ms; "
         f"host clock under the profiler) on {card}: device ms per frame: "
         f"{split}, other kernels {rest / 1e3 / frames:.3f} "
-        f"({len(events)} kernels in all); card busy {busy / 1e3:.1f} ms, "
+        f"({len(events)} kernels in all; code predictor {n_cp}, talker "
+        f"{n_tf} launches); card busy {busy / 1e3:.1f} ms, "
         f"{busy / 1e3 / wall:.1%} of the wall")
+    if mode == "graph" and not n_cp == n_tf == PROFILE_TOKENS:
+        raise AssertionError(f"a replayed chunk of {PROFILE_TOKENS} frames "
+                             f"launched the code predictor {n_cp} and the "
+                             f"talker {n_tf} times")
+    return busy / 1e3 / wall, busy / 1e3 / frames
 
 
 def _clone_cache(cache):
@@ -1951,6 +1977,217 @@ def load_and_clone(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the graphs phase (runtime/graphs.py): graph against eager in one process
+CHUNK = 40                    # frames a generation chunk (pipeline's)
+GRAPH_RUNS = (("auto", 0.0, 1.0), ("xla", 0.0, 1.0), ("auto", 0.9, 0.9))
+
+
+def _lockstep_once(engine, impl, temperature, top_p, aot, counters, dev):
+    """One synthesize_batch of the lock-step texts with QWEN3_TTS_AOT=aot;
+    returns (results, generate ms per lock-step frame, launches)."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
+    os.environ["QWEN3_TTS_AOT"] = aot
+    talker.set_talker_step_impl(impl)
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        res = engine.synthesize_batch(
+            LOCKSTEP_TEXTS, params=TTSParams(
+                max_audio_tokens=LOCKSTEP_TOKENS, temperature=temperature,
+                top_p=top_p, seed=SEED),
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+    finally:
+        talker.set_talker_step_impl(None)
+        os.environ.pop("QWEN3_TTS_AOT", None)
+    ran = {k: fn.launches for k, fn in counters.items()}
+    _check_results(res, engine)
+    _expect_launches(ran, impl, "synthesize_batch", top_p)
+    steps = _talker_steps(ran, engine.talker_cfg, impl)
+    return res, res[0].t_generate_ms / steps, ran
+
+
+def _design_times(engine, impl, card, dev) -> None:
+    """The two capture granularities at B=4, greedy bf16, read_ctx 512:
+    one 40-frame chunk graph replayed once, against a one-frame graph
+    replayed 40 times (the frame index would then live on the card);
+    capture (warm run, capture and instantiate) and replay ms per 40
+    frames, beside the eager chunk."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.runtime import generate as G
+    from qwen3_tts_tpu_torch.runtime import graphs
+    cfg, w = engine.talker_cfg, engine.talker_w
+    talker.set_talker_step_impl(impl)
+    cache = graphs.GraphCache()
+    out = []
+    try:
+        with torch.inference_mode():
+            pf = talker.build_prefill_inputs(
+                w, cfg, torch.zeros(4, 16, dtype=torch.int32, device=dev),
+                torch.full((4,), 16, dtype=torch.int32, device=dev),
+                torch.zeros(4, cfg.hidden_size, device=dev))
+            st = G.init_state(w, cfg, pf, 512, None)
+            cs = G.make_consts(pf, 0.0, 1.05)
+            for frames in (CHUNK, 1, 0):
+                G.init_state(w, cfg, pf, 512, None, into=st)
+                n = frames or CHUNK
+
+                def chunk(n=n):
+                    return G.generate_chunk(w, cfg, st, cs, 50, n,
+                                            greedy=True, read_ctx=512)[1:]
+
+                key = f"design-{impl}-{frames}"
+                fn = (cache.get_or_capture(key, chunk, dev) if frames
+                      else chunk)
+                fn()
+                reps = CHUNK // n
+                ms = cuda_time(lambda: [fn() for _ in range(reps)], 2)
+                if frames:
+                    stats = cache.stats[key]
+                    out.append(f"{frames}-frame graph: warm run "
+                               f"{stats['warm_s'] * 1e3:.1f} ms, capture and "
+                               f"instantiate {stats['capture_s'] * 1e3:.1f} ms,"
+                               f" {ms:.2f} ms per {CHUNK} frames replayed")
+                else:
+                    out.append(f"eager {ms:.2f} ms per {CHUNK} frames")
+    finally:
+        talker.set_talker_step_impl(None)
+    log(f"graph granularity, talker={impl} B=4 greedy bf16 on {card}: "
+        + "; ".join(out))
+
+
+def _serve_traffic(cb) -> tuple[list, int]:
+    """serve_run's traffic: 8 requests, 8 more after the second step, 4
+    more after the fourth. Returns (results in order, steps)."""
+    texts = [SERVE_SHORT, SERVE_LONG] * 10
+    rids = [cb.submit(t) for t in texts[:8]]
+    results, n_steps = {}, 0
+    while cb.pending():
+        results.update(cb.step())
+        n_steps += 1
+        if n_steps in (2, 4):
+            rids += [cb.submit(t) for t in texts[
+                len(rids):len(rids) + (8 if n_steps == 2 else 4)]]
+    return [results[r] for r in rids], n_steps
+
+
+def graphs_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
+                 dev) -> dict:
+    """CUDA graphs against eager in one process: lock-step generate ms a
+    frame (auto bf16 greedy, xla bf16, top_p 0.9) with equal audio; the
+    two capture granularities; a fresh engine's 8-slot batcher warmed up
+    (seconds, buckets captured, capture time each, the pool's memory)
+    and served against an unwarmed eager batcher on the same traffic;
+    the profile of a replayed chunk beside an eager one. Returns the
+    kernel launches of its graph runs."""
+    from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    os.environ["QWEN3_TTS_KV"] = "bf16"
+    total = dict.fromkeys(counters, 0)
+    per_frame = {}
+    for impl, temperature, top_p in GRAPH_RUNS:
+        _lockstep_once(engine, impl, temperature, top_p, "1", counters, dev)
+        coop0 = kernels.codepred_launches()
+        g_res, g_ms, ran = _lockstep_once(engine, impl, temperature, top_p,
+                                          "1", counters, dev)
+        coop = kernels.codepred_launches() - coop0
+        total = {k: total[k] + ran[k] for k in counters}
+        e_res, e_ms, _ = _lockstep_once(engine, impl, temperature, top_p, "0",
+                                        counters, dev)
+        per_frame[impl, temperature, top_p] = {"graph": g_ms, "eager": e_ms}
+        same = all(g.n_frames == e.n_frames and np.array_equal(g.audio,
+                                                               e.audio)
+                   for g, e in zip(g_res, e_res))
+        log(f"graphs: synthesize_batch talker={impl} kv=bf16 temperature="
+            f"{temperature} top_p={top_p}: generate {g_ms:.2f} ms per "
+            f"lock-step frame replayed, {e_ms:.2f} eager (QWEN3_TTS_AOT=0), "
+            f"frames {[r.n_frames for r in g_res]}, audio "
+            f"{'bitwise equal' if same else 'DIFFERENT'}; code-predictor "
+            f"launches {ran['codepred']} (C side {coop}) on {card}")
+        if not same:
+            raise AssertionError(f"graph and eager audio differ ({impl}, "
+                                 f"top_p {top_p})")
+        if top_p >= 1.0 and impl == "auto" and coop != ran["codepred"]:
+            raise AssertionError("replays did not add the code predictor's "
+                                 "launches on the C side")
+    for impl in ("auto", "xla"):
+        _design_times(engine, impl, card, dev)
+    log(f"graphs: the lock-step engine's pool holds "
+        f"{engine.graphs.pool_bytes(dev) / 2**20:.1f} MiB of card memory "
+        f"({len(engine.graphs.graphs)} graphs)")
+
+    # serving: a fresh engine, so that warmup captures every bucket
+    fresh = Qwen3TTS.from_components(tok, cfg, talker_w, vcfg, voc_w, dev)
+    params = TTSParams(temperature=0.0, seed=SEED)
+    walls = {}
+    for mode in ("graph", "eager"):
+        os.environ["QWEN3_TTS_AOT"] = "1" if mode == "graph" else "0"
+        for fn in counters.values():
+            fn.launches = 0
+        try:
+            cb = ContinuousBatcher(fresh, n_slots=SERVE_SLOTS, params=params,
+                                   max_frames=SERVE_MAX_FRAMES)
+            reserved0 = torch.cuda.memory_reserved(dev)
+            if mode == "graph":
+                cb.warmup()
+                keys = list(fresh.graphs.stats)
+                log(f"graphs: warmup of an {SERVE_SLOTS}-slot batcher "
+                    f"(max_frames {SERVE_MAX_FRAMES}, buckets "
+                    f"{cb.warmup_buckets()}): {cb.warmup_s:.2f} s, "
+                    f"{len(keys)} graphs captured: " + "; ".join(
+                        f"{k.split('-')[0]} {k.split('-')[2]} warm run "
+                        f"{fresh.graphs.stats[k]['warm_s'] * 1e3:.1f} ms, "
+                        f"capture {fresh.graphs.stats[k]['capture_s'] * 1e3:.1f}"
+                        f" ms, pool then "
+                        f"{fresh.graphs.stats[k]['pool_bytes'] / 2**20:.0f} MiB"
+                        for k in keys)
+                    + f"; pool {fresh.graphs.pool_bytes(dev) / 2**20:.1f} MiB"
+                    f", reserved +{(torch.cuda.memory_reserved(dev) - reserved0) / 2**20:.1f} MiB"
+                    f" on {card}")
+                n_graphs = len(fresh.graphs.graphs)
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.monotonic()
+            res, n_steps = _serve_traffic(cb)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            os.environ.pop("QWEN3_TTS_AOT", None)
+        ran = {k: fn.launches for k, fn in counters.items()}
+        _check_results(res, fresh)
+        _expect_launches(ran, "auto", f"serving ({mode})")
+        steps = _talker_steps(ran, cfg, "auto")
+        walls[mode] = (res, wall * 1e3 / steps)
+        if mode == "graph":
+            total = {k: total[k] + ran[k] for k in counters}
+            if len(fresh.graphs.graphs) != n_graphs:
+                raise AssertionError("serving after warmup captured a bucket")
+        log(f"graphs: ContinuousBatcher ({mode}) auto bf16 slots="
+            f"{SERVE_SLOTS}: {len(res)} requests, {n_steps} steps, "
+            f"{wall:.2f} s wall, {wall * 1e3 / steps:.2f} ms of wall per "
+            f"{SERVE_SLOTS}-slot frame ({steps} talker steps) on {card}")
+    same = all(g.n_frames == e.n_frames and np.array_equal(g.audio, e.audio)
+               for g, e in zip(walls["graph"][0], walls["eager"][0]))
+    if not same:
+        raise AssertionError("warmed graph serving and eager serving differ")
+    log(f"graphs: serving audio bitwise equal, graph / eager "
+        f"{walls['graph'][1]:.2f} / {walls['eager'][1]:.2f} ms per frame; "
+        f"pool after serving {fresh.graphs.pool_bytes(dev) / 2**20:.1f} MiB")
+
+    busy = {m: profile_lockstep(engine, card, dev, m)
+            for m in ("graph", "eager")}
+    unprofiled = per_frame["auto", 0.0, 1.0]
+    log(f"graphs: profiled busy share, replayed chunk {busy['graph'][0]:.1%},"
+        f" eager {busy['eager'][0]:.1%}; without the profiler, its busy "
+        f"device ms per frame over the generate ms per frame above: "
+        f"replayed {busy['graph'][1] / unprofiled['graph']:.1%}, eager "
+        f"{busy['eager'][1] / unprofiled['eager']:.1%} on {card}")
+    return total
+
+
 COMPARE_CHILD = r"""
 import importlib.util, json, sys
 import torch
@@ -2131,7 +2368,6 @@ def main() -> int:
         ran = lockstep_run(engine, impl, kv, temperature, top_p, card,
                            counters, dev)
         lockstep = {k: lockstep[k] + ran[k] for k in counters}
-    profile_lockstep(engine, card, dev)
     serving, captured = dict.fromkeys(counters, 0), []
     for impl, kv in SERVE_RUNS:
         ran, caps = serve_run(engine, impl, kv, card, counters, dev)
@@ -2140,11 +2376,14 @@ def main() -> int:
     check_captured(captured, talker_w, cfg, dev, gen)
     clone = load_and_clone(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                            counters, dev)
+    graphed = graphs_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
+                           counters, dev)
     for entry in report:
-        a, b, c = (lockstep[entry["name"]], serving[entry["name"]],
-                   clone[entry["name"]])
-        entry.update(launches=a + b + c, launches_lockstep=a,
-                     launches_serving=b, launches_clone=c)
+        a, b, c, d = (lockstep[entry["name"]], serving[entry["name"]],
+                      clone[entry["name"]], graphed[entry["name"]])
+        entry.update(launches=a + b + c + d, launches_lockstep=a,
+                     launches_serving=b, launches_clone=c,
+                     launches_graphs=d)
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on a main path")
     print(json.dumps({"kernels": report}), flush=True)

@@ -287,10 +287,13 @@ def run_server_continuous(tts: Qwen3TTS, speaker_embd, params: TTSParams,
             requests.put(req)
         requests.put(None)
 
-    threading.Thread(target=reader, daemon=True).start()
-
     cb = ContinuousBatcher(tts, n_slots=n_slots, params=params,
                            max_frames=max_frames)
+    # build every serving executable (CUDA graphs on the card, the
+    # kernels' nvcc build) before the first line is read, so that no
+    # request pays a first-use stall
+    cb.warmup()
+    threading.Thread(target=reader, daemon=True).start()
     _err(f"\nServer ready (continuous, {n_slots} slots). "
          "Send: text<TAB>output.wav  (or 'quit' to exit)")
     outputs: dict[int, str] = {}

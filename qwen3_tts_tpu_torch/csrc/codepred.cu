@@ -546,4 +546,9 @@ int q3_codepred_frame(const float* hidden, const int* cb0,
 // Cooperative launches q3_codepred_frame has made in this process.
 int q3_codepred_launches() { return g_launches; }
 
+// Adds n to that count: a CUDA graph replay launches the kernel nodes its
+// capture recorded without calling q3_codepred_frame (a capture, which
+// launches nothing, takes its calls back). Returns the new count.
+int q3_codepred_add_launches(int n) { return g_launches += n; }
+
 }  // extern "C"

@@ -44,6 +44,7 @@ _SIGNATURES = {
 # C functions that take no stream: name -> (argument types, result type)
 _HOST_SIGNATURES = {
     "q3_codepred_launches": ((), _I),
+    "q3_codepred_add_launches": ((_I,), _I),
     "q3_talker_scratch": ((_I,) * 4 + (ctypes.POINTER(ctypes.c_longlong),),
                           _I),
 }
@@ -128,8 +129,14 @@ def lib() -> ctypes.CDLL:
 
 def codepred_launches() -> int:
     """Cooperative launches of the code-predictor kernel in this process,
-    as the C side counts them."""
+    as the C side counts them (CUDA graph replays included:
+    runtime/graphs.py adds what each replay launched)."""
     return lib().q3_codepred_launches()
+
+
+def add_codepred_launches(n: int) -> None:
+    """Add n (which may be negative) to the C side's launch count."""
+    lib().q3_codepred_add_launches(n)
 
 
 def stream(device: torch.device) -> int:

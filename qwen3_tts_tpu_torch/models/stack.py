@@ -143,8 +143,10 @@ def decode_layers(layers_w, x: torch.Tensor, positions: torch.Tensor,
     ``attend(q, k, v, k_scale, v_scale)`` (q [B, n_heads, D] bf16, the
     layer_kv views) gives [B, n_heads*D] f32. Returns (y [B, H] f32 before
     the output norm, kv_cache)."""
-    idx = torch.as_tensor(write_idx, dtype=torch.long,
-                          device=x.device).reshape(1)
+    # a fill, not a host-to-card copy, for an int: graphs capture this
+    idx = (write_idx.to(torch.long).reshape(1)
+           if isinstance(write_idx, torch.Tensor) else
+           torch.full((1,), write_idx, dtype=torch.long, device=x.device))
     x = x.float()
     for l in range(layers_w["wqkv"].shape[0]):
         wl = layer_weights(layers_w, l)

@@ -34,9 +34,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def rope_freqs(d: int, theta: float, device) -> torch.Tensor:
-    """exp(arange(d/2) * (-2/d) * log(theta)) in f32, as the JAX package."""
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32,
-                                       device=device))
+    """exp(arange(d/2) * (-2/d) * log(theta)) in f32, as the JAX package.
+    The f32 log is taken on the host: a host-to-card copy would break a
+    CUDA graph capture (runtime/graphs.py)."""
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32)).item()
     return torch.exp(torch.arange(d // 2, dtype=torch.float32, device=device)
                      * (-2.0 / d) * log_theta)
 

@@ -8,9 +8,15 @@ happens per frame: in lock-step mode it is max(n_past); in ring mode it
 is ``GenState.write_slot``, which walks the ring past the prefill region
 and wraps back to its start.
 
-``GenState`` is updated in place by ``generate_chunk`` (the torch
-counterpart of JAX's donated state): the KV cache and the per-stream
-counters are written in place, the other fields are replaced.
+Every ``GenState`` tensor is updated in place, never rebound: by
+``generate_chunk`` (the torch counterpart of JAX's
+``donate_argnames=("state",)``), ``admit_slots``, ``park_slot`` and
+``init_state(into=...)``, which prefills into a given state's buffers;
+``make_consts(into=...)`` does the same for ``GenConsts``. A captured CUDA
+graph (runtime/graphs.py) reads and writes fixed addresses, so this is
+what lets one graph serve every chunk of a bucket; rebuilding into the
+same buffers also keeps one KV cache where a fresh state would need a
+second.
 """
 
 from __future__ import annotations
@@ -71,32 +77,63 @@ class GenConsts:
 def init_state(w, cfg: TalkerConfig, prefill: talker.PrefillInputs,
                max_ctx: int, generator: torch.Generator | None,
                active: torch.Tensor | None = None,
-               kv_quant: bool = False) -> GenState:
-    """Run the talker prefill into a fresh cache of max_ctx slots.
+               kv_quant: bool = False,
+               into: GenState | None = None) -> GenState:
+    """Run the talker prefill into a cleared cache of max_ctx slots.
     active: [B] bool streams that hold a request (partly filled serving
-    batches); the others start done."""
+    batches); the others start done. into: a state of the same shapes
+    whose buffers are cleared and refilled in place (and returned), the
+    generator included; None allocates a new one."""
     B, P, _ = prefill.prefill_embd.shape
     dev = prefill.prefill_embd.device
-    cache = init_kv_cache(cfg.n_layers, B, max_ctx, cfg.n_key_value_heads,
-                          cfg.head_dim, quant=kv_quant, device=dev)
-    hidden, logits, cache = talker.talker_prefill(
-        w, cfg, prefill.prefill_embd, cache)
-    return GenState(
-        kv_cache=cache,
-        n_past=torch.full((B,), P, dtype=torch.int32, device=dev),
-        frame_idx=torch.zeros(B, dtype=torch.int32, device=dev),
-        last_hidden=hidden, logits=logits,
-        seen_mask=torch.zeros(B, cfg.codec_vocab_size, dtype=torch.bool,
-                              device=dev),
-        done=(torch.zeros(B, dtype=torch.bool, device=dev) if active is None
-              else ~active.to(dev)),
-        generator=generator,
-        valid_mask=(torch.arange(max_ctx, device=dev) < P).expand(
-            B, max_ctx).contiguous(),
-        write_slot=torch.tensor(max(P, RING_PREFILL_SLOTS),
-                                dtype=torch.int32, device=dev),
-        ring_lo=torch.full((B,), max(P, RING_PREFILL_SLOTS),
-                           dtype=torch.int32, device=dev))
+    if into is None:
+        into = GenState(
+            kv_cache=init_kv_cache(cfg.n_layers, B, max_ctx,
+                                   cfg.n_key_value_heads, cfg.head_dim,
+                                   quant=kv_quant, device=dev),
+            n_past=torch.empty(B, dtype=torch.int32, device=dev),
+            frame_idx=torch.empty(B, dtype=torch.int32, device=dev),
+            last_hidden=torch.empty(B, cfg.hidden_size, device=dev),
+            logits=torch.empty(B, cfg.codec_vocab_size, device=dev),
+            seen_mask=torch.empty(B, cfg.codec_vocab_size, dtype=torch.bool,
+                                  device=dev),
+            done=torch.empty(B, dtype=torch.bool, device=dev),
+            generator=generator,
+            valid_mask=torch.empty(B, max_ctx, dtype=torch.bool, device=dev),
+            write_slot=torch.empty((), dtype=torch.int32, device=dev),
+            ring_lo=torch.empty(B, dtype=torch.int32, device=dev))
+    else:
+        cache = into.kv_cache
+        have = (cache.values if isinstance(cache, QuantKV) else cache).shape
+        if (isinstance(cache, QuantKV) != kv_quant
+                or tuple(into.valid_mask.shape) != (B, max_ctx)
+                or have[0] != cfg.n_layers):
+            raise ValueError(f"init_state(into=...): a state of {have} "
+                             f"(int8 {isinstance(cache, QuantKV)}) cannot "
+                             f"hold B={B}, max_ctx={max_ctx}, int8 "
+                             f"{kv_quant}")
+        if isinstance(cache, QuantKV):
+            cache.values.zero_()
+            cache.scales.fill_(1e-8 / 127.0)     # init_kv_cache's
+        else:
+            cache.zero_()
+        into.generator = generator
+    hidden, logits, _ = talker.talker_prefill(w, cfg, prefill.prefill_embd,
+                                              into.kv_cache)
+    ring0 = max(P, RING_PREFILL_SLOTS)
+    into.n_past.fill_(P)
+    into.frame_idx.zero_()
+    into.last_hidden.copy_(hidden)
+    into.logits.copy_(logits)
+    into.seen_mask.zero_()
+    if active is None:
+        into.done.zero_()
+    else:
+        into.done.copy_(~active.to(dev))
+    into.valid_mask.copy_(torch.arange(max_ctx, device=dev) < P)
+    into.write_slot.fill_(ring0)
+    into.ring_lo.fill_(ring0)
+    return into
 
 
 def expected_frames(n_text_tokens: torch.Tensor) -> torch.Tensor:
@@ -105,14 +142,92 @@ def expected_frames(n_text_tokens: torch.Tensor) -> torch.Tensor:
 
 
 def make_consts(prefill: talker.PrefillInputs, temperature: float,
-                repetition_penalty: float) -> GenConsts:
-    return GenConsts(
+                repetition_penalty: float,
+                into: GenConsts | None = None) -> GenConsts:
+    """The frame loop's constants; into: consts of the same shapes that
+    are refilled in place (and returned) instead of new ones."""
+    fresh = GenConsts(
         trailing_hidden=prefill.trailing_hidden,
         trailing_len=prefill.trailing_len,
         tts_pad_embed=prefill.tts_pad_embed,
         expected_frames=expected_frames(prefill.n_text_tokens),
         temperature=float(temperature),
         repetition_penalty=float(repetition_penalty))
+    if into is None:
+        return fresh
+    for name in ("trailing_hidden", "trailing_len", "tts_pad_embed",
+                 "expected_frames"):
+        getattr(into, name).copy_(getattr(fresh, name))
+    into.temperature = fresh.temperature
+    into.repetition_penalty = fresh.repetition_penalty
+    return into
+
+
+def generate_frame(w, cfg: TalkerConfig, state: GenState,
+                   consts: GenConsts, top_k: int, greedy: bool = False,
+                   read_ctx: int | None = None, top_p: float = 1.0,
+                   cb0_gumbel: torch.Tensor | None = None,
+                   codes_gumbel: torch.Tensor | None = None,
+                   ring: bool = False):
+    """One frame for every stream, updating `state` in place: the body of
+    ``generate_chunk`` (arguments as there, the noise for this frame
+    only: cb0_gumbel [B, codec_vocab], codes_gumbel [15, B, V]). A CUDA
+    graph of this function is what the card replays (runtime/graphs.py).
+    Returns (codes [B, 16] int32, valid [B] bool)."""
+    B = state.n_past.shape[0]
+    rows = torch.arange(B, device=state.n_past.device)
+    t_trail = consts.trailing_hidden.shape[1]
+    cb0 = sample_cb0(
+        state.logits, state.seen_mask, state.frame_idx,
+        consts.expected_frames, consts.repetition_penalty,
+        consts.temperature, top_k, state.generator,
+        eos_id=cfg.codec_eos_id,
+        suppress_start=cfg.codec_vocab_size - 1024, greedy=greedy,
+        top_p=top_p, gumbel=cb0_gumbel)
+    is_eos = cb0 == cfg.codec_eos_id
+    valid = ~state.done & ~is_eos
+    done = state.done | is_eos
+    cb0_safe = torch.where(valid, cb0, 0)
+    state.seen_mask[rows, cb0_safe.long()] |= valid
+
+    rest = code_predictor.predict_codes(
+        w, cfg, state.last_hidden, cb0_safe, consts.temperature, top_k,
+        state.generator, greedy=greedy, top_p=top_p, gumbel=codes_gumbel)
+    frame_codes = torch.cat([cb0_safe[:, None], rest], dim=1)
+
+    # trailing text row, or tts_pad once the text schedule is exhausted
+    row_idx = state.frame_idx.clamp(0, t_trail - 1).long()
+    trail_row = torch.where(
+        (state.frame_idx < consts.trailing_len)[:, None],
+        consts.trailing_hidden[rows, row_idx], consts.tts_pad_embed)
+    step_embd = code_predictor.frame_step_embedding(w, cfg, frame_codes,
+                                                    trail_row)
+    if ring:
+        # dead lanes write a garbage row whose bit is cleared
+        slot = state.write_slot
+        state.valid_mask.index_copy_(1, slot.long().reshape(1),
+                                     (~done)[:, None])
+        hidden, logits, _ = talker.talker_step(
+            w, cfg, step_embd, state.kv_cache, state.n_past, slot,
+            read_ctx=read_ctx, valid_mask=state.valid_mask,
+            window_lo=state.ring_lo, window_hi=slot + 1,
+            prefill_len=RING_PREFILL_SLOTS)
+        state.write_slot.copy_(torch.where(
+            slot + 1 >= state.valid_mask.shape[1],
+            torch.full_like(slot, RING_PREFILL_SLOTS), slot + 1))
+    else:
+        hidden, logits, _ = talker.talker_step(
+            w, cfg, step_embd, state.kv_cache, state.n_past,
+            state.n_past.max(), read_ctx=read_ctx)
+
+    # done streams freeze their position
+    advance = (~done).to(torch.int32)
+    state.n_past += advance
+    state.frame_idx += advance
+    state.last_hidden.copy_(hidden)
+    state.logits.copy_(logits)
+    state.done.copy_(done)
+    return frame_codes, valid
 
 
 def generate_chunk(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
@@ -139,62 +254,14 @@ def generate_chunk(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
 
     Returns (state, codes [chunk, B, 16] int32, valid [chunk, B] bool). A
     frame is valid iff its stream was live and did not sample EOS."""
-    B = state.n_past.shape[0]
-    dev = state.n_past.device
-    rows = torch.arange(B, device=dev)
-    t_trail = consts.trailing_hidden.shape[1]
     all_codes, all_valid = [], []
     for f in range(chunk_frames):
-        cb0 = sample_cb0(
-            state.logits, state.seen_mask, state.frame_idx,
-            consts.expected_frames, consts.repetition_penalty,
-            consts.temperature, top_k, state.generator,
-            eos_id=cfg.codec_eos_id,
-            suppress_start=cfg.codec_vocab_size - 1024, greedy=greedy,
-            top_p=top_p, gumbel=None if cb0_gumbel is None else cb0_gumbel[f])
-        is_eos = cb0 == cfg.codec_eos_id
-        valid = ~state.done & ~is_eos
-        done = state.done | is_eos
-        cb0_safe = torch.where(valid, cb0, 0)
-        state.seen_mask[rows, cb0_safe.long()] |= valid
-
-        rest = code_predictor.predict_codes(
-            w, cfg, state.last_hidden, cb0_safe, consts.temperature, top_k,
-            state.generator, greedy=greedy, top_p=top_p,
-            gumbel=None if codes_gumbel is None else codes_gumbel[f])
-        frame_codes = torch.cat([cb0_safe[:, None], rest], dim=1)
-
-        # trailing text row, or tts_pad once the text schedule is exhausted
-        row_idx = state.frame_idx.clamp(0, t_trail - 1).long()
-        trail_row = torch.where(
-            (state.frame_idx < consts.trailing_len)[:, None],
-            consts.trailing_hidden[rows, row_idx], consts.tts_pad_embed)
-        step_embd = code_predictor.frame_step_embedding(w, cfg, frame_codes,
-                                                        trail_row)
-        if ring:
-            # dead lanes write a garbage row whose bit is cleared
-            slot = state.write_slot
-            state.valid_mask.index_copy_(1, slot.long().reshape(1),
-                                         (~done)[:, None])
-            hidden, logits, _ = talker.talker_step(
-                w, cfg, step_embd, state.kv_cache, state.n_past, slot,
-                read_ctx=read_ctx, valid_mask=state.valid_mask,
-                window_lo=state.ring_lo, window_hi=slot + 1,
-                prefill_len=RING_PREFILL_SLOTS)
-            state.write_slot = torch.where(
-                slot + 1 >= state.valid_mask.shape[1],
-                torch.full_like(slot, RING_PREFILL_SLOTS), slot + 1)
-        else:
-            hidden, logits, _ = talker.talker_step(
-                w, cfg, step_embd, state.kv_cache, state.n_past,
-                state.n_past.max(), read_ctx=read_ctx)
-
-        # done streams freeze their position
-        advance = (~done).to(torch.int32)
-        state.n_past += advance
-        state.frame_idx += advance
-        state.last_hidden, state.logits, state.done = hidden, logits, done
-        all_codes.append(frame_codes)
+        codes, valid = generate_frame(
+            w, cfg, state, consts, top_k, greedy=greedy, read_ctx=read_ctx,
+            top_p=top_p, ring=ring,
+            cb0_gumbel=None if cb0_gumbel is None else cb0_gumbel[f],
+            codes_gumbel=None if codes_gumbel is None else codes_gumbel[f])
+        all_codes.append(codes)
         all_valid.append(valid)
     return state, torch.stack(all_codes), torch.stack(all_valid)
 

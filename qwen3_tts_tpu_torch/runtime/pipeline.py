@@ -22,11 +22,19 @@ Audio leaves the card as int16 PCM through ``readback_submit``: a
 non-blocking copy into pinned host memory whose end a CUDA event marks.
 ``PCMRef`` names one stream's row of such a copy and resolves it lazily.
 
-Left out by design: the AOT executable cache and the device mesh.
+Compiled executables (runtime/graphs.py, the port of the JAX package's
+AOT cache): on the card each frame of a 40-frame lock-step chunk replays
+the CUDA graph of its bucket (``_gen_fn``) over static state buffers,
+prefilled in place and kept for the last batch shape, and each vocoder
+decode replays the graph of its (n, frames, sub, pcm16) bucket
+(``_voc_fn``); both are captured on first use into ``Qwen3TTS.graphs``.
+``QWEN3_TTS_AOT=0`` runs them eagerly, as the CPU does. The device mesh
+is left out.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import time
@@ -38,14 +46,17 @@ import torch
 
 from ..config import SpeakerEncoderConfig, TalkerConfig, VocoderConfig
 from ..io.gguf import GGUFReader, HostStager
+from ..models import code_predictor
 from ..models import speaker_encoder as spk
 from ..models import talker, vocoder
 from ..models import weights as W
+from ..models.stack import QuantKV
 from ..tokenizer import TextTokenizer
 from ..utils.trace import StageTimer, memory_snapshot, profile_trace
 from . import audio_io
-from .generate import (ctx_bucket, generate_chunk, init_state,
+from .generate import (ctx_bucket, generate_frame, init_state,
                        kv_quant_enabled, make_consts, required_ctx)
+from .graphs import GraphCache, aot_enabled, gen_key, new_buffer_id, voc_key
 
 TTS_FILE = "qwen3-tts-0.6b-f16.gguf"
 CODEC_FILE = "qwen3-tts-tokenizer-f16.gguf"
@@ -145,6 +156,15 @@ def _tree_map(fn, tree):
     return None if tree is None else fn(tree)
 
 
+def _first_leaf(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return next((x for x in map(_first_leaf, tree) if x is not None),
+                    None)
+    return tree
+
+
 def _pinned(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
@@ -182,6 +202,17 @@ class Qwen3TTS:
         self.low_mem = False
         self.error_msg = ""
         self._tts_model_path: str | None = None
+        self._drop_graphs()
+
+    def _drop_graphs(self) -> None:
+        """Forget the compiled executables and the static buffers they
+        read and write (module docstring)."""
+        self._graph_cache = None
+        self._model_tag = None
+        self._graph_gen = None
+        self._lockstep = None     # (shape, state, consts, buffers id)
+        self._voc_bufs: dict = {}
+        self._chunk_bufs: dict = {}   # (buffers id, key) -> outputs
 
     @classmethod
     def from_components(cls, tokenizer, talker_cfg, talker_w, voc_cfg, voc_w,
@@ -252,6 +283,7 @@ class Qwen3TTS:
         self.voc_cfg, self.voc_w = voc_cfg, voc_w
         self.spk_cfg = self.spk_w = None
         self.device, self.low_mem = dev, low_mem
+        self._drop_graphs()    # they hold the old weights' addresses
         self._tts_model_path = tts_path
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -431,9 +463,8 @@ class Qwen3TTS:
             prefill_len = prefill.prefill_embd.shape[1]
             max_ctx = required_ctx(prefill_len, p.max_audio_tokens,
                                    CHUNK_FRAMES)
-            state = init_state(self.talker_w, cfg, prefill, max_ctx,
-                               generator, kv_quant=kv_quant_enabled())
-            consts = make_consts(prefill, p.temperature, p.repetition_penalty)
+            state, consts, bufs = self._lockstep_state(prefill, max_ctx, p,
+                                                       generator)
 
             frames: list[list[np.ndarray]] = [[] for _ in range(B)]
             audio_parts: list[list[np.ndarray]] = [[] for _ in range(B)]
@@ -444,9 +475,9 @@ class Qwen3TTS:
                 # every stream's n_past is at most prefill + frames so far
                 read_ctx = ctx_bucket(prefill_len + chunk_idx * CHUNK_FRAMES,
                                       CHUNK_FRAMES, max_ctx)
-                state, codes, valid = generate_chunk(
-                    self.talker_w, cfg, state, consts, p.top_k, CHUNK_FRAMES,
-                    greedy=greedy, read_ctx=read_ctx, top_p=p.top_p)
+                codes, valid = self._gen_fn(state, consts, bufs, read_ctx,
+                                            p.top_k, greedy, p.top_p)()
+                # the graph's outputs: copied out before the next replay
                 codes_h = codes.cpu().numpy()            # [chunk, B, 16]
                 valid_h = valid.cpu().numpy()            # [chunk, B]
                 for b in range(B):
@@ -461,6 +492,8 @@ class Qwen3TTS:
                     t_decode += _now_ms() - td0
                 if bool(state.done.all()):
                     break
+            if state.generator is not generator:
+                generator.set_state(state.generator.get_state())
             t_gen = _now_ms() - t0 - t_decode
 
             td0 = _now_ms()
@@ -524,7 +557,7 @@ class Qwen3TTS:
             part = frames[off:off + chunk]
             padded = np.zeros((chunk, frames.shape[1]), np.int32)
             padded[:len(part)] = part
-            audio = self.decode_codes(padded, trim="causal")
+            audio = self._decode_chunk_batch(padded[None])[0]
             out.append(audio[:vocoder.vocoder_output_length(
                 self.voc_w, self.voc_cfg, len(part), trim="causal")])
         return np.concatenate(out) if out else np.zeros(0, np.float32)
@@ -546,13 +579,144 @@ class Qwen3TTS:
         otherwise host f32."""
         n = len(codes)
         cap = self.VOC_MAX_BATCH if max_batch is None else max_batch
-        sub = next(d for d in (cap, 32, 16, 8, 4, 2, 1)
-                   if d <= cap and n % d == 0)
-        codes_t = torch.as_tensor(codes, dtype=torch.int32, device=self.device)
-        audio = vocoder.vocoder_decode_subbatched(
-            self._vocoder_weights(), self.voc_cfg, codes_t, trim="causal",
-            pcm16=pcm16, sub=sub)
-        return audio if pcm16 else audio.cpu().numpy()
+        sub = None if n <= cap else next(
+            d for d in (cap, 32, 16, 8, 4, 2, 1) if d <= cap and n % d == 0)
+        with torch.inference_mode():
+            buf, decode = self._voc_fn(n, codes.shape[1], sub, pcm16)
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(codes,
+                                                            np.int32)))
+            audio = decode()
+            return audio if pcm16 else audio.cpu().numpy()
+
+    # -- compiled executables (runtime/graphs.py) --------------------------
+    @property
+    def graphs(self) -> GraphCache:
+        """The engine's CUDA graphs: the generation chunk per bucket and
+        switch, the vocoder decode per bucket (module docstring)."""
+        if self._graph_cache is None:
+            self._graph_cache = GraphCache()
+        return self._graph_cache
+
+    def model_tag(self) -> str:
+        """Short stable tag of the model dims and weight dtypes: part of
+        every graph key."""
+        if self._model_tag is None:
+            dt = [str(_first_leaf(w).dtype) if w else "na"
+                  for w in (self.voc_w, self.talker_w)]
+            src = repr((self.talker_cfg, self.voc_cfg, dt))
+            self._model_tag = hashlib.md5(src.encode()).hexdigest()[:8]
+        return self._model_tag
+
+    def _gen_fn(self, state, consts, buffers: int, read_ctx: int,
+                top_k: int, greedy: bool, top_p: float, ring: bool = False):
+        """The generation chunk over `state` and `consts` (static
+        buffers, owner id `buffers`) at one read_ctx bucket: a callable
+        returning (codes [chunk, B, 16], valid [chunk, B]), buffers of
+        this key that the next chunk overwrites. A chunk is CHUNK_FRAMES
+        calls of the frame's graph on the card (captured on the first),
+        which writes its codes at a frame index kept on the card: a
+        40-frame graph replays no faster, and instantiating one takes
+        longer than the eager chunk under QWEN3_TTS_TALKER=xla (PERF.md).
+        The key reads the impl switches now, as the JAX package bakes
+        them in at trace time."""
+        cache = state.kv_cache
+        key = gen_key(
+            model_tag=self.model_tag(), buffers=buffers,
+            B=state.n_past.shape[0], ctx=state.valid_mask.shape[1],
+            kv_quant=isinstance(cache, QuantKV),
+            talker_impl=talker._resolve_impl(),
+            codepred_impl=code_predictor._resolve_impl(), read_ctx=read_ctx,
+            top_k=top_k, greedy=greedy, ring=ring,
+            trailing=consts.trailing_hidden.shape[1], top_p=top_p,
+            temperature=consts.temperature,
+            repetition_penalty=consts.repetition_penalty, device=self.device)
+        if (buffers, key) not in self._chunk_bufs:
+            B, dev = state.n_past.shape[0], self.device
+            self._chunk_bufs[buffers, key] = (
+                torch.empty(CHUNK_FRAMES, B, self.talker_cfg.n_codebooks,
+                            dtype=torch.int32, device=dev),
+                torch.empty(CHUNK_FRAMES, B, dtype=torch.bool, device=dev),
+                torch.zeros(1, dtype=torch.long, device=dev))
+        codes, valid, f = self._chunk_bufs[buffers, key]
+
+        def frame():
+            c, v = generate_frame(self.talker_w, self.talker_cfg, state,
+                                  consts, top_k, greedy=greedy,
+                                  read_ctx=read_ctx, top_p=top_p, ring=ring)
+            codes.index_copy_(0, f, c[None])
+            valid.index_copy_(0, f, v[None])
+            f.add_(1)
+
+        frame_fn = self.graphs.get_or_capture(key, frame, self.device,
+                                              state.generator, buffers)
+
+        def chunk():
+            f.zero_()
+            for _ in range(CHUNK_FRAMES):
+                frame_fn()
+            return codes, valid
+
+        return chunk
+
+    def _lockstep_state(self, prefill, max_ctx: int, p: TTSParams,
+                        generator):
+        """(state, consts, buffers id) of one lock-step call. With
+        QWEN3_TTS_AOT on (the default), static buffers refilled in place,
+        so that the graphs over them replay and no second KV cache is
+        made: the last call's, when its shape (B, max_ctx, trailing rows,
+        KV dtype) is this one's, else new ones, and the old buffers and
+        their graphs are dropped (one KV cache is held between calls, not
+        one per batch shape). Their draws come from the engine's own
+        generator, which takes `generator`'s state here and gives it back
+        after the call. With QWEN3_TTS_AOT=0, new ones each call."""
+        cfg, kv_quant = self.talker_cfg, kv_quant_enabled()
+        if not aot_enabled():
+            return (init_state(self.talker_w, cfg, prefill, max_ctx,
+                               generator, kv_quant=kv_quant),
+                    make_consts(prefill, p.temperature,
+                                p.repetition_penalty), 0)
+        if self._graph_gen is None:
+            self._graph_gen = torch.Generator(device=self.device)
+        gen = self._graph_gen
+        gen.set_state(generator.get_state())
+        shape = (prefill.prefill_embd.shape[0], max_ctx,
+                 prefill.trailing_hidden.shape[1], kv_quant)
+        old = self._lockstep
+        if old is not None and old[0] != shape:
+            self.graphs.release(old[3])
+            self._chunk_bufs = {k: v for k, v in self._chunk_bufs.items()
+                                if k[0] != old[3]}
+            old = self._lockstep = None
+        state = init_state(self.talker_w, cfg, prefill, max_ctx, gen,
+                           kv_quant=kv_quant, into=old and old[1])
+        consts = make_consts(prefill, p.temperature, p.repetition_penalty,
+                             into=old and old[2])
+        bufs = old[3] if old else new_buffer_id()
+        self._lockstep = (shape, state, consts, bufs)
+        return state, consts, bufs
+
+    def _voc_fn(self, n: int, frames: int, sub: int | None, pcm16: bool):
+        """(codes buffer [n, frames, n_codebooks] int32 on the device, a
+        callable decoding it with the causal trim): the graph of the
+        bucket on the card. Low-memory mode stages the weights per decode
+        and stays eager."""
+        mkey = (n, frames, sub, pcm16)
+        if mkey not in self._voc_bufs:
+            codes = torch.zeros(n, frames, self.voc_cfg.n_codebooks,
+                                dtype=torch.int32, device=self.device)
+
+            def decode():
+                return vocoder.vocoder_decode_subbatched(
+                    self._vocoder_weights(), self.voc_cfg, codes,
+                    trim="causal", pcm16=pcm16, sub=sub or n)
+
+            self._voc_bufs[mkey] = (codes, decode)
+        codes, decode = self._voc_bufs[mkey]
+        if self.low_mem:
+            return codes, decode
+        key = voc_key(model_tag=self.model_tag(), n=n, frames=frames,
+                      sub=sub, pcm16=pcm16, device=self.device)
+        return codes, self.graphs.get_or_capture(key, decode, self.device)
 
     def _vocoder_weights(self):
         """The vocoder's weights on the engine's device. In low-memory

@@ -20,9 +20,17 @@ device state and keeps serving the queue. A CUDA device-side fault (an
 illegal address, a trapped kernel) poisons the CUDA context of the
 process: the rebuild then fails too, and only a new process recovers.
 
-Not ported: the AOT executable cache and ``warmup()``, ``profile_trace``
-and the per-step timing print, mesh sharding, and the per-stream scatter
-mode (``QWEN3_TTS_RING=0``, which raises NotImplementedError here).
+Compiled executables (runtime/graphs.py): on the card each chunk replays
+the CUDA graph of its read_ctx bucket (``_gen_fn``), which reads and
+writes the batcher's state in place; ``_reset_state`` and
+``_fail_inflight`` rebuild that state into the same buffers, so the
+graphs stay valid. ``warmup()`` captures every bucket the serving loop can
+reach before traffic arrives. Admission and park run once per request,
+not once per frame, and stay eager.
+
+Not ported: the per-step timing print, mesh sharding, and the per-stream
+scatter mode (``QWEN3_TTS_RING=0``, which raises NotImplementedError
+here).
 """
 
 from __future__ import annotations
@@ -39,8 +47,9 @@ import torch
 
 from ..models import talker, vocoder
 from .generate import (RING_PREFILL_SLOTS, admit_slots, ctx_bucket,
-                       generate_chunk, init_state, kv_quant_enabled,
-                       make_consts, park_slot, required_ctx_ring)
+                       init_state, kv_quant_enabled, make_consts, park_slot,
+                       required_ctx_ring)
+from .graphs import new_buffer_id
 from .pipeline import (CHUNK_FRAMES, PCMRef, Qwen3TTS, Readback, TTSParams,
                        TTSResult)
 
@@ -104,10 +113,14 @@ class ContinuousBatcher:
         self.voc_max_batch = (48 if n_slots <= 96 else
                               32 if n_slots <= 128 else
                               16 if n_slots <= 192 else 8)
+        self._buffers = new_buffer_id()   # names this state in graph keys
+        self.state = self.consts = None
         self._reset_state()
 
     def _reset_state(self) -> None:
-        """(Re)build the device state: dummy prefill, every slot parked."""
+        """(Re)build the device state: dummy prefill, every slot parked.
+        After the first build, into the same buffers (and the same
+        generator, reseeded), which the captured graphs read and write."""
         cfg, n = self.cfg, self.n_slots
         dev = self.device
         with torch.inference_mode():
@@ -128,13 +141,90 @@ class ContinuousBatcher:
                 raise ValueError(f"prefill length {P} exceeds "
                                  f"RING_PREFILL_SLOTS {RING_PREFILL_SLOTS}")
             seed = self.params.seed if self.params.seed is not None else 0
+            gen = (torch.Generator(device=dev) if self.state is None
+                   else self.state.generator)
             self.state = init_state(
                 self.engine.talker_w, cfg, prefill, self.ctx,
-                torch.Generator(device=dev).manual_seed(seed),
+                gen.manual_seed(seed),
                 active=torch.zeros(n, dtype=torch.bool, device=dev),
-                kv_quant=kv_quant_enabled())
+                kv_quant=kv_quant_enabled(), into=self.state)
             self.consts = make_consts(prefill, self.params.temperature,
-                                      self.params.repetition_penalty)
+                                      self.params.repetition_penalty,
+                                      into=self.consts)
+
+    def warmup(self, token_buckets: tuple[int, ...] = (16,)) -> None:
+        """Build everything the serving loop can hit before traffic, so
+        that no request pays a first-use cost (the kernels' nvcc build
+        included): admission at each of `token_buckets` (text-token
+        counts round up to 16-multiples), through the trailing-buffer
+        growth of the live path; park; the generation chunk at every
+        read_ctx bucket the ring can reach; the vocoder at every decode
+        bucket, int16 PCM as ``_decode_slots`` calls it. On the card the
+        chunks and the decodes are captured as CUDA graphs
+        (runtime/graphs.py); admission and park stay eager. Then the
+        state is rebuilt pristine, in place."""
+        t0 = time.monotonic()
+        cfg, dev, K = self.cfg, self.device, self.n_slots
+        gen_buckets, voc_sizes = self.warmup_buckets()
+        with torch.inference_mode():
+            for tb in token_buckets:
+                tb = max(-(-tb // 16) * 16, 16)
+                pf = talker.build_prefill_inputs(
+                    self.engine.talker_w, cfg,
+                    torch.zeros(K, tb, dtype=torch.int32, device=dev),
+                    torch.full((K,), tb, dtype=torch.int32, device=dev),
+                    torch.zeros(K, cfg.hidden_size, device=dev),
+                    language_id=torch.full((K,), self.params.language_id,
+                                           dtype=torch.int32, device=dev))
+                self._ensure_trailing_capacity(pf.trailing_hidden.shape[1])
+                pf = pf._replace(trailing_hidden=self._pad_trailing(
+                    pf.trailing_hidden))
+                admit_slots(self.engine.talker_w, cfg, self.state,
+                            self.consts,
+                            torch.zeros(K, dtype=torch.long, device=dev), pf)
+            park_slot(self.state, 0)
+            for rc in gen_buckets:
+                self._gen_fn(rc)()
+            # largest first: the smaller buckets' graphs then reuse its
+            # blocks of the shared pool, which a larger one cannot
+            for nb in reversed(voc_sizes):
+                self.engine._decode_chunk_batch(
+                    np.zeros((nb, CHUNK_FRAMES, cfg.n_codebooks), np.int32),
+                    pcm16=True, max_batch=self.voc_max_batch)
+            # the warm chunks advanced the ring: rebuild a pristine state
+            self._reset_state()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self.warmup_s = time.monotonic() - t0
+        print(f"  Serving warmup: {len(gen_buckets)} gen bucket(s) + "
+              f"{len(voc_sizes)} vocoder bucket(s) built in "
+              f"{self.warmup_s:.1f} s", file=sys.stderr, flush=True)
+
+    def warmup_buckets(self) -> tuple[list[int], list[int]]:
+        """(read_ctx buckets the ring can reach, in the order the serving
+        loop meets them; vocoder decode-batch sizes), as the JAX
+        package's warmup walks them."""
+        buckets: list[int] = []
+        steps = 0
+        while True:
+            covered = RING_PREFILL_SLOTS + steps + CHUNK_FRAMES
+            rc = ctx_bucket(min(covered, self.ctx), 0, self.ctx)
+            if not buckets or rc != buckets[-1]:
+                buckets.append(rc)
+            if rc >= self.ctx:
+                break
+            steps += CHUNK_FRAMES
+        sizes = sorted({self.engine.voc_bucket(n, self.n_slots)
+                        for n in range(1, self.n_slots + 1)})
+        return buckets, sizes
+
+    def _gen_fn(self, read_ctx: int):
+        """The ring-mode generation chunk at one read_ctx bucket
+        (``Qwen3TTS._gen_fn``): returns (codes, valid) of the chunk."""
+        p = self.params
+        return self.engine._gen_fn(self.state, self.consts, self._buffers,
+                                   read_ctx, p.top_k, p.temperature <= 0.0,
+                                   p.top_p, ring=True)
 
     # ------------------------------------------------------------------
     def _ensure_trailing_capacity(self, n_rows: int) -> None:
@@ -255,15 +345,11 @@ class ContinuousBatcher:
         # on the host without reading the device
         covered = RING_PREFILL_SLOTS + self._steps_done + CHUNK_FRAMES
         read_ctx = ctx_bucket(min(covered, self.ctx), 0, self.ctx)
-        p = self.params
-        _, codes, valid = generate_chunk(
-            self.engine.talker_w, self.cfg, self.state, self.consts, p.top_k,
-            CHUNK_FRAMES, greedy=p.temperature <= 0.0, read_ctx=read_ctx,
-            top_p=p.top_p, ring=True)
+        codes, valid = self._gen_fn(read_ctx)()
         self._steps_done += CHUNK_FRAMES
         # start the host copies now, with `done` as of this chunk: the live
-        # state moves on (admissions, parks, the next chunk) before step()
-        # reads them
+        # state moves on (admissions, parks, the next chunk, which
+        # overwrites a graph's codes and valid) before step() reads them
         self._inflight = tuple(Readback(t) for t in
                                (codes, valid, self.state.done))
 
@@ -293,9 +379,9 @@ class ContinuousBatcher:
         return r
 
     def _fail_inflight(self, exc: Exception) -> dict[int, TTSResult]:
-        """Fail every in-flight request and rebuild the device state,
-        which cannot be trusted after a failure mid-step. Queued requests
-        stay queued and admit on the next step."""
+        """Fail every in-flight request and rebuild the device state in
+        place, which cannot be trusted after a failure mid-step. Queued
+        requests stay queued and admit on the next step."""
         traceback.print_exc(file=sys.stderr)
         msg = f"serving step failed: {type(exc).__name__}: {exc}"
         out: dict[int, TTSResult] = {}

@@ -189,6 +189,33 @@ def test_continuous_server_protocol(engine, tmp_path):
     assert all(os.path.exists(o) for o in outs)
 
 
+def test_continuous_server_warms_up_before_reading(engine, tmp_path,
+                                                  monkeypatch):
+    """The continuous server calls ContinuousBatcher.warmup() before it
+    reads its first line, as the JAX CLI does before "Server ready"."""
+    from qwen3_tts_tpu_torch.runtime import serve
+    events = []
+    real = serve.ContinuousBatcher.warmup
+
+    def warmup(self, *a, **kw):
+        events.append("warmup")
+        return real(self, *a, **kw)
+
+    class Lines(io.StringIO):
+        def __iter__(self):
+            events.append("read")
+            return super().__iter__()
+
+    monkeypatch.setattr(serve.ContinuousBatcher, "warmup", warmup)
+    out = str(tmp_path / "w.wav")
+    stdout = io.StringIO()
+    rc = cli.run_server_continuous(
+        engine, None, TTSParams(**PARAMS), n_slots=2, max_frames=8,
+        stdin=Lines(f"hello world.\t{out}\nquit\n"), stdout=stdout)
+    assert rc == 0 and events == ["warmup", "read"]
+    assert stdout.getvalue().startswith("OK\t")
+
+
 def test_continuous_server_stress_mixed(engine, tmp_path):
     """16 mixed requests over 4 slots, several turnovers, 2 with
     unwritable outputs: exactly one OK or ERR line per request."""

@@ -799,3 +799,203 @@ def test_stager_copies_in_chunks(dev):
     raw = np.random.default_rng(24).integers(0, 256, 5000).astype(np.uint8)
     out = HostStager(chunk=1024).to_device(raw, dev)
     assert out.device == dev and np.array_equal(out.cpu().numpy(), raw)
+
+
+# -- CUDA graphs (runtime/graphs.py): replay against eager --------------------
+GRAPH_TEXTS = ["hello world.", "he", "world hello.", "hello."]
+
+
+def _replays(eng) -> int:
+    return sum(g.replays for g in eng.graphs.graphs.values())
+
+
+def _graph_vs_eager(eng, monkeypatch, params, impl=None):
+    """synthesize_batch three times: the first captures the chunk and
+    vocoder graphs (its chunks run eagerly on the side stream), the
+    second replays them, the third runs with QWEN3_TTS_AOT=0. Returns
+    the three results."""
+    from qwen3_tts_tpu_torch.models import talker
+    talker.set_talker_step_impl(impl)
+    try:
+        monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+        first = eng.synthesize_batch(GRAPH_TEXTS, params=params)
+        before = _replays(eng)
+        graph = eng.synthesize_batch(GRAPH_TEXTS, params=params)
+        assert _replays(eng) > before, "the second call did not replay"
+        monkeypatch.setenv("QWEN3_TTS_AOT", "0")
+        eager = eng.synthesize_batch(GRAPH_TEXTS, params=params)
+    finally:
+        talker.set_talker_step_impl(None)
+    for runs in (first, graph, eager):
+        _check_results(runs, eng)
+    return first, graph, eager
+
+
+def _assert_same_audio(*runs):
+    for res in zip(*runs):
+        assert len({r.n_frames for r in res}) == 1
+        for r in res[1:]:
+            np.testing.assert_array_equal(r.audio, res[0].audio)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_graph_lockstep_greedy_bitwise(dev, monkeypatch, kv):
+    """QWEN3_TTS_TALKER=auto, greedy: the replayed chunk and vocoder
+    graphs give the eager codes and PCM bit for bit (two chunks)."""
+    monkeypatch.setenv("QWEN3_TTS_KV", kv)
+    _assert_same_audio(*_graph_vs_eager(
+        _engine(dev, 21), monkeypatch,
+        TTSParams(max_audio_tokens=48, temperature=0.0, seed=0)))
+
+
+def test_graph_lockstep_sampled_same_codes(dev, monkeypatch):
+    """Temperature 0.9, one seed: a replay draws the Gumbel noise the
+    eager run draws (the graph's generator takes the caller's state), so
+    codes and PCM are equal."""
+    _assert_same_audio(*_graph_vs_eager(
+        _engine(dev, 22), monkeypatch,
+        TTSParams(max_audio_tokens=48, temperature=0.9, seed=7)))
+
+
+def test_graph_lockstep_xla_and_top_p(dev, monkeypatch):
+    """QWEN3_TTS_TALKER=xla (decode attention and cuBLAS products in the
+    graph) and top_p 0.9 (the code predictor's XLA path): replay and eager
+    agree. cuBLAS may pick another algorithm under capture; a greedy code
+    could then flip only at a bf16 near-tie (ROADMAP.md's rule), and the
+    codes here show none."""
+    eng = _engine(dev, 23)
+    _assert_same_audio(*_graph_vs_eager(
+        eng, monkeypatch,
+        TTSParams(max_audio_tokens=40, temperature=0.0, seed=0), "xla"))
+    _assert_same_audio(*_graph_vs_eager(
+        eng, monkeypatch,
+        TTSParams(max_audio_tokens=40, temperature=0.9, top_p=0.9, seed=3)))
+
+
+def test_graph_replay_counts_launches(dev, monkeypatch):
+    """A replayed 40-frame chunk under auto launches the code-predictor
+    kernel and the talker megakernel once a frame, as the profiler sees
+    it, and the launch counts (wrappers and the C side's) add exactly
+    those launches."""
+    from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    eng = _engine(dev, 24)
+    params = TTSParams(max_audio_tokens=40, temperature=0.0, seed=0)
+    eng.synthesize_batch(GRAPH_TEXTS, params=params)           # capture
+    torch.cuda.synchronize()
+    before = (cf.predict_codes_fused.launches, kernels.codepred_launches(),
+              tf.talker_step_fused.launches, _replays(eng))
+    names = _profiled_kernels(
+        lambda: eng.synthesize_batch(GRAPH_TEXTS, params=params))
+    after = (cf.predict_codes_fused.launches, kernels.codepred_launches(),
+             tf.talker_step_fused.launches, _replays(eng))
+    assert after[3] > before[3]
+    assert [a - b for a, b in zip(after[:3], before[:3])] == [40, 40, 40]
+    assert sum("codepred_frame_kernel" in n for n in names) == 40
+    assert sum("talker_step_kernel" in n for n in names) == 40
+
+
+def test_graph_ring_chunk_bitwise(dev, monkeypatch):
+    """One ring-mode chunk (serving) from one state, three times: the
+    first call (frame 0 eager, then its graph captured and replayed),
+    all replays, and QWEN3_TTS_AOT=0: codes, valid frames and the state
+    after it bit for bit."""
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    eng = _engine(dev, 25)
+    cb = ContinuousBatcher(eng, n_slots=4,
+                           params=TTSParams(temperature=0.0, seed=0),
+                           max_frames=80)
+    for t in GRAPH_TEXTS:
+        cb.submit(t)
+    names = ("n_past", "frame_idx", "last_hidden", "logits", "seen_mask",
+             "done", "valid_mask", "write_slot", "ring_lo")
+    with torch.inference_mode():
+        cb._admit_pending()
+        st = cb.state
+
+        def snap():
+            out = {n: getattr(st, n).clone() for n in names}
+            out["kv"] = st.kv_cache.clone()
+            return out
+
+        def restore(saved):
+            for n in names:
+                getattr(st, n).copy_(saved[n])
+            st.kv_cache.copy_(saved["kv"])
+
+        saved = snap()
+        runs = []
+        for aot in ("1", "1", "0"):
+            monkeypatch.setenv("QWEN3_TTS_AOT", aot)
+            restore(saved)
+            before = _replays(eng)
+            codes, valid = cb._gen_fn(128)()
+            runs.append((codes.clone(), valid.clone(), snap(),
+                         _replays(eng) - before))
+        torch.cuda.synchronize()
+    assert [r[3] for r in runs] == [39, 40, 0]
+    for codes, valid, state, _ in runs[1:]:
+        assert torch.equal(codes, runs[0][0])
+        assert torch.equal(valid, runs[0][1])
+        for n, t in state.items():
+            assert torch.equal(t, runs[0][2][n]), n
+
+
+def test_graph_vocoder_bucket_bitwise(dev, monkeypatch):
+    """A vocoder decode bucket: the replayed graph (both vocoder kernels
+    inside it) gives the eager int16 PCM bit for bit."""
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    eng = _engine(dev, 26)
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 2048, (4, 40, 16)).astype(np.int32)
+    first = eng._decode_chunk_batch(codes, pcm16=True).clone()
+    other = rng.integers(0, 2048, (4, 40, 16)).astype(np.int32)
+    eng._decode_chunk_batch(other, pcm16=True)             # replay: other
+    got = eng._decode_chunk_batch(codes, pcm16=True).clone()
+    monkeypatch.setenv("QWEN3_TTS_AOT", "0")
+    want = eng._decode_chunk_batch(codes, pcm16=True)
+    assert _replays(eng) == 2
+    assert torch.equal(first, want) and torch.equal(got, want)
+
+
+def test_graph_warmed_serving_matches_eager(dev, monkeypatch):
+    """ContinuousBatcher.warmup() captures every bucket the serving loop
+    meets: 3 requests after it capture nothing new, replay, and give the
+    audio of an unwarmed batcher running eagerly, bit for bit."""
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    eng = _engine(dev, 27)
+    texts = ("hello world.", "he", "world hello world.")
+
+    def serve(cb):
+        rids = [cb.submit(t) for t in texts]
+        out = cb.run_all()
+        return [out[r] for r in rids]
+
+    params = TTSParams(temperature=0.0, seed=0)
+    cb = ContinuousBatcher(eng, n_slots=2, params=params, max_frames=48)
+    cb.warmup()
+    n_warm, replays = len(eng.graphs.graphs), _replays(eng)
+    assert n_warm > 0
+    got = serve(cb)
+    assert len(eng.graphs.graphs) == n_warm, "serving captured a new bucket"
+    assert _replays(eng) > replays
+    monkeypatch.setenv("QWEN3_TTS_AOT", "0")
+    want = serve(ContinuousBatcher(eng, n_slots=2, params=params,
+                                   max_frames=48))
+    _check_results(got, eng)
+    _assert_same_audio(got, want)
+
+
+def test_graph_capture_with_host_sync_raises(dev):
+    """A capture that meets a host sync raises (nothing falls back to the
+    eager path), and the card keeps working."""
+    from qwen3_tts_tpu_torch.runtime.graphs import GraphCache
+    x = torch.ones(4, device=dev)
+    fn = GraphCache().get_or_capture("sync", lambda: x * x.sum().item(), dev)
+    with pytest.raises(RuntimeError):
+        fn()
+    assert fn.graph is None
+    assert float((x + 1).sum()) == 8.0

@@ -56,8 +56,9 @@ def current():
 
     ctx = required_ctx(prefill.prefill_embd.shape[1], 8, 8)
     state = init_state(w, cfg, prefill, ctx, None)
-    out["prefill_logits"] = state.logits.numpy()
-    out["prefill_hidden"] = state.last_hidden.numpy()
+    # copies: generate_chunk updates the state's tensors in place
+    out["prefill_logits"] = state.logits.numpy().copy()
+    out["prefill_hidden"] = state.last_hidden.numpy().copy()
 
     consts = make_consts(prefill, 0.0, 1.05)
     state, codes, valid = generate_chunk(w, cfg, state, consts, 50, 8)

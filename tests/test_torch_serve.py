@@ -280,3 +280,69 @@ def test_scatter_mode_not_ported(engines, monkeypatch):
     monkeypatch.setenv("QWEN3_TTS_RING", "0")
     with pytest.raises(NotImplementedError, match="QWEN3_TTS_RING=0"):
         tserve.ContinuousBatcher(teng, n_slots=1, params=_params(tpipe))
+
+
+@pytest.mark.parametrize("n_slots,max_frames", [(1, 4), (2, 16), (8, 96),
+                                                (16, 1024), (192, 1024)])
+def test_warmup_buckets_match_jax(engines, n_slots, max_frames):
+    """The port warms the read_ctx buckets and vocoder decode sizes that
+    the JAX package's warmup walks (its ctx_bucket, RING_PREFILL_SLOTS
+    and voc_bucket) for the same slots and frame cap."""
+    from qwen3_tts_tpu.runtime import generate as jgen
+    jeng, teng = engines
+    ctx = jgen.required_ctx_ring(max_frames, 40)
+    want, steps = [], 0
+    while True:
+        rc = jgen.ctx_bucket(min(jgen.RING_PREFILL_SLOTS + steps + 40, ctx),
+                             0, ctx)
+        if not want or rc != want[-1]:
+            want.append(rc)
+        if rc >= ctx:
+            break
+        steps += 40
+    sizes = sorted({jeng.voc_bucket(n, n_slots)
+                    for n in range(1, n_slots + 1)})
+    cb = tserve.ContinuousBatcher.__new__(tserve.ContinuousBatcher)
+    cb.engine, cb.n_slots = teng, n_slots
+    cb.ctx = tserve.required_ctx_ring(max_frames, tpipe.CHUNK_FRAMES)
+    assert cb.ctx == ctx
+    assert cb.warmup_buckets() == (want, sizes)
+
+
+def test_warmup_then_serve(engines):
+    """warmup() builds every serving executable and leaves a pristine
+    state in the same buffers: requests served afterwards match the JAX
+    batcher's, request by request (tests/test_serve.py)."""
+    jeng, teng = engines
+    texts = ("hello world.", "hello.", "hello hello world.")
+    cb = tserve.ContinuousBatcher(teng, n_slots=2, params=_params(tpipe),
+                                  max_frames=8)
+    cache = cb.state.kv_cache
+    cb.warmup()
+    assert not cb.pending() and cb.state.kv_cache is cache
+    assert int(cb.state.write_slot) == tserve.RING_PREFILL_SLOTS
+    assert bool(cb.state.done.all()) and cb._steps_done == 0
+    rids = [cb.submit(t) for t in texts]
+    got = cb.run_all()
+    jcb = jserve.ContinuousBatcher(jeng, n_slots=2, params=_params(jpipe),
+                                   max_frames=8)
+    jrids = [jcb.submit(t) for t in texts]
+    want = jcb.run_all()
+    for r, jr in zip(rids, jrids):
+        g, w = got[r], want[jr]
+        assert g.success and w.success, (g.error_msg, w.error_msg)
+        assert g.n_frames == w.n_frames
+        np.testing.assert_allclose(g.audio, w.audio, atol=PCM_TOL)
+
+
+def test_warmup_long_token_bucket(engines):
+    """warmup() grows the trailing buffer exactly like the live admission
+    path (tests/test_serve.py): a long-text bucket warms without tripping
+    _pad_trailing's capacity check."""
+    _, teng = engines
+    cb = tserve.ContinuousBatcher(teng, n_slots=1, params=_params(tpipe),
+                                  max_frames=32, trailing_buf=16)
+    cb.warmup(token_buckets=(64,))
+    assert cb.trailing_buf >= 32  # grew (capped at max_frames)
+    r = cb.submit("hello.")
+    assert cb.run_all()[r].success
