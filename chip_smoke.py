@@ -52,7 +52,20 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    warmup); and the profile of a replayed 40-frame chunk (device ms per
    frame by kernel group, each vocoder kernel on its own, the card's busy
    share; one code-predictor and one talker launch a frame) beside an
-   eager one.
+   eager one;
+7. mesh (parallel/mesh.py): a world-size-1 NCCL process group in this
+   process and ``make_mesh(1, 1, "cuda")``; a second engine over the same
+   weights, ``shard``-ed, against the unsharded one: ``synthesize_batch``
+   (auto bf16, B 4, 80 frames, greedy and at T 0.9 with one seed) and the
+   8-slot ``ContinuousBatcher`` on phase 4's traffic after ``warmup()``,
+   audio bitwise equal and frames equal, the code predictor and the
+   talker megakernel launched under the mesh, ms a frame sharded and
+   unsharded (the cost of the per-chunk gather); ``dryrun_multichip(1,
+   "cuda")``; then tp = 2 as two processes sharing the card over gloo
+   (its CUDA tensors), full width, B 4, greedy, 40 frames, eager: codes
+   equal to the unsharded xla run's up to bf16 near-ties (the margin of
+   the reference's scores at each stream's first differing code), ms a
+   frame.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -66,11 +79,13 @@ one, in turns DIR, this, this, DIR.
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -2188,6 +2203,288 @@ def graphs_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
     return total
 
 
+MESH_B = 4                    # LOCKSTEP_TEXTS
+MESH_TOKENS = 80              # frames of the world-size-1 lock-step runs
+MESH_TP_FRAMES = 40           # frames of the tp = 2 run (one chunk)
+
+
+def smoke_tokenizer():
+    """The in-memory tokenizer of the main paths."""
+    from qwen3_tts_tpu_torch.config import TokenizerSpecialTokens
+    from qwen3_tts_tpu_torch.tokenizer import TextTokenizer
+    tokens = ["<|im_start|>", "<|im_end|>", "assistant", "Ċ", "h", "e", "l",
+              "o", "Ġ", "w", "r", "d", ".", "he", "ll", "hell", "hello",
+              "Ġw", "Ġwo"]
+    merges = ["h e", "l l", "he ll", "hell o", "Ġ w", "Ġw o"]
+    return TextTokenizer(tokens, merges, TokenizerSpecialTokens(
+        bos_token_id=0, eos_token_id=1, pad_token_id=1))
+
+
+def _record_frames(out: list, logits: bool):
+    """Record each generated frame as (codes [B, 16] with CB0 as sampled,
+    EOS included; and with `logits` the CB0 scores [B, codec_vocab] and
+    the code predictor's logits [15, B, V] that greedy took the argmax of)
+    by wrapping runtime/generate.py's sample_cb0 and
+    code_predictor.predict_codes, for eager runs. Returns the undo."""
+    from qwen3_tts_tpu_torch.models import code_predictor as cp
+    from qwen3_tts_tpu_torch.runtime import generate as G
+    orig_cb0, orig_pred = G.sample_cb0, cp.predict_codes
+    last = {}
+
+    def sample_cb0(raw, *args, **kw):
+        if logits:
+            kw["scores_out"] = last["scores"] = torch.empty_like(raw)
+        last["cb0"] = orig_cb0(raw, *args, **kw)
+        return last["cb0"]
+
+    def predict_codes(w, cfg, hidden, cb0, *args, **kw):
+        lg = None
+        if logits:
+            kw["logits_out"] = lg = torch.empty(
+                cfg.n_codebooks - 1, hidden.shape[0], cfg.code_pred_vocab_size,
+                device=hidden.device)
+        rest = orig_pred(w, cfg, hidden, cb0, *args, **kw)
+        out.append((torch.cat([last["cb0"][:, None], rest], 1),
+                    last.get("scores"), lg))
+        return rest
+
+    G.sample_cb0, cp.predict_codes = sample_cb0, predict_codes
+
+    def undo():
+        G.sample_cb0, cp.predict_codes = orig_cb0, orig_pred
+    return undo
+
+
+def _near_tie_gaps(got, ref, ref_frames, n_frames):
+    """Per stream whose codes differ within its frames (up to its EOS
+    frame): the reference's score margin between its own code and the
+    other run's at the first differing frame and position, where every
+    earlier code agreed (``_divergence_gaps`` at the frame level)."""
+    gaps = []
+    for b in range(got.shape[1]):
+        upto = min(n_frames[b] + 1, got.shape[0])
+        diff = torch.nonzero(got[:upto, b] != ref[:upto, b])
+        if not len(diff):
+            continue
+        f, p = (int(x) for x in diff[0])
+        _, scores, cp_logits = ref_frames[f]
+        lg = scores[b] if p == 0 else cp_logits[p - 1, b]
+        r, g = int(ref[f, b, p]), int(got[f, b, p])
+        gaps.append((b, f, p, float(lg[r] - lg[g])))
+    return gaps
+
+
+def _mesh_tp_child(rank: int, store: str, out: str) -> None:
+    """One of two ranks sharing card 0, tp = 2 over gloo: the main path's
+    full-width weights (the same draws from SEED), sharded; one greedy
+    synthesize_batch of the lock-step texts, MESH_TP_FRAMES frames,
+    eager. Rank 0 saves the frames' codes, the results, ms a frame and
+    the kernel launches."""
+    import torch.distributed as dist
+    from qwen3_tts_tpu_torch.config import TalkerConfig, VocoderConfig
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.parallel import make_mesh
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        cfg, vcfg = TalkerConfig(), VocoderConfig()
+        talker_w = W.init_talker_weights(cfg, gen, dev)
+        voc_w = W.init_vocoder_weights(vcfg, gen, dev)
+        engine = Qwen3TTS.from_components(
+            smoke_tokenizer(), cfg, talker_w, vcfg, voc_w,
+            dev).shard(make_mesh(1, 2, "cuda"))
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        frames = []
+        undo = _record_frames(frames, logits=False)
+        try:
+            res = engine.synthesize_batch(LOCKSTEP_TEXTS, params=TTSParams(
+                max_audio_tokens=MESH_TP_FRAMES, temperature=0.0, seed=SEED,
+                print_timing=False))
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        if rank == 0:
+            torch.save(dict(
+                codes=torch.stack([f[0] for f in frames]).cpu(),
+                n_frames=[r.n_frames for r in res],
+                audio=[r.audio for r in res],
+                ok=[r.success and bool(np.isfinite(r.audio).all())
+                    for r in res],
+                ms=res[0].t_generate_ms / len(frames),
+                launches={k: fn.launches for k, fn in counters.items()}),
+                out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _counters() -> dict:
+    from qwen3_tts_tpu_torch.ops import codepred_fused as cf
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
+    return {"codepred": cf.predict_codes_fused,
+            "res_chain": vf.fused_residual_chain,
+            "snake_convt": vf.fused_snake_convt,
+            "flash_decode": fd.flash_decode,
+            "talker_fused": tf.talker_step_fused}
+
+
+def _same(a, b) -> bool:
+    return all(x.n_frames == y.n_frames and np.array_equal(x.audio, y.audio)
+               for x, y in zip(a, b))
+
+
+def mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
+               dev) -> dict:
+    """parallel/mesh.py on the card (module docstring, item 7). Returns
+    the kernel launches of the sharded runs (the tp = 2 ranks' counted
+    once, rank 0's)."""
+    import torch.distributed as dist
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.parallel import dryrun_multichip, make_mesh
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    os.environ["QWEN3_TTS_KV"] = "bf16"
+    total = dict.fromkeys(counters, 0)
+    tmp = tempfile.mkdtemp()
+    t_phase = time.monotonic()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        sharded = Qwen3TTS.from_components(tok, cfg, talker_w, vcfg, voc_w,
+                                           dev).shard(make_mesh(1, 1, "cuda"))
+        for temperature in (0.0, 0.9):
+            runs = {"unsharded": [], "sharded": []}
+            # the first run of each engine captures its graphs
+            for name in ("unsharded", "sharded", "sharded", "unsharded",
+                         "unsharded", "sharded"):
+                eng = sharded if name == "sharded" else engine
+                for fn in counters.values():
+                    fn.launches = 0
+                res = eng.synthesize_batch(
+                    LOCKSTEP_TEXTS, params=TTSParams(
+                        max_audio_tokens=MESH_TOKENS, temperature=temperature,
+                        seed=SEED, print_timing=False),
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+                torch.cuda.synchronize()
+                ran = {k: fn.launches for k, fn in counters.items()}
+                _check_results(res, eng)
+                _expect_launches(ran, "auto", f"mesh synthesize_batch {name}")
+                if name == "sharded":
+                    total = {k: total[k] + ran[k] for k in counters}
+                runs[name].append((res, res[0].t_generate_ms
+                                   / ran["talker_fused"]))
+            same = all(_same(r, runs["unsharded"][0][0])
+                       for r, _ in runs["unsharded"] + runs["sharded"])
+            ms = {k: [round(m, 3) for _, m in v[1:]] for k, v in runs.items()}
+            log(f"mesh: synthesize_batch world size 1 (NCCL, mesh 1x1) "
+                f"auto bf16 B={MESH_B} temperature={temperature}: frames "
+                f"{[r.n_frames for r in runs['sharded'][0][0]]}, sharded "
+                f"audio {'bitwise equal' if same else 'DIFFERENT'} to the "
+                f"unsharded engine's; generate ms per lock-step frame "
+                f"(warm runs) sharded {ms['sharded']}, unsharded "
+                f"{ms['unsharded']} on {card}")
+            if not same:
+                raise AssertionError(f"sharded synthesize_batch differs at "
+                                     f"temperature {temperature}")
+        served = {}
+        for name, eng in (("unsharded", engine), ("sharded", sharded)):
+            cb = ContinuousBatcher(eng, n_slots=SERVE_SLOTS,
+                                   params=TTSParams(temperature=0.0,
+                                                    seed=SEED),
+                                   max_frames=SERVE_MAX_FRAMES)
+            cb.warmup()
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.monotonic()
+            res, n_steps = _serve_traffic(cb)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            ran = {k: fn.launches for k, fn in counters.items()}
+            _check_results(res, eng)
+            _expect_launches(ran, "auto", f"mesh serving {name}")
+            if name == "sharded":
+                total = {k: total[k] + ran[k] for k in counters}
+            served[name] = (res, wall * 1e3 / ran["talker_fused"])
+        same = _same(served["sharded"][0], served["unsharded"][0])
+        log(f"mesh: ContinuousBatcher {SERVE_SLOTS} slots after warmup(), "
+            f"{len(served['sharded'][0])} requests: sharded (mesh 1x1) "
+            f"{'bitwise equal' if same else 'DIFFERENT'} to unsharded; ms "
+            f"of wall per {SERVE_SLOTS}-slot frame sharded "
+            f"{served['sharded'][1]:.3f}, unsharded "
+            f"{served['unsharded'][1]:.3f} on {card}")
+        if not same:
+            raise AssertionError("the sharded batcher differs")
+        if min(total["codepred"], total["talker_fused"]) <= 0:
+            raise AssertionError(f"mesh runs launched {total}")
+        del sharded
+        t0 = time.monotonic()
+        dryrun_multichip(1, "cuda")
+        log(f"mesh: dryrun_multichip(1, 'cuda') in "
+            f"{time.monotonic() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+    # tp = 2: two ranks on this card over gloo, against the unsharded xla
+    # run here, recorded with the scores its greedy argmax read
+    t0 = time.monotonic()
+    out = os.path.join(tmp, "tp.pt")
+    torch.multiprocessing.spawn(_mesh_tp_child,
+                                args=(os.path.join(tmp, "gloo"), out),
+                                nprocs=2, join=True)
+    tp = torch.load(out, weights_only=False)
+    t_tp = time.monotonic() - t0
+    ref_frames = []
+    os.environ["QWEN3_TTS_AOT"] = "0"
+    talker.set_talker_step_impl("xla")
+    undo = _record_frames(ref_frames, logits=True)
+    try:
+        ref = engine.synthesize_batch(LOCKSTEP_TEXTS, params=TTSParams(
+            max_audio_tokens=MESH_TP_FRAMES, temperature=0.0, seed=SEED,
+            print_timing=False))
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        talker.set_talker_step_impl(None)
+        os.environ.pop("QWEN3_TTS_AOT", None)
+    ref_codes = torch.stack([f[0] for f in ref_frames]).cpu()
+    ref_frames = [(c, s.cpu(), lg.cpu()) for c, s, lg in ref_frames]
+    n_ref = [r.n_frames for r in ref]
+    gaps = _near_tie_gaps(tp["codes"], ref_codes, ref_frames,
+                          [max(a, b) for a, b in zip(n_ref, tp["n_frames"])])
+    same = not gaps and _same(
+        [type(r)(audio=a, n_frames=n) for r, a, n in
+         zip(ref, tp["audio"], tp["n_frames"])], ref)
+    agree = float((tp["codes"] == ref_codes).float().mean())
+    log(f"mesh: tp=2 (two ranks sharing the card over gloo, eager) "
+        f"synthesize_batch full width B={MESH_B} greedy {MESH_TP_FRAMES} "
+        f"frames: {tp['ms']:.2f} ms per lock-step frame (xla unsharded "
+        f"{ref[0].t_generate_ms / MESH_TP_FRAMES:.2f}, eager), frames "
+        f"{tp['n_frames']} (unsharded xla {n_ref}), code agreement "
+        f"{agree:.4f}, "
+        + ("codes and audio bitwise equal" if same else
+           f"first divergences (stream, frame, codebook, reference margin) "
+           f"{[(b, f, p, round(g, 4)) for b, f, p, g in gaps]} (need each "
+           f"<= {LOGIT_TOL})")
+        + f"; launches {tp['launches']}; {t_tp:.1f} s with the ranks' "
+        f"start on {card}")
+    if not all(tp["ok"]) or any(g > LOGIT_TOL for *_, g in gaps):
+        raise AssertionError("tp = 2 codes disagree beyond bf16 near-ties")
+    total = {k: total[k] + tp["launches"][k] for k in counters}
+    log(f"mesh: phase took {time.monotonic() - t_phase:.1f} s")
+    return total
+
+
 COMPARE_CHILD = r"""
 import importlib.util, json, sys
 import torch
@@ -2299,16 +2596,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from qwen3_tts_tpu_torch import kernels
-    from qwen3_tts_tpu_torch.config import (TalkerConfig,
-                                            TokenizerSpecialTokens,
-                                            VocoderConfig)
+    from qwen3_tts_tpu_torch.config import TalkerConfig, VocoderConfig
     from qwen3_tts_tpu_torch.models import weights as W
-    from qwen3_tts_tpu_torch.ops import codepred_fused as cf
-    from qwen3_tts_tpu_torch.ops import flash_decode as fd
-    from qwen3_tts_tpu_torch.ops import talker_fused as tf
-    from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
     from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS
-    from qwen3_tts_tpu_torch.tokenizer import TextTokenizer
 
     # the twins hold f32 products of bf16 values: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2351,18 +2641,9 @@ def main() -> int:
         raise SystemExit(f"kernel checks failed: {failed}")
 
     # the main paths through the user's entry points, at the full widths
-    tokens = ["<|im_start|>", "<|im_end|>", "assistant", "Ċ", "h", "e", "l",
-              "o", "Ġ", "w", "r", "d", ".", "he", "ll", "hell", "hello",
-              "Ġw", "Ġwo"]
-    merges = ["h e", "l l", "he ll", "hell o", "Ġ w", "Ġw o"]
-    tok = TextTokenizer(tokens, merges, TokenizerSpecialTokens(
-        bos_token_id=0, eos_token_id=1, pad_token_id=1))
+    tok = smoke_tokenizer()
     engine = Qwen3TTS.from_components(tok, cfg, talker_w, vcfg, voc_w, dev)
-    counters = {"codepred": cf.predict_codes_fused,
-                "res_chain": vf.fused_residual_chain,
-                "snake_convt": vf.fused_snake_convt,
-                "flash_decode": fd.flash_decode,
-                "talker_fused": tf.talker_step_fused}
+    counters = _counters()
     lockstep = dict.fromkeys(counters, 0)
     for impl, kv, temperature, top_p in LOCKSTEP_RUNS:
         ran = lockstep_run(engine, impl, kv, temperature, top_p, card,
@@ -2378,14 +2659,19 @@ def main() -> int:
                            counters, dev)
     graphed = graphs_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                            counters, dev)
+    meshed = mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
+                        counters, dev)
     for entry in report:
-        a, b, c, d = (lockstep[entry["name"]], serving[entry["name"]],
-                      clone[entry["name"]], graphed[entry["name"]])
-        entry.update(launches=a + b + c + d, launches_lockstep=a,
+        a, b, c, d, e = (lockstep[entry["name"]], serving[entry["name"]],
+                         clone[entry["name"]], graphed[entry["name"]],
+                         meshed[entry["name"]])
+        entry.update(launches=a + b + c + d + e, launches_lockstep=a,
                      launches_serving=b, launches_clone=c,
-                     launches_graphs=d)
+                     launches_graphs=d, launches_mesh=e)
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on a main path")
+        if entry["launches_mesh"] <= 0:
+            raise AssertionError(f"{entry['name']} never ran on the mesh")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

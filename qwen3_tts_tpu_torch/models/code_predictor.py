@@ -15,6 +15,10 @@ semantics:
   ``supported`` holds and top_p >= 1, else ``xla``; on the CPU always
   ``xla``.
 ``fused_interpret`` raises (models/impl_switch.py).
+
+On a tp-split tree (parallel/mesh.py, tp > 1) ``auto`` takes ``xla``, on
+this rank's heads, with each head's logits gathered over tp before
+sampling; ``fused`` raises there. A dp-only mesh keeps the kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..config import TalkerConfig
 from ..ops import codepred_fused
 from ..ops.layers import dot, rms_norm
 from ..ops.sampling import sample_codes
+from ..parallel.mesh import tp_gather, tp_size
 from .impl_switch import ImplSwitch
 from .stack import stack_prefill, stack_step, write_prefill_to_cache
 
@@ -58,7 +63,13 @@ def predict_codes(w, cfg: TalkerConfig, hidden: torch.Tensor,
     [15, B, V] f32 that receives each codebook's logits. Returns [B, 15]
     int32."""
     impl = _resolve_impl()
-    if impl != "xla":
+    cp = w["code_pred"]
+    split = tp_size(cp["layers"])
+    if impl == "fused" and split > 1:
+        raise ValueError(
+            "QWEN3_TTS_CODEPRED=fused on a tp-split code predictor (tp > 1):"
+            " the kernel cannot all-reduce between layers; use auto or xla")
+    if impl != "xla" and split == 1:
         ok = (codepred_fused.supported(cfg, hidden.shape[0], w)
               and top_p >= 1.0)
         if impl == "fused" and not ok:
@@ -71,7 +82,6 @@ def predict_codes(w, cfg: TalkerConfig, hidden: torch.Tensor,
                 w, cfg, hidden, cb0, temperature, top_k, generator,
                 greedy=greedy, gumbel=gumbel, logits_out=logits_out)
 
-    cp = w["code_pred"]
     n_steps = cfg.n_codebooks - 1
     B, dev = hidden.shape[0], hidden.device
     x0 = hidden.float()
@@ -82,14 +92,16 @@ def predict_codes(w, cfg: TalkerConfig, hidden: torch.Tensor,
               n_kv=cfg.code_pred_n_kv_heads, head_dim=cfg.code_pred_head_dim,
               eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
     y, ks, vs = stack_prefill(cp["layers"], xs, positions, **kw)
-    kv_cache = torch.zeros(cfg.code_pred_layers, 2, B, cfg.code_pred_n_kv_heads,
+    kv_cache = torch.zeros(cfg.code_pred_layers, 2, B,
+                           cfg.code_pred_n_kv_heads // split,
                            n_steps + 1, cfg.code_pred_head_dim,
                            dtype=torch.bfloat16, device=dev)
     write_prefill_to_cache(kv_cache, ks, vs, 0)
 
     def head(y, s):
-        logits = dot(rms_norm(y, cp["output_norm"], cfg.rms_norm_eps),
-                     cp["heads"][s])
+        logits = tp_gather(dot(rms_norm(y, cp["output_norm"],
+                                        cfg.rms_norm_eps), cp["heads"][s]),
+                           cp)
         if logits_out is not None:
             logits_out[s] = logits
         return sample_codes(logits, temperature, top_k, generator,

@@ -4,6 +4,13 @@
 Layer recipe: x -> RMSNorm -> fused QKV -> per-head q/k RMSNorm -> NEOX
 RoPE -> causal GQA -> wo -> +residual -> RMSNorm -> SwiGLU -> +residual.
 
+Both weight layouts run, as in the JAX package: fused (``wqkv``,
+``w_gu``) and unfused (``wq``/``wk``/``wv``, ``w_gate``/``w_up``, what
+parallel/mesh.py makes at tp > 1). A tp-split stack holds this rank's
+heads and FFN columns; the head counts follow from its weights, and the
+f32 partials after wo and w_down are summed over tp (``mesh.tp_sum``,
+which does nothing on an unsplit stack).
+
 KV cache: one stacked kv-heads-major tensor [L, 2, B, n_kv, S, D] in bf16,
 or ``QuantKV`` (int8 values + f32 per-row scales). The cache is updated in
 place: the torch counterpart of JAX's donated buffers.
@@ -17,6 +24,7 @@ import torch
 
 from ..ops.attention import decode_attention, decode_attention_masked
 from ..ops.layers import dot, gqa_attention_prefill, rms_norm, rope_neox
+from ..parallel.mesh import tp_sum
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -49,28 +57,45 @@ def init_kv_cache(n_layers: int, batch: int, max_ctx: int, n_kv: int,
     return torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
 
 
+def n_layers(layers_w: dict) -> int:
+    return layers_w["attn_norm"].shape[0]
+
+
 def layer_weights(layers_w: dict, l: int) -> dict:
-    return {name: a[l] for name, a in layers_w.items()}
+    """Layer l's tensors (a tp split's group record is not one)."""
+    return {name: a[l] for name, a in layers_w.items()
+            if isinstance(a, torch.Tensor)}
 
 
 def _qkv(wl, x_norm: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
          eps: float, theta: float, positions: torch.Tensor):
-    """Fused QKV projection + per-head norm + RoPE. x_norm: [B, T, H] f32."""
+    """QKV projection (fused or unfused) + per-head norm + RoPE. x_norm:
+    [B, T, H] f32. An unfused stack may hold a tp split's heads only:
+    their counts follow from its weights."""
     B, T = x_norm.shape[:2]
-    nq, nk = n_heads * head_dim, n_kv * head_dim
-    qkv = dot(x_norm, wl["wqkv"])
-    q = qkv[..., :nq].reshape(B, T, n_heads, head_dim)
-    k = qkv[..., nq:nq + nk].reshape(B, T, n_kv, head_dim)
-    v = qkv[..., nq + nk:].reshape(B, T, n_kv, head_dim)
+    if "wqkv" in wl:
+        nq, nk = n_heads * head_dim, n_kv * head_dim
+        qkv = dot(x_norm, wl["wqkv"])
+        q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
+    else:
+        q, k, v = (dot(x_norm, wl[n]) for n in ("wq", "wk", "wv"))
+    q = q.reshape(B, T, -1, head_dim)
+    k = k.reshape(B, T, -1, head_dim)
+    v = v.reshape(B, T, -1, head_dim)
     q = rope_neox(rms_norm(q, wl["q_norm"], eps), positions, theta)
     k = rope_neox(rms_norm(k, wl["k_norm"], eps), positions, theta)
     return q, k, v
 
 
-def _ffn(wl, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """SwiGLU over the fused [gate | up] weight."""
-    gate, up = dot(rms_norm(x, wl["ffn_norm"], eps), wl["w_gu"]).chunk(2, -1)
-    return dot(torch.nn.functional.silu(gate) * up, wl["w_down"])
+def _ffn(layers_w, wl, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """SwiGLU over [gate | up] (fused or unfused), summed over tp."""
+    h = rms_norm(x, wl["ffn_norm"], eps)
+    if "w_gu" in wl:
+        gate, up = dot(h, wl["w_gu"]).chunk(2, -1)
+    else:
+        gate, up = dot(h, wl["w_gate"]), dot(h, wl["w_up"])
+    return tp_sum(dot(torch.nn.functional.silu(gate) * up, wl["w_down"]),
+                  layers_w)
 
 
 def stack_prefill(layers_w, x: torch.Tensor, positions: torch.Tensor, *,
@@ -81,14 +106,14 @@ def stack_prefill(layers_w, x: torch.Tensor, positions: torch.Tensor, *,
     bf16)."""
     x = x.float()
     ks, vs = [], []
-    for l in range(layers_w["wqkv"].shape[0]):
+    for l in range(n_layers(layers_w)):
         wl = layer_weights(layers_w, l)
         h = rms_norm(x, wl["attn_norm"], eps)
         q, k, v = _qkv(wl, h, n_heads, n_kv, head_dim, eps, theta, positions)
         k, v = k.to(CACHE_DTYPE), v.to(CACHE_DTYPE)
         attn = gqa_attention_prefill(q.to(CACHE_DTYPE), k, v)
-        x = x + dot(attn, wl["wo"])
-        x = x + _ffn(wl, x, eps)
+        x = x + tp_sum(dot(attn, wl["wo"]), layers_w)
+        x = x + _ffn(layers_w, wl, x, eps)
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
@@ -148,15 +173,15 @@ def decode_layers(layers_w, x: torch.Tensor, positions: torch.Tensor,
            if isinstance(write_idx, torch.Tensor) else
            torch.full((1,), write_idx, dtype=torch.long, device=x.device))
     x = x.float()
-    for l in range(layers_w["wqkv"].shape[0]):
+    for l in range(n_layers(layers_w)):
         wl = layer_weights(layers_w, l)
         h = rms_norm(x, wl["attn_norm"], eps)[:, None, :]
         q, k, v = _qkv(wl, h, n_heads, n_kv, head_dim, eps, theta,
                        positions[:, None])
         write_kv_rows(kv_cache, l, idx, k[:, 0], v[:, 0])
         attn = attend(q[:, 0].to(CACHE_DTYPE), *layer_kv(kv_cache, l))
-        x = x + dot(attn, wl["wo"])
-        x = x + _ffn(wl, x, eps)
+        x = x + tp_sum(dot(attn, wl["wo"]), layers_w)
+        x = x + _ffn(layers_w, wl, x, eps)
     return x, kv_cache
 
 

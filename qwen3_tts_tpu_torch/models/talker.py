@@ -11,6 +11,11 @@ The decode step has two implementations, chosen per call by
 - ``auto`` (the default): ``fused`` on a CUDA tensor whenever
   ``supported`` holds, in lock-step and ring mode alike, else ``xla``;
   on the CPU always ``xla``.
+On a tp-split tree (parallel/mesh.py, tp > 1) ``auto`` takes ``xla`` and
+``fused`` raises: a persistent megakernel cannot all-reduce between
+layers inside its one launch. A dp-only mesh keeps the megakernel, on
+each rank's rows. The codec_head logits of a tp split are gathered over
+tp (``mesh.tp_gather``).
 The JAX package's ``fused_interpret`` (Pallas interpret mode) has no
 counterpart: ``fused`` on CPU tensors runs the twin (models/impl_switch.py).
 
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from ..config import TalkerConfig
 from ..ops import talker_fused
 from ..ops.layers import dot, rms_norm
+from ..parallel.mesh import tp_gather, tp_size
 from .impl_switch import ImplSwitch
 from .stack import stack_prefill, stack_step, write_prefill_to_cache
 
@@ -119,8 +125,10 @@ def build_prefill_inputs(w, cfg: TalkerConfig, tokens: torch.Tensor,
 
 
 def _head(w, cfg: TalkerConfig, y: torch.Tensor):
+    """(h = RMSNorm(y) [B, H] f32, codec logits [B, codec_vocab] f32),
+    the logits gathered over tp on a tp-split tree."""
     h = rms_norm(y, w["output_norm"], cfg.rms_norm_eps)
-    return h, dot(h, w["codec_head"])
+    return h, tp_gather(dot(h, w["codec_head"]), w)
 
 
 def talker_prefill(w, cfg: TalkerConfig, prefill_embd: torch.Tensor, kv_cache):
@@ -160,7 +168,12 @@ def talker_step(w, cfg: TalkerConfig, step_embd: torch.Tensor, kv_cache,
     kw = dict(n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
               head_dim=cfg.head_dim, eps=cfg.rms_norm_eps,
               theta=cfg.rope_theta, read_ctx=read_ctx, valid_mask=valid_mask)
-    fused = impl == "fused" or (impl == "auto" and step_embd.is_cuda)
+    if impl == "fused" and tp_size(w["layers"]) > 1:
+        raise ValueError(
+            "QWEN3_TTS_TALKER=fused on a tp-split talker (tp > 1): the "
+            "megakernel cannot all-reduce between layers; use auto or xla")
+    fused = impl == "fused" or (impl == "auto" and step_embd.is_cuda
+                                and tp_size(w["layers"]) == 1)
     if fused and not talker_fused.supported(cfg, B, w, kv_cache, write_idx,
                                             valid_mask, read_ctx):
         if impl == "fused":

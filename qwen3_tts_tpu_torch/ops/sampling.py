@@ -70,7 +70,8 @@ def sample_cb0(logits: torch.Tensor, seen_mask: torch.Tensor,
                repetition_penalty: float, temperature: float, top_k: int,
                generator: torch.Generator | None = None, *, eos_id: int,
                suppress_start: int, greedy: bool = False, top_p: float = 1.0,
-               gumbel: torch.Tensor | None = None) -> torch.Tensor:
+               gumbel: torch.Tensor | None = None,
+               scores_out: torch.Tensor | None = None) -> torch.Tensor:
     """First-codebook sampling in the reference's order:
 
       1. suppress ids in [suppress_start, V) except EOS
@@ -83,7 +84,8 @@ def sample_cb0(logits: torch.Tensor, seen_mask: torch.Tensor,
     With top_k <= 0 and top_p < 1 the nucleus sees top_k + 1 = 1 entry, so
     only the argmax and EOS survive: the JAX package does the same.
     logits: [B, V] f32; seen_mask: [B, V] bool; frame_idx, expected_frames:
-    [B] int32. Returns [B] int32."""
+    [B] int32. scores_out: optional [B, V] f32 that receives the logits
+    after steps 1-3, which greedy takes the argmax of. Returns [B] int32."""
     vocab = logits.shape[-1]
     ids = torch.arange(vocab, device=logits.device)
     suppress = (ids >= suppress_start) & (ids != eos_id)
@@ -101,6 +103,8 @@ def sample_cb0(logits: torch.Tensor, seen_mask: torch.Tensor,
     boosted = eos_lg + torch.where(active, ramp, 0.0) * (target - eos_lg)
     logits = logits.clone()
     logits[:, eos_id] = boosted
+    if scores_out is not None:
+        scores_out.copy_(logits)
 
     g = torch.argmax(logits, dim=-1).to(torch.int32)
     if greedy or temperature <= 0.0:

@@ -8,6 +8,13 @@ happens per frame: in lock-step mode it is max(n_past); in ring mode it
 is ``GenState.write_slot``, which walks the ring past the prefill region
 and wraps back to its start.
 
+On a mesh (parallel/mesh.py) a state holds one rank's rows, and the
+lock-step slot is the max over those rows only, with no collective: every
+live stream of a lock-step batch sits at the same position (one prefill
+length, one frame a step), so the local max is the global one wherever a
+stream is live, and a rank whose streams are all done writes only rows
+that no live stream reads (each stream attends its own cache row).
+
 Every ``GenState`` tensor is updated in place, never rebound: by
 ``generate_chunk`` (the torch counterpart of JAX's
 ``donate_argnames=("state",)``), ``admit_slots``, ``park_slot`` and
@@ -30,8 +37,8 @@ from ..config import TalkerConfig
 from ..models import code_predictor, talker
 from ..models.stack import (QuantKV, init_kv_cache, quantize_kv_rows,
                             stack_prefill)
-from ..ops.layers import dot, rms_norm
 from ..ops.sampling import sample_cb0
+from ..parallel.mesh import tp_size
 
 # Ring-slot cache: rows [0, RING_PREFILL_SLOTS) of each stream are its
 # prefill region (admissions write there); rows beyond are the shared ring
@@ -83,13 +90,15 @@ def init_state(w, cfg: TalkerConfig, prefill: talker.PrefillInputs,
     active: [B] bool streams that hold a request (partly filled serving
     batches); the others start done. into: a state of the same shapes
     whose buffers are cleared and refilled in place (and returned), the
-    generator included; None allocates a new one."""
+    generator included; None allocates a new one. A tp-split `w` holds
+    n_kv / tp KV heads, and so does its cache."""
     B, P, _ = prefill.prefill_embd.shape
     dev = prefill.prefill_embd.device
     if into is None:
         into = GenState(
             kv_cache=init_kv_cache(cfg.n_layers, B, max_ctx,
-                                   cfg.n_key_value_heads, cfg.head_dim,
+                                   cfg.n_key_value_heads
+                                   // tp_size(w["layers"]), cfg.head_dim,
                                    quant=kv_quant, device=dev),
             n_past=torch.empty(B, dtype=torch.int32, device=dev),
             frame_idx=torch.empty(B, dtype=torch.int32, device=dev),
@@ -216,6 +225,7 @@ def generate_frame(w, cfg: TalkerConfig, state: GenState,
             slot + 1 >= state.valid_mask.shape[1],
             torch.full_like(slot, RING_PREFILL_SLOTS), slot + 1))
     else:
+        # this state's rows only, on a mesh too (module docstring)
         hidden, logits, _ = talker.talker_step(
             w, cfg, step_embd, state.kv_cache, state.n_past,
             state.n_past.max(), read_ctx=read_ctx)
@@ -289,8 +299,7 @@ def admit_slots(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
         w["layers"], prefill.prefill_embd, positions,
         n_heads=cfg.n_attention_heads, n_kv=cfg.n_key_value_heads,
         head_dim=cfg.head_dim, eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
-    h = rms_norm(y[:, -1], w["output_norm"], cfg.rms_norm_eps)
-    logits = dot(h, w["codec_head"])
+    h, logits = talker._head(w, cfg, y[:, -1])
 
     # Duplicate indices make index_put_ order unspecified (on the card as
     # under XLA), so every entry carries its slot's LAST payload: colliding

@@ -29,6 +29,10 @@ What a graph keeps from its capture:
   holds the kernels' cached scratch tensors it saw, so that a later
   reallocation cannot free memory it writes;
 - Python scalars (temperature, top_k, read_ctx): keys name them all;
+- the mesh: on a sharded engine (parallel/mesh.py) the keys end with the
+  JAX package's mesh tag and the rank, ``-m{dp}x{tp}-rk{rank}``; only a
+  dp-only NCCL mesh captures generation graphs (no collective sits in a
+  frame), at tp > 1 and over gloo the frame runs eagerly;
 - random draws: ``generator``, when given, is registered with the graph,
   so a replay draws from the generator's state at the time of the replay
   and advances it as the eager calls do (the process's default CUDA
@@ -83,31 +87,43 @@ def _fmt(x) -> str:
     return str(int(x)) if isinstance(x, bool) else str(x)
 
 
+def _mesh_tag(mesh: tuple | None) -> str:
+    """``-m{dp}x{tp}`` (the JAX package's mesh tag) and ``-rk{rank}`` of
+    a (dp, tp, rank) mesh position; nothing without a mesh."""
+    if mesh is None:
+        return ""
+    dp, tp, rank = mesh
+    return f"-m{dp}x{tp}-rk{rank}"
+
+
 def gen_key(*, model_tag: str, buffers: int, B: int, ctx: int,
             kv_quant: bool, talker_impl: str, codepred_impl: str,
             read_ctx: int, top_k: int, greedy: bool, ring: bool,
             trailing: int, top_p: float, temperature: float,
-            repetition_penalty: float, device) -> str:
+            repetition_penalty: float, device,
+            mesh: tuple | None = None) -> str:
     """Name of one generation graph: the JAX package's ``_key_base``
-    (model tag, slots, ctx, KV quantisation, impl switches) and
-    ``_gen_fn`` name (read_ctx, top_k, greedy, ring, trailing buffer,
+    (model tag, slots, ctx, KV quantisation, mesh shape, impl switches)
+    and ``_gen_fn`` name (read_ctx, top_k, greedy, ring, trailing buffer,
     top_p), plus what the port bakes in besides: B, the device, the
-    sampling scalars and the buffers' owner."""
+    sampling scalars, the buffers' owner and, on a mesh ((dp, tp, rank)),
+    the rank."""
     parts = dict(b=B, c=ctx, q=kv_quant, tk=talker_impl, cp=codepred_impl,
                  rc=read_ctx, k=top_k, g=greedy, r=ring, t=trailing,
                  p=float(top_p), T=float(temperature),
                  rp=float(repetition_penalty), s=buffers,
                  d=torch.device(device))
-    return f"gen-{model_tag}-" + "-".join(f"{k}{_fmt(v)}"
-                                          for k, v in parts.items())
+    return (f"gen-{model_tag}-" + "-".join(f"{k}{_fmt(v)}"
+                                           for k, v in parts.items())
+            + _mesh_tag(mesh))
 
 
 def voc_key(*, model_tag: str, n: int, frames: int, sub: int | None,
-            pcm16: bool, device) -> str:
+            pcm16: bool, device, mesh: tuple | None = None) -> str:
     """Name of one vocoder-decode graph (the JAX package's ``_voc_fn``
-    name, plus the device)."""
+    name, plus the device and the mesh position)."""
     return (f"voc-{model_tag}-n{n}-f{frames}-s{sub or 0}-p{int(pcm16)}"
-            f"-d{torch.device(device)}")
+            f"-d{torch.device(device)}{_mesh_tag(mesh)}")
 
 
 # -- launch counters ----------------------------------------------------------

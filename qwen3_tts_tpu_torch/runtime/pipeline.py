@@ -28,8 +28,24 @@ the CUDA graph of its bucket (``_gen_fn``) over static state buffers,
 prefilled in place and kept for the last batch shape, and each vocoder
 decode replays the graph of its (n, frames, sub, pcm16) bucket
 (``_voc_fn``); both are captured on first use into ``Qwen3TTS.graphs``.
-``QWEN3_TTS_AOT=0`` runs them eagerly, as the CPU does. The device mesh
-is left out.
+``QWEN3_TTS_AOT=0`` runs them eagerly, as the CPU does.
+
+A mesh (``Qwen3TTS.shard``, parallel/mesh.py): one process per device,
+each calling the same entry points with the same arguments. The talker is
+split over tp; ``synthesize_batch`` tokenizes every text on every rank,
+pads the batch with inactive streams to a multiple of dp (saying so on
+stderr), and builds the prefill and the state of this rank's dp rows
+only. After each chunk one ``all_gather`` over dp of (codes, valid, done)
+gives every rank the whole batch, and the loop ends on the global done.
+Every rank decodes the audio of its own dp rows (the tp ranks of a dp
+group alike: they hold the same codes, and would otherwise wait), then
+the audio is exchanged over dp, so that every rank returns the whole
+list of results; ``on_chunk`` fires on the ranks that decode the stream.
+Frame graphs are captured on a dp-only NCCL mesh (no collective sits in a
+frame); at tp > 1 and on a gloo mesh generation runs eagerly. A generator
+that the engine seeds itself is seeded apart on each dp rank and alike on
+the tp ranks of a dp group (``mesh.rank_seed``): greedy output equals the
+unsharded engine's, sampled output matches it in distribution.
 """
 
 from __future__ import annotations
@@ -51,6 +67,9 @@ from ..models import speaker_encoder as spk
 from ..models import talker, vocoder
 from ..models import weights as W
 from ..models.stack import QuantKV
+from ..parallel.mesh import (dp_rows, gather_chunk, gather_objects,
+                             graphs_allowed, mesh_dims, rank_seed,
+                             shard_talker_weights)
 from ..tokenizer import TextTokenizer
 from ..utils.trace import StageTimer, memory_snapshot, profile_trace
 from . import audio_io
@@ -202,6 +221,7 @@ class Qwen3TTS:
         self.low_mem = False
         self.error_msg = ""
         self._tts_model_path: str | None = None
+        self.mesh = None
         self._drop_graphs()
 
     def _drop_graphs(self) -> None:
@@ -223,6 +243,35 @@ class Qwen3TTS:
         return cls(tokenizer, talker_cfg, talker_w, voc_cfg,
                    vocoder.pack_kernel_weights(voc_w), device, spk_cfg,
                    spk_w)
+
+    def shard(self, mesh) -> "Qwen3TTS":
+        """Shard the engine over a dp x tp mesh (``parallel.make_mesh``;
+        every rank calls this with its own mesh handle): the talker
+        weights are split over tp (``shard_talker_weights``), the batches
+        of later calls over dp (module docstring), and the captured
+        graphs, which hold the old weights' addresses, are dropped.
+        Returns self."""
+        if self.mesh is not None:
+            raise ValueError("the engine is sharded already")
+        if torch.device(mesh.device_type).type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot shard an "
+                             f"engine on {self.device}")
+        self.talker_w = shard_talker_weights(self.talker_w, mesh,
+                                             self.talker_cfg)
+        self.mesh = mesh
+        self._drop_graphs()
+        if (self.device.type == "cuda" and not graphs_allowed(mesh)
+                and torch.distributed.get_rank() == 0):
+            dp, tp = mesh_dims(mesh)
+            _log(f"[shard] mesh dp={dp} tp={tp}: generation runs eagerly "
+                 f"(no CUDA graphs at tp > 1 or over gloo)")
+        return self
+
+    def _mesh_key(self) -> tuple | None:
+        """(dp, tp, rank) of the engine's mesh for graph keys."""
+        if self.mesh is None:
+            return None
+        return (*mesh_dims(self.mesh), torch.distributed.get_rank())
 
     # -- loading -------------------------------------------------------------
     def load_models(self, model_dir: str, device="cuda") -> bool:
@@ -283,6 +332,7 @@ class Qwen3TTS:
         self.voc_cfg, self.voc_w = voc_cfg, voc_w
         self.spk_cfg = self.spk_w = None
         self.device, self.low_mem = dev, low_mem
+        self.mesh = None
         self._drop_graphs()    # they hold the old weights' addresses
         self._tts_model_path = tts_path
         if dev.type == "cuda":
@@ -437,34 +487,40 @@ class Qwen3TTS:
         if len(bad) == len(texts):
             return results
         B = len(texts)
+        # on a mesh: the batch padded to a multiple of dp, this rank's rows
+        rows_pad, lo, hi = self._dp_split(B)
+        rows = range(lo, min(hi, B))
         t_max = max(-(-max(len(t) for t in token_lists) // 16) * 16, 16)
-        tokens = np.zeros((B, t_max), np.int32)
-        lens = np.zeros((B,), np.int32)
+        tokens = np.zeros((rows_pad, t_max), np.int32)
+        lens = np.zeros((rows_pad,), np.int32)
         for i, toks in enumerate(token_lists):
             tokens[i, :len(toks)] = toks
             lens[i] = len(toks)
-        if embeddings is None:
-            spk_emb = np.zeros((B, cfg.hidden_size), np.float32)
-        else:
-            spk_emb = np.stack([np.asarray(e, np.float32) for e in embeddings])
+        spk_emb = np.zeros((rows_pad, cfg.hidden_size), np.float32)
+        if embeddings is not None:
+            spk_emb[:B] = np.stack([np.asarray(e, np.float32)
+                                    for e in embeddings])
         if generator is None:
             seed = (p.seed if p.seed is not None
                     else int(np.random.randint(0, 2**31)))
-            generator = torch.Generator(device=dev).manual_seed(seed)
+            generator = torch.Generator(device=dev).manual_seed(
+                rank_seed(self.mesh, seed))
+        active = (None if rows_pad == B else
+                  torch.arange(lo, hi, device=dev) < B)
 
         t0 = _now_ms()
         with torch.inference_mode():
             prefill = talker.build_prefill_inputs(
-                self.talker_w, cfg, torch.as_tensor(tokens, device=dev),
-                torch.as_tensor(lens, device=dev),
-                torch.as_tensor(spk_emb, device=dev),
-                language_id=torch.full((B,), p.language_id, dtype=torch.int32,
-                                       device=dev))
+                self.talker_w, cfg, torch.as_tensor(tokens[lo:hi], device=dev),
+                torch.as_tensor(lens[lo:hi], device=dev),
+                torch.as_tensor(spk_emb[lo:hi], device=dev),
+                language_id=torch.full((hi - lo,), p.language_id,
+                                       dtype=torch.int32, device=dev))
             prefill_len = prefill.prefill_embd.shape[1]
             max_ctx = required_ctx(prefill_len, p.max_audio_tokens,
                                    CHUNK_FRAMES)
             state, consts, bufs = self._lockstep_state(prefill, max_ctx, p,
-                                                       generator)
+                                                       generator, active)
 
             frames: list[list[np.ndarray]] = [[] for _ in range(B)]
             audio_parts: list[list[np.ndarray]] = [[] for _ in range(B)]
@@ -477,6 +533,10 @@ class Qwen3TTS:
                                       CHUNK_FRAMES, max_ctx)
                 codes, valid = self._gen_fn(state, consts, bufs, read_ctx,
                                             p.top_k, greedy, p.top_p)()
+                done = state.done
+                if self.mesh is not None:   # the whole batch, every rank
+                    codes, valid, done = gather_chunk(self.mesh, codes,
+                                                      valid, done)
                 # the graph's outputs: copied out before the next replay
                 codes_h = codes.cpu().numpy()            # [chunk, B, 16]
                 valid_h = valid.cpu().numpy()            # [chunk, B]
@@ -488,9 +548,10 @@ class Qwen3TTS:
                         frames[b].append(got)
                 if p.streaming_vocoder:
                     td0 = _now_ms()
-                    self._decode_streaming(frames, audio_parts, on_chunk)
+                    self._decode_streaming(frames, audio_parts, on_chunk,
+                                           rows)
                     t_decode += _now_ms() - td0
-                if bool(state.done.all()):
+                if bool(done.all()):
                     break
             if state.generator is not generator:
                 generator.set_state(state.generator.get_state())
@@ -506,13 +567,21 @@ class Qwen3TTS:
                 if len(fr) == 0:
                     results[b].error_msg = "No speech codes generated"
                     continue
+                results[b].sample_rate = self.voc_cfg.sample_rate
+                results[b].success = True
+                if b not in rows:
+                    continue          # another dp rank's stream
                 if p.streaming_vocoder:
-                    self._flush_streaming(b, frames, audio_parts, on_chunk)
+                    self._flush_streaming(b, frames, audio_parts, on_chunk,
+                                          len(rows))
                     results[b].audio = self._pcm_parts_to_f32(audio_parts[b])
                 else:
                     results[b].audio = self.decode_codes(fr)
-                results[b].sample_rate = self.voc_cfg.sample_rate
-                results[b].success = True
+            if self.mesh is not None:
+                for part in gather_objects(self.mesh, {
+                        b: results[b].audio for b in rows}):
+                    for b, audio in part.items():
+                        results[b].audio = audio
             _sync(dev)
             t_decode += _now_ms() - td0
 
@@ -629,7 +698,8 @@ class Qwen3TTS:
             top_k=top_k, greedy=greedy, ring=ring,
             trailing=consts.trailing_hidden.shape[1], top_p=top_p,
             temperature=consts.temperature,
-            repetition_penalty=consts.repetition_penalty, device=self.device)
+            repetition_penalty=consts.repetition_penalty, device=self.device,
+            mesh=self._mesh_key())
         if (buffers, key) not in self._chunk_bufs:
             B, dev = state.n_past.shape[0], self.device
             self._chunk_bufs[buffers, key] = (
@@ -647,8 +717,9 @@ class Qwen3TTS:
             valid.index_copy_(0, f, v[None])
             f.add_(1)
 
-        frame_fn = self.graphs.get_or_capture(key, frame, self.device,
-                                              state.generator, buffers)
+        frame_fn = (self.graphs.get_or_capture(key, frame, self.device,
+                                               state.generator, buffers)
+                    if graphs_allowed(self.mesh) else frame)
 
         def chunk():
             f.zero_()
@@ -658,8 +729,21 @@ class Qwen3TTS:
 
         return chunk
 
+    def _dp_split(self, B: int) -> tuple[int, int, int]:
+        """(rows, lo, hi): a batch of B streams padded to a multiple of dp
+        and this rank's rows [lo, hi) of it; (B, 0, B) unsharded. Rank 0
+        says so on stderr where it pads."""
+        if self.mesh is None:
+            return B, 0, B
+        dp = mesh_dims(self.mesh)[0]
+        rows = -(-B // dp) * dp
+        if rows != B and torch.distributed.get_rank() == 0:
+            _log(f"[shard] batch {B} not divisible by dp={dp}: padded with "
+                 f"{rows - B} inactive stream(s) to {rows}")
+        return (rows, *dp_rows(self.mesh, rows))
+
     def _lockstep_state(self, prefill, max_ctx: int, p: TTSParams,
-                        generator):
+                        generator, active=None):
         """(state, consts, buffers id) of one lock-step call. With
         QWEN3_TTS_AOT on (the default), static buffers refilled in place,
         so that the graphs over them replay and no second KV cache is
@@ -668,11 +752,12 @@ class Qwen3TTS:
         their graphs are dropped (one KV cache is held between calls, not
         one per batch shape). Their draws come from the engine's own
         generator, which takes `generator`'s state here and gives it back
-        after the call. With QWEN3_TTS_AOT=0, new ones each call."""
+        after the call. With QWEN3_TTS_AOT=0, new ones each call. active:
+        [B] bool, the streams that hold a text (None: all)."""
         cfg, kv_quant = self.talker_cfg, kv_quant_enabled()
         if not aot_enabled():
             return (init_state(self.talker_w, cfg, prefill, max_ctx,
-                               generator, kv_quant=kv_quant),
+                               generator, active=active, kv_quant=kv_quant),
                     make_consts(prefill, p.temperature,
                                 p.repetition_penalty), 0)
         if self._graph_gen is None:
@@ -688,7 +773,8 @@ class Qwen3TTS:
                                 if k[0] != old[3]}
             old = self._lockstep = None
         state = init_state(self.talker_w, cfg, prefill, max_ctx, gen,
-                           kv_quant=kv_quant, into=old and old[1])
+                           active=active, kv_quant=kv_quant,
+                           into=old and old[1])
         consts = make_consts(prefill, p.temperature, p.repetition_penalty,
                              into=old and old[2])
         bufs = old[3] if old else new_buffer_id()
@@ -715,7 +801,8 @@ class Qwen3TTS:
         if self.low_mem:
             return codes, decode
         key = voc_key(model_tag=self.model_tag(), n=n, frames=frames,
-                      sub=sub, pcm16=pcm16, device=self.device)
+                      sub=sub, pcm16=pcm16, device=self.device,
+                      mesh=self._mesh_key())
         return codes, self.graphs.get_or_capture(key, decode, self.device)
 
     def _vocoder_weights(self):
@@ -763,14 +850,15 @@ class Qwen3TTS:
             out.append(arr[max(0, start - a0):end - a0])
         return out[0] if len(out) == 1 else np.concatenate(out)
 
-    def _decode_streaming(self, frames, audio_parts, on_chunk) -> None:
-        """Decode every stream holding a full undecoded 40-frame chunk, as
-        one [n, 40] vocoder batch per wave; the audio stays on the device
-        until a consumer resolves it."""
+    def _decode_streaming(self, frames, audio_parts, on_chunk,
+                          rows: range) -> None:
+        """Decode every stream of `rows` holding a full undecoded 40-frame
+        chunk, as one [n, 40] vocoder batch per wave; the audio stays on
+        the device until a consumer resolves it."""
         n_cb = self.talker_cfg.n_codebooks
         while True:
             ready = []
-            for b in range(len(frames)):
+            for b in rows:
                 total = sum(len(f) for f in frames[b])
                 done = len(audio_parts[b]) * CHUNK_FRAMES
                 if total - done >= CHUNK_FRAMES:
@@ -778,7 +866,7 @@ class Qwen3TTS:
                                                         CHUNK_FRAMES)))
             if not ready:
                 return
-            nb = self.voc_bucket(len(ready), len(frames))
+            nb = self.voc_bucket(len(ready), len(rows))
             batch = np.zeros((nb, CHUNK_FRAMES, n_cb), np.int32)
             for i, (_, part) in enumerate(ready):
                 batch[i] = part
@@ -790,9 +878,11 @@ class Qwen3TTS:
                 if on_chunk:
                     on_chunk(b, self._pcm_to_f32(ref))
 
-    def _flush_streaming(self, b, frames, audio_parts, on_chunk) -> None:
+    def _flush_streaming(self, b, frames, audio_parts, on_chunk,
+                         n_rows: int) -> None:
         """Decode the ragged tail (< 40 frames) of stream b, zero-padded
-        to the fixed chunk."""
+        to the fixed chunk, in the smallest bucket of a batch of
+        `n_rows` streams."""
         if not frames[b]:
             return
         full = np.concatenate(frames[b])
@@ -800,7 +890,7 @@ class Qwen3TTS:
         if done >= len(full):
             return
         part = full[done:]
-        nb = self.voc_bucket(1, len(frames))
+        nb = self.voc_bucket(1, n_rows)
         batch = np.zeros((nb, CHUNK_FRAMES, full.shape[1]), np.int32)
         batch[0, :len(part)] = part
         valid = vocoder.vocoder_output_length(self.voc_w, self.voc_cfg,

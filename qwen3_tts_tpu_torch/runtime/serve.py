@@ -28,9 +28,23 @@ graphs stay valid. ``warmup()`` captures every bucket the serving loop can
 reach before traffic arrives. Admission and park run once per request,
 not once per frame, and stay eager.
 
-Not ported: the per-step timing print, mesh sharding, and the per-stream
-scatter mode (``QWEN3_TTS_RING=0``, which raises NotImplementedError
-here).
+On a sharded engine (``Qwen3TTS.shard``) n_slots must be a multiple of dp
+(ValueError otherwise; the JAX package's fallback to GSPMD propagation
+has no counterpart). Each rank holds the device state of its n_slots / dp
+slots; the host scheduler (queue, free slots, admissions, park, retire,
+finalize) runs the same on every rank over the global slot table, fed by
+one ``all_gather`` over dp of each chunk's (codes, valid, done), whose
+copy to the host stays non-blocking on NCCL. A slot is admitted, parked
+and decoded by the rank that owns it; at each step with retirements the
+ranks exchange the finished results over dp (the retired slots' audio
+copies are waited for there), so that ``run_all`` returns the same
+results on every rank, and ``on_audio`` fires on the owning ranks. A
+failure inside a step on some ranks only is not coordinated: the
+isolation above holds where every rank sees the failure alike (a bad
+request).
+
+Not ported: the per-step timing print and the per-stream scatter mode
+(``QWEN3_TTS_RING=0``, which raises NotImplementedError here).
 """
 
 from __future__ import annotations
@@ -46,6 +60,8 @@ import numpy as np
 import torch
 
 from ..models import talker, vocoder
+from ..parallel.mesh import (dp_rows, gather_chunk, gather_objects,
+                             mesh_dims, rank_seed)
 from .generate import (RING_PREFILL_SLOTS, admit_slots, ctx_bucket,
                        init_state, kv_quant_enabled, make_consts, park_slot,
                        required_ctx_ring)
@@ -93,6 +109,13 @@ class ContinuousBatcher:
         self.engine = engine
         self.params = params or TTSParams()
         self.n_slots = n_slots
+        self.mesh = engine.mesh
+        dp = mesh_dims(self.mesh)[0]
+        if n_slots % dp:
+            raise ValueError(f"n_slots={n_slots} is not a multiple of dp={dp}"
+                             f" of the engine's mesh")
+        # this rank's slots [lo, lo + n_local) of the global slot table
+        self.lo = dp_rows(self.mesh, n_slots)[0]
         # the per-request cap (params.max_audio_tokens) binds as well
         self.max_frames = min(max_frames, self.params.max_audio_tokens)
         self.trailing_buf = trailing_buf
@@ -110,18 +133,19 @@ class ContinuousBatcher:
         self.ctx = required_ctx_ring(max_frames, CHUNK_FRAMES)
         # vocoder decode cap, local to this batcher (passed per call): the
         # talker cache and an in-flight chunk share the card with it
-        self.voc_max_batch = (48 if n_slots <= 96 else
-                              32 if n_slots <= 128 else
-                              16 if n_slots <= 192 else 8)
+        n = self.n_local
+        self.voc_max_batch = (48 if n <= 96 else 32 if n <= 128 else
+                              16 if n <= 192 else 8)
         self._buffers = new_buffer_id()   # names this state in graph keys
         self.state = self.consts = None
         self._reset_state()
 
     def _reset_state(self) -> None:
-        """(Re)build the device state: dummy prefill, every slot parked.
-        After the first build, into the same buffers (and the same
-        generator, reseeded), which the captured graphs read and write."""
-        cfg, n = self.cfg, self.n_slots
+        """(Re)build the device state of this rank's slots: dummy prefill,
+        every slot parked. After the first build, into the same buffers
+        (and the same generator, reseeded), which the captured graphs
+        read and write."""
+        cfg, n = self.cfg, self.n_local
         dev = self.device
         with torch.inference_mode():
             prefill = talker.build_prefill_inputs(
@@ -145,7 +169,7 @@ class ContinuousBatcher:
                    else self.state.generator)
             self.state = init_state(
                 self.engine.talker_w, cfg, prefill, self.ctx,
-                gen.manual_seed(seed),
+                gen.manual_seed(rank_seed(self.mesh, seed)),
                 active=torch.zeros(n, dtype=torch.bool, device=dev),
                 kv_quant=kv_quant_enabled(), into=self.state)
             self.consts = make_consts(prefill, self.params.temperature,
@@ -164,7 +188,7 @@ class ContinuousBatcher:
         (runtime/graphs.py); admission and park stay eager. Then the
         state is rebuilt pristine, in place."""
         t0 = time.monotonic()
-        cfg, dev, K = self.cfg, self.device, self.n_slots
+        cfg, dev, K = self.cfg, self.device, self.n_local
         gen_buckets, voc_sizes = self.warmup_buckets()
         with torch.inference_mode():
             for tb in token_buckets:
@@ -214,8 +238,8 @@ class ContinuousBatcher:
             if rc >= self.ctx:
                 break
             steps += CHUNK_FRAMES
-        sizes = sorted({self.engine.voc_bucket(n, self.n_slots)
-                        for n in range(1, self.n_slots + 1)})
+        sizes = sorted({self.engine.voc_bucket(n, self.n_local)
+                        for n in range(1, self.n_local + 1)})
         return buckets, sizes
 
     def _gen_fn(self, read_ctx: int):
@@ -271,10 +295,21 @@ class ContinuousBatcher:
         return (bool(self._queue) or any(s.busy for s in self.slots)
                 or bool(self._finalizing))
 
+    @property
+    def n_local(self) -> int:
+        """Slots whose device state this rank holds (n_slots / dp)."""
+        return self.n_slots // mesh_dims(self.engine.mesh)[0]
+
+    def _owns(self, b: int) -> bool:
+        """Whether global slot b lives on this rank."""
+        return self.lo <= b < self.lo + self.n_local
+
     def _admit_pending(self) -> None:
         """Admit every queued request that has a free slot, in ONE batched
-        admit_slots call of K = n_slots rows (pad rows repeat the last real
-        admission). Token arrays pad to 16-token buckets."""
+        admit_slots call of K = n_local rows of this rank's admissions (pad
+        rows repeat the last real one; a rank with none makes no call).
+        Token arrays pad to 16-token buckets of the longest admitted
+        text, as the trailing buffer grows, alike on every rank."""
         cfg, dev = self.cfg, self.device
         free = [i for i, s in enumerate(self.slots) if not s.busy]
         take = min(len(free), len(self._queue))
@@ -302,32 +337,36 @@ class ContinuousBatcher:
             return
         slot_ids = free[:take]
 
-        K = self.n_slots
         t_max = max(-(-max(len(t) for t in token_lists) // 16) * 16, 16)
-        tokens = np.zeros((K, t_max), np.int32)
-        lens = np.zeros((K,), np.int32)
-        spk = np.zeros((K, cfg.hidden_size), np.float32)
-        slots_arr = np.zeros((K,), np.int64)
-        for j in range(K):
-            src = min(j, take - 1)       # pad rows duplicate the last one
-            toks = token_lists[src]
-            tokens[j, :len(toks)] = toks
-            lens[j] = len(toks)
-            if batch[src][2] is not None:
-                spk[j] = batch[src][2]
-            slots_arr[j] = slot_ids[src]
+        # build_prefill_inputs's trailing rows for t_max tokens
+        self._ensure_trailing_capacity(max(t_max - 8, 1))
+        mine = [j for j in range(take) if self._owns(slot_ids[j])]
+        if mine:
+            K = self.n_local
+            tokens = np.zeros((K, t_max), np.int32)
+            lens = np.zeros((K,), np.int32)
+            spk = np.zeros((K, cfg.hidden_size), np.float32)
+            slots_arr = np.zeros((K,), np.int64)
+            for j in range(K):
+                src = mine[min(j, len(mine) - 1)]  # pads repeat the last
+                toks = token_lists[src]
+                tokens[j, :len(toks)] = toks
+                lens[j] = len(toks)
+                if batch[src][2] is not None:
+                    spk[j] = batch[src][2]
+                slots_arr[j] = slot_ids[src] - self.lo
 
-        prefill = talker.build_prefill_inputs(
-            self.engine.talker_w, cfg, torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(lens, device=dev),
-            torch.as_tensor(spk, device=dev),
-            language_id=torch.full((K,), self.params.language_id,
-                                   dtype=torch.int32, device=dev))
-        self._ensure_trailing_capacity(prefill.trailing_hidden.shape[1])
-        prefill = prefill._replace(
-            trailing_hidden=self._pad_trailing(prefill.trailing_hidden))
-        admit_slots(self.engine.talker_w, cfg, self.state, self.consts,
-                    torch.as_tensor(slots_arr, device=dev), prefill)
+            prefill = talker.build_prefill_inputs(
+                self.engine.talker_w, cfg,
+                torch.as_tensor(tokens, device=dev),
+                torch.as_tensor(lens, device=dev),
+                torch.as_tensor(spk, device=dev),
+                language_id=torch.full((K,), self.params.language_id,
+                                       dtype=torch.int32, device=dev))
+            prefill = prefill._replace(
+                trailing_hidden=self._pad_trailing(prefill.trailing_hidden))
+            admit_slots(self.engine.talker_w, cfg, self.state, self.consts,
+                        torch.as_tensor(slots_arr, device=dev), prefill)
         t_admit = time.monotonic()
         for j in range(take):
             rid, _, _, on_audio, t_submit = batch[j]
@@ -347,11 +386,13 @@ class ContinuousBatcher:
         read_ctx = ctx_bucket(min(covered, self.ctx), 0, self.ctx)
         codes, valid = self._gen_fn(read_ctx)()
         self._steps_done += CHUNK_FRAMES
+        done = self.state.done
+        if self.mesh is not None:     # every slot's, on every rank
+            codes, valid, done = gather_chunk(self.mesh, codes, valid, done)
         # start the host copies now, with `done` as of this chunk: the live
         # state moves on (admissions, parks, the next chunk, which
         # overwrites a graph's codes and valid) before step() reads them
-        self._inflight = tuple(Readback(t) for t in
-                               (codes, valid, self.state.done))
+        self._inflight = tuple(Readback(t) for t in (codes, valid, done))
 
     def step(self) -> dict[int, TTSResult]:
         """Process one 40-frame chunk across all slots; admit queued
@@ -413,6 +454,7 @@ class ContinuousBatcher:
         self._retiring = retired  # visible to _fail_inflight: slots freed
         #                           below must still fail loudly if the
         #                           decode or finalize raises
+        n_retired = 0
         for b, slot in enumerate(self.slots):
             if not slot.busy:
                 continue
@@ -421,14 +463,17 @@ class ContinuousBatcher:
             if len(got):
                 slot.buf[slot.n_frames:slot.n_frames + len(got)] = got
                 slot.n_frames += len(got)
+            mine = self._owns(b)    # another rank's slot: bookkeeping only
             if bool(done_h[b]) or slot.n_frames >= slot.max_frames:
-                if not bool(done_h[b]):
+                if not bool(done_h[b]) and mine:
                     # retired by the frame cap, not EOS: stop the device
                     # stream so its cache position freezes
-                    park_slot(self.state, b)
-                retired.append(slot)
+                    park_slot(self.state, b - self.lo)
+                if mine:
+                    retired.append(slot)
+                n_retired += 1
                 self.slots[b] = _Slot()  # free before admissions
-            else:
+            elif mine:
                 live.append(slot)
 
         # admissions first so that freed slots join the very next chunk,
@@ -442,8 +487,18 @@ class ContinuousBatcher:
         # work is left to overlap with.
         self._finalizing.extend(retired)
         self._retiring = []
-        return self._drain_finalizing(
-            block=not (any(s.busy for s in self.slots) or self._queue))
+        if self.mesh is None:
+            return self._drain_finalizing(
+                block=not (any(s.busy for s in self.slots) or self._queue))
+        if not n_retired:
+            return {}
+        # every rank retired the same slots: finalize this rank's, then
+        # exchange them, so that every rank returns every result
+        out: dict[int, TTSResult] = {}
+        for part in gather_objects(self.mesh,
+                                   self._drain_finalizing(block=True)):
+            out.update(part)
+        return out
 
     def _drain_finalizing(self, block: bool) -> dict[int, TTSResult]:
         """Finalize retired slots whose audio copies have landed (polled,
@@ -482,7 +537,7 @@ class ContinuousBatcher:
                     work.append((slot, part, remaining, True))
             if not work:
                 return
-            nb = eng.voc_bucket(len(work), len(self.slots))
+            nb = eng.voc_bucket(len(work), self.n_local)
             batch = np.zeros((nb, CHUNK_FRAMES, n_cb), np.int32)
             for i, (_, chunk, _, _) in enumerate(work):
                 batch[i] = chunk

@@ -999,3 +999,104 @@ def test_graph_capture_with_host_sync_raises(dev):
         fn()
     assert fn.graph is None
     assert float((x + 1).sum()) == 8.0
+
+
+# -- the mesh at world size 1 over NCCL (parallel/mesh.py) -------------------
+@pytest.fixture(scope="module")
+def nccl_mesh(dev, tmp_path_factory):
+    """A world-size-1 NCCL process group in this process, and its 1x1
+    mesh; the group is destroyed after the module's tests."""
+    import torch.distributed as dist
+    from qwen3_tts_tpu_torch.parallel import make_mesh
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh(1, 1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_state(eng, dev, kv_quant):
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.runtime import generate as G
+    cfg, B = eng.talker_cfg, 4
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.text_vocab_size, (B, 16), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pf = talker.build_prefill_inputs(
+        eng.talker_w, cfg, tokens,
+        torch.full((B,), 16, dtype=torch.int32, device=dev),
+        torch.zeros(B, cfg.hidden_size, device=dev))
+    ctx = G.required_ctx(pf.prefill_embd.shape[1], 40, 40)
+    return (G.init_state(eng.talker_w, cfg, pf, ctx, None, kv_quant=kv_quant),
+            G.make_consts(pf, 0.0, 1.05), ctx)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_mesh_shard_gen_state_on_card(dev, nccl_mesh, kv_quant):
+    """shard_gen_state / shard_consts on the card: at 1x1 this rank's
+    slice is the whole state, every tensor a contiguous copy on the
+    card, the int8 cache with its scales."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.models.stack import QuantKV
+    from qwen3_tts_tpu_torch.parallel import shard_consts, shard_gen_state
+    state, consts, _ = _mesh_state(_engine(dev, 31), dev, kv_quant)
+    got = shard_gen_state(state, nccl_mesh)
+    assert isinstance(got.kv_cache, QuantKV) == kv_quant
+    pairs = ([(got.kv_cache.values, state.kv_cache.values),
+              (got.kv_cache.scales, state.kv_cache.scales)] if kv_quant else
+             [(got.kv_cache, state.kv_cache)])
+    for f in dataclasses.fields(state):
+        if f.name not in ("kv_cache", "generator"):
+            pairs.append((getattr(got, f.name), getattr(state, f.name)))
+    sc = shard_consts(consts, nccl_mesh)
+    pairs += [(getattr(sc, n), getattr(consts, n)) for n in
+              ("trailing_hidden", "trailing_len", "tts_pad_embed",
+               "expected_frames")]
+    for a, b in pairs:
+        assert a.is_cuda and a.is_contiguous() and torch.equal(a, b)
+        assert a.data_ptr() != b.data_ptr()
+
+
+def test_mesh_generate_chunk_bitwise(dev, nccl_mesh):
+    """A 40-frame chunk over the sharded state and weights (1x1), its
+    outputs gathered over dp through NCCL, equals the unsharded chunk bit
+    for bit."""
+    from qwen3_tts_tpu_torch.parallel import (shard_consts, shard_gen_state,
+                                              shard_talker_weights)
+    from qwen3_tts_tpu_torch.parallel.mesh import gather_chunk
+    from qwen3_tts_tpu_torch.runtime import generate as G
+    eng = _engine(dev, 32)
+    cfg = eng.talker_cfg
+    runs = []
+    for mesh in (None, nccl_mesh):
+        state, consts, ctx = _mesh_state(eng, dev, False)
+        w = eng.talker_w
+        if mesh is not None:
+            w = shard_talker_weights(w, mesh, cfg)
+            state = shard_gen_state(state, mesh)
+            consts = shard_consts(consts, mesh)
+        _, codes, valid = G.generate_chunk(w, cfg, state, consts, 50, 40,
+                                           greedy=True, read_ctx=ctx)
+        done = state.done
+        if mesh is not None:
+            codes, valid, done = gather_chunk(mesh, codes, valid, done)
+        runs.append((codes.clone(), valid.clone(), done.clone()))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_mesh_frame_graph_replays_bitwise(dev, nccl_mesh, monkeypatch):
+    """A sharded engine on a dp mesh captures its frame and vocoder
+    graphs (keys tagged -m1x1 and the rank): replayed, they give the
+    eager audio and the unsharded engine's, bit for bit."""
+    params = TTSParams(max_audio_tokens=48, temperature=0.0, seed=0)
+    eng = _engine(dev, 33).shard(nccl_mesh)
+    first, graph, eager = _graph_vs_eager(eng, monkeypatch, params)
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    plain = _engine(dev, 33).synthesize_batch(GRAPH_TEXTS, params=params)
+    _assert_same_audio(first, graph, eager, plain)
+    keys = [k for k, _ in eng.graphs.graphs]
+    assert keys and all(k.endswith("-m1x1-rk0") for k in keys), keys
