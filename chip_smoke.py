@@ -39,7 +39,18 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    QWEN3_TTS_TALKER=xla, and the CLI in-process (-r with its .embd cache,
    -e, --serve --continuous over piped lines); every kernel must launch
    on this path too;
-6. graphs: every path above already ran its chunks and vocoder decodes
+6. convert (the offline pipeline, qwen3_tts_tpu_torch/tools): synthetic
+   BF16 HF checkpoints at the full widths from a seed (the TTS model in
+   two shards, the codec; io/safetensors.py), converted at f16, then the
+   acceptance run on the card: its conversion, the parity run against the
+   independent HF-layout torch reference (an f32 pass on the plain path;
+   a bf16 pass through the talker megakernel, the code-predictor kernel
+   and the vocoder's chain and head, the step again under
+   QWEN3_TTS_TALKER=xla through decode attention), load_models, greedy
+   synthesis, the WAV round trip and a voice cloned from a seeded WAV
+   (eager, under the profiler); each stage's error against its tolerance, the implementation that ran
+   it and its kernel launches, the seconds and bytes of each step;
+7. graphs: every path above already ran its chunks and vocoder decodes
    as CUDA graphs (runtime/graphs.py; captured on first use, replayed
    after). This phase sets them against QWEN3_TTS_AOT=0 in one process:
    lock-step generate ms a frame replayed and eager (auto bf16 greedy,
@@ -53,7 +64,7 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    frame by kernel group, each vocoder kernel on its own, the card's busy
    share; one code-predictor and one talker launch a frame) beside an
    eager one;
-7. mesh (parallel/mesh.py): a world-size-1 NCCL process group in this
+8. mesh (parallel/mesh.py): a world-size-1 NCCL process group in this
    process and ``make_mesh(1, 1, "cuda")``; a second engine over the same
    weights, ``shard``-ed, against the unsharded one: ``synthesize_batch``
    (auto bf16, B 4, 80 frames, greedy and at T 0.9 with one seed) and the
@@ -71,6 +82,11 @@ The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before it. Without a CUDA device the script exits non-zero at once.
 
+``python3 chip_smoke.py --parity-cpu`` instead runs the parity tool through
+the kernels' twins on the CPU at the full widths over three seeds and
+prints each stage's largest error (the measurement behind
+tools/parity.BF16_TOL).
+
 ``python3 chip_smoke.py --compare DIR`` instead times the code predictor,
 decode attention, the talker megakernel, the residual chain and the Snake
 + convT head through their wrappers in the checkout at DIR and in this
@@ -80,6 +96,7 @@ one, in turns DIR, this, this, DIR.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import os
 import re
@@ -2208,15 +2225,19 @@ MESH_TOKENS = 80              # frames of the world-size-1 lock-step runs
 MESH_TP_FRAMES = 40           # frames of the tp = 2 run (one chunk)
 
 
+# the vocabulary of the main paths' tokenizer and of the synthetic HF
+# checkpoints
+SMOKE_TOKENS = ["<|im_start|>", "<|im_end|>", "assistant", "Ċ", "h", "e",
+                "l", "o", "Ġ", "w", "r", "d", ".", "he", "ll", "hell",
+                "hello", "Ġw", "Ġwo"]
+SMOKE_MERGES = ["h e", "l l", "he ll", "hell o", "Ġ w", "Ġw o"]
+
+
 def smoke_tokenizer():
     """The in-memory tokenizer of the main paths."""
     from qwen3_tts_tpu_torch.config import TokenizerSpecialTokens
     from qwen3_tts_tpu_torch.tokenizer import TextTokenizer
-    tokens = ["<|im_start|>", "<|im_end|>", "assistant", "Ċ", "h", "e", "l",
-              "o", "Ġ", "w", "r", "d", ".", "he", "ll", "hell", "hello",
-              "Ġw", "Ġwo"]
-    merges = ["h e", "l l", "he ll", "hell o", "Ġ w", "Ġw o"]
-    return TextTokenizer(tokens, merges, TokenizerSpecialTokens(
+    return TextTokenizer(SMOKE_TOKENS, SMOKE_MERGES, TokenizerSpecialTokens(
         bos_token_id=0, eos_token_id=1, pad_token_id=1))
 
 
@@ -2485,6 +2506,469 @@ def mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
     return total
 
 
+# -- the convert phase: the offline pipeline (qwen3_tts_tpu_torch/tools) --
+# widths of the synthetic HF checkpoints: the 0.6B model's and the 12 Hz
+# tokenizer's decoder's (config.py's defaults). The text vocabulary stays
+# whole: the converter writes no BOS id, and the tokenizer's default one
+# (151644) must name a row of the text embedding.
+HF_WIDTHS = dict(hidden=1024, layers=28, heads=16, kv_heads=8, head_dim=128,
+                 inter=3072, text_vocab=151936, text_hidden=2048,
+                 codec_vocab=3072, groups=16, cp_layers=5, cp_vocab=2048,
+                 spk_hidden=512, spk_scale=8, n_mels=128,
+                 codebook_size=2048, codebook_dim=256, voc_hidden=512,
+                 latent=1024, voc_layers=8, voc_heads=16, decoder_dim=1536,
+                 rates=(8, 5, 4, 3))
+
+
+def _bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values rounded to bf16, as uint16 bits on the host."""
+    return t.to(torch.bfloat16).view(torch.int16).cpu().numpy().view(
+        np.uint16)
+
+
+def hf_tts_tensors(wd: dict, gen: torch.Generator) -> dict:
+    """HF-named tensors of a synthetic TTS checkpoint (talker, code
+    predictor, ECAPA speaker encoder) at the widths `wd`, drawn from `gen`
+    on its device, as bf16 bits (uint16 on the host): matrices
+    normal(0, 0.02) and norms 1 + normal(0, 0.1) as
+    weights.init_talker_weights draws them, the speaker encoder's convs
+    normal(0, 1/sqrt(fan_in)) and biases normal(0, 0.1) as
+    speaker_encoder.init_speaker_encoder_weights draws them."""
+    dev = gen.device
+
+    def rn(*shape, std=0.02):
+        return _bf16_bits(torch.randn(shape, generator=gen, device=dev)
+                          * std)
+
+    def norm(n):
+        return _bf16_bits(1.0 + 0.1 * torch.randn(n, generator=gen,
+                                                  device=dev))
+
+    def zeros(n):
+        return np.zeros(n, np.uint16)
+
+    def conv(*shape):
+        return rn(*shape, std=(shape[-2] * shape[-1]) ** -0.5)
+
+    H, hd, I = wd["hidden"], wd["head_dim"], wd["inter"]
+    nq, nkv = wd["heads"] * hd, wd["kv_heads"] * hd
+    E, t = wd["text_hidden"], {}
+
+    def layer(p):
+        t.update({f"{p}.input_layernorm.weight": norm(H),
+                  f"{p}.self_attn.q_proj.weight": rn(nq, H),
+                  f"{p}.self_attn.k_proj.weight": rn(nkv, H),
+                  f"{p}.self_attn.v_proj.weight": rn(nkv, H),
+                  f"{p}.self_attn.o_proj.weight": rn(H, nq),
+                  f"{p}.self_attn.q_norm.weight": norm(hd),
+                  f"{p}.self_attn.k_norm.weight": norm(hd),
+                  f"{p}.post_attention_layernorm.weight": norm(H),
+                  f"{p}.mlp.gate_proj.weight": rn(I, H),
+                  f"{p}.mlp.up_proj.weight": rn(I, H),
+                  f"{p}.mlp.down_proj.weight": rn(H, I)})
+
+    t["talker.model.text_embedding.weight"] = rn(wd["text_vocab"], E)
+    t["talker.model.codec_embedding.weight"] = rn(wd["codec_vocab"], H)
+    for i in range(wd["layers"]):
+        layer(f"talker.model.layers.{i}")
+    t["talker.model.norm.weight"] = norm(H)
+    t["talker.codec_head.weight"] = rn(wd["codec_vocab"], H)
+    t["talker.text_projection.linear_fc1.weight"] = rn(E, E)
+    t["talker.text_projection.linear_fc1.bias"] = zeros(E)
+    t["talker.text_projection.linear_fc2.weight"] = rn(H, E)
+    t["talker.text_projection.linear_fc2.bias"] = zeros(H)
+    cp = "talker.code_predictor"
+    for i in range(wd["cp_layers"]):
+        layer(f"{cp}.model.layers.{i}")
+    t[f"{cp}.model.norm.weight"] = norm(H)
+    for i in range(wd["groups"] - 1):
+        t[f"{cp}.model.codec_embedding.{i}.weight"] = rn(wd["cp_vocab"], H)
+        t[f"{cp}.lm_head.{i}.weight"] = rn(wd["cp_vocab"], H)
+
+    sh, scale, sp = wd["spk_hidden"], wd["spk_scale"], "speaker_encoder"
+    br, se, mfa = sh // scale, max(sh // 4, 1), 3 * sh
+
+    def bias(n):
+        return rn(n, std=0.1)
+
+    t[f"{sp}.blocks.0.conv.weight"] = conv(sh, wd["n_mels"], 5)
+    t[f"{sp}.blocks.0.conv.bias"] = bias(sh)
+    for i in (1, 2, 3):
+        p = f"{sp}.blocks.{i}"
+        for j in (1, 2):
+            t[f"{p}.tdnn{j}.conv.weight"] = conv(sh, sh, 1)
+            t[f"{p}.tdnn{j}.conv.bias"] = bias(sh)
+        for j in range(scale - 1):
+            t[f"{p}.res2net_block.blocks.{j}.conv.weight"] = conv(br, br, 3)
+            t[f"{p}.res2net_block.blocks.{j}.conv.bias"] = bias(br)
+        t[f"{p}.se_block.conv1.weight"] = conv(se, sh, 1)
+        t[f"{p}.se_block.conv1.bias"] = bias(se)
+        t[f"{p}.se_block.conv2.weight"] = conv(sh, se, 1)
+        t[f"{p}.se_block.conv2.bias"] = bias(sh)
+    t[f"{sp}.mfa.conv.weight"] = conv(mfa, mfa, 1)
+    t[f"{sp}.mfa.conv.bias"] = bias(mfa)
+    t[f"{sp}.asp.tdnn.conv.weight"] = conv(se, 3 * mfa, 1)
+    t[f"{sp}.asp.tdnn.conv.bias"] = bias(se)
+    t[f"{sp}.asp.conv.weight"] = conv(mfa, se, 1)
+    t[f"{sp}.asp.conv.bias"] = bias(mfa)
+    t[f"{sp}.fc.weight"] = conv(H, 2 * mfa, 1)
+    t[f"{sp}.fc.bias"] = bias(H)
+    return t
+
+
+def hf_codec_tensors(wd: dict, gen: torch.Generator) -> dict:
+    """HF-named tensors of a synthetic speech-codec checkpoint (the
+    decoder) at the widths `wd`, drawn from `gen`, as bf16 bits: unit
+    norms, 0.5 layer scales and zero biases as init_vocoder_weights draws
+    them, the decoder blocks as weights.init_decoder_block draws them,
+    codebooks whose embedding_sum / cluster_usage is normal(0, 1), and
+    every kernel normal(0, 1/sqrt(fan_in)) (init_decoder_block's
+    scale=None) but each residual unit's last, at 0.3/sqrt(fan_in), and
+    the output conv's, at 0.25/sqrt(fan_in). At init_vocoder_weights'
+    0.1, or with every kernel at 1/sqrt(fan_in), each decoder block grows
+    the activations ~2.8x and the audio saturates at full width, where a
+    comparison of audio sees nothing; so the audio stays mostly in tanh's
+    near-linear range."""
+    dev = gen.device
+
+    def rn(*shape, std):
+        return _bf16_bits(torch.randn(shape, generator=gen, device=dev)
+                          * std)
+
+    def lin(*shape):        # [out, in, (k)]: normal(0, 1/sqrt(in * k))
+        return rn(*shape, std=float(np.prod(shape[1:])) ** -0.5)
+
+    def full(n, v):
+        return _bf16_bits(torch.full((n,), v))
+
+    CD, HID, LAT = wd["codebook_dim"], wd["voc_hidden"], wd["latent"]
+    n_cb, q, t = wd["codebook_size"], "decoder.quantizer", {}
+
+    def codebook(p):
+        usage = 0.5 + torch.rand(n_cb, generator=gen, device=dev)
+        t[f"{p}._codebook.embedding_sum"] = _bf16_bits(
+            torch.randn(n_cb, CD, generator=gen, device=dev)
+            * usage[:, None])
+        t[f"{p}._codebook.cluster_usage"] = _bf16_bits(usage)
+
+    for part in ("rvq_first", "rvq_rest"):
+        t[f"{q}.{part}.output_proj.weight"] = lin(HID, CD, 1)
+        t[f"{q}.{part}.input_proj.weight"] = lin(CD, HID, 1)
+    codebook(f"{q}.rvq_first.vq.layers.0")
+    for i in range(wd["groups"] - 1):
+        codebook(f"{q}.rvq_rest.vq.layers.{i}")
+    t["decoder.pre_conv.conv.weight"] = lin(LAT, HID, 3)
+    t["decoder.pre_conv.conv.bias"] = full(LAT, 0.0)
+    pt = "decoder.pre_transformer"
+    t[f"{pt}.input_proj.weight"] = lin(HID, LAT)
+    t[f"{pt}.input_proj.bias"] = full(HID, 0.0)
+    t[f"{pt}.output_proj.weight"] = lin(LAT, HID)
+    t[f"{pt}.output_proj.bias"] = full(LAT, 0.0)
+    t[f"{pt}.norm.weight"] = full(HID, 1.0)
+    for i in range(wd["voc_layers"]):
+        p = f"{pt}.layers.{i}"
+        t.update({f"{p}.input_layernorm.weight": full(HID, 1.0),
+                  f"{p}.self_attn.q_proj.weight": lin(LAT, HID),
+                  f"{p}.self_attn.k_proj.weight": lin(LAT, HID),
+                  f"{p}.self_attn.v_proj.weight": lin(LAT, HID),
+                  f"{p}.self_attn.o_proj.weight": lin(HID, LAT),
+                  f"{p}.self_attn_layer_scale.scale": full(HID, 0.5),
+                  f"{p}.post_attention_layernorm.weight": full(HID, 1.0),
+                  f"{p}.mlp.gate_proj.weight": lin(2 * HID, HID),
+                  f"{p}.mlp.up_proj.weight": lin(2 * HID, HID),
+                  f"{p}.mlp.down_proj.weight": lin(HID, 2 * HID),
+                  f"{p}.mlp_layer_scale.scale": full(HID, 0.5)})
+    for i in range(2):
+        p = f"decoder.upsample.{i}"
+        t.update({f"{p}.0.conv.weight": lin(LAT, LAT, 2),
+                  f"{p}.0.conv.bias": full(LAT, 0.0),
+                  f"{p}.1.dwconv.conv.weight": lin(LAT, 1, 7),
+                  f"{p}.1.dwconv.conv.bias": full(LAT, 0.0),
+                  f"{p}.1.norm.weight": full(LAT, 1.0),
+                  f"{p}.1.norm.bias": full(LAT, 0.0),
+                  f"{p}.1.pwconv1.weight": lin(2 * LAT, LAT),
+                  f"{p}.1.pwconv1.bias": full(2 * LAT, 0.0),
+                  f"{p}.1.pwconv2.weight": lin(LAT, 2 * LAT),
+                  f"{p}.1.pwconv2.bias": full(LAT, 0.0),
+                  f"{p}.1.gamma": full(LAT, 0.5)})
+    c = wd["decoder_dim"]
+    t["decoder.decoder.0.conv.weight"] = lin(c, LAT, 7)
+    t["decoder.decoder.0.conv.bias"] = full(c, 0.0)
+    for blk, rate in enumerate(wd["rates"], start=1):
+        p, co = f"decoder.decoder.{blk}.block", c // 2
+        t.update({f"{p}.0.alpha": rn(c, std=0.3),
+                  f"{p}.0.beta": rn(c, std=0.3),
+                  f"{p}.1.conv.weight": rn(c, co, 2 * rate,
+                                           std=(2 * c) ** -0.5),
+                  f"{p}.1.conv.bias": rn(co, std=0.1)})
+        for res in (2, 3, 4):
+            r = f"{p}.{res}"
+            t.update({f"{r}.act1.alpha": rn(co, std=0.3),
+                      f"{r}.act1.beta": rn(co, std=0.3),
+                      f"{r}.conv1.conv.weight": lin(co, co, 7),
+                      f"{r}.conv1.conv.bias": rn(co, std=0.1),
+                      f"{r}.act2.alpha": rn(co, std=0.3),
+                      f"{r}.act2.beta": rn(co, std=0.3),
+                      f"{r}.conv2.conv.weight": rn(co, co, 1,
+                                                   std=0.3 * co ** -0.5),
+                      f"{r}.conv2.conv.bias": rn(co, std=0.1)})
+        c = co
+    t["decoder.decoder.5.alpha"] = rn(c, std=0.3)
+    t["decoder.decoder.5.beta"] = rn(c, std=0.3)
+    t["decoder.decoder.6.conv.weight"] = rn(1, c, 7,
+                                            std=0.25 * (7 * c) ** -0.5)
+    t["decoder.decoder.6.conv.bias"] = full(1, 0.0)
+    return t
+
+
+def write_hf_checkpoints(tts_dir, codec_dir, seed: int, device="cpu",
+                         **widths) -> int:
+    """Synthetic HF checkpoints from `seed` (a torch.Generator on
+    `device`): the TTS model in two BF16
+    shards with its config.json and BPE vocabulary files, the speech codec
+    in one BF16 file with its config.json, at HF_WIDTHS with `widths`
+    replacing some (a CPU test runs it at tiny widths), written through
+    io/safetensors.py. Special ids a reduced vocabulary cannot hold are
+    moved to its last rows. Returns the bytes written."""
+    from qwen3_tts_tpu_torch.io.safetensors import save_file
+    wd = {**HF_WIDTHS, **widths}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tv, cv = wd["text_vocab"], wd["codec_vocab"]
+    os.makedirs(tts_dir, exist_ok=True)
+    os.makedirs(codec_dir, exist_ok=True)
+    talker_cfg = {
+        "hidden_size": wd["hidden"], "intermediate_size": wd["inter"],
+        "num_hidden_layers": wd["layers"],
+        "num_attention_heads": wd["heads"],
+        "num_key_value_heads": wd["kv_heads"], "head_dim": wd["head_dim"],
+        "vocab_size": cv, "text_vocab_size": tv,
+        "text_hidden_size": wd["text_hidden"],
+        "num_code_groups": wd["groups"], "rms_norm_eps": 1e-6,
+        "rope_theta": 1e6,
+        "code_predictor_config": {"num_hidden_layers": wd["cp_layers"],
+                                  "vocab_size": wd["cp_vocab"]},
+        "tts_bos_token_id": min(151672, tv - 2),
+        "tts_eos_token_id": min(151673, tv - 1),
+        "tts_pad_token_id": min(151671, tv - 3)}
+    codec_ids = ("codec_pad_id", "codec_bos_id", "codec_eos_token_id",
+                 "codec_think_id", "codec_nothink_id", "codec_think_bos_id",
+                 "codec_think_eos_id", "english_language_id")
+    for key, default, low in zip(codec_ids, (2148, 2149, 2150, 2154, 2155,
+                                             2156, 2157, 2050),
+                                 range(cv - 8, cv)):
+        talker_cfg[key] = default if cv > 2157 else low
+    files = {
+        os.path.join(tts_dir, "config.json"): json.dumps({
+            "talker_config": talker_cfg,
+            "speaker_encoder_config": {"enc_dim": wd["hidden"],
+                                       "sample_rate": 24000}}),
+        os.path.join(tts_dir, "vocab.json"): json.dumps(
+            {tok: i for i, tok in enumerate(SMOKE_TOKENS)}),
+        os.path.join(tts_dir, "merges.txt"):
+            "#version: 0.2\n" + "\n".join(SMOKE_MERGES) + "\n",
+        os.path.join(tts_dir, "tokenizer_config.json"): json.dumps(
+            {"eos_token": "<|im_end|>", "pad_token": "<|im_end|>"}),
+        os.path.join(codec_dir, "config.json"): json.dumps({
+            "input_sample_rate": 24000,
+            "encoder_config": {"codebook_size": wd["codebook_size"],
+                               "_frame_rate": 12.5},
+            "decoder_config": {
+                "hidden_size": wd["voc_hidden"],
+                "num_hidden_layers": wd["voc_layers"],
+                "num_attention_heads": wd["voc_heads"],
+                "latent_dim": wd["latent"], "num_quantizers": wd["groups"],
+                "upsample_rates": list(wd["rates"])}})}
+    for path, text in files.items():
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)
+    tts = hf_tts_tensors(wd, gen)
+    first = [k for k in tts if k.startswith("talker.model.")]
+    shards = ({k: tts.pop(k) for k in first}, tts)
+    paths = [os.path.join(tts_dir, f"model-0000{i}-of-00002.safetensors")
+             for i in (1, 2)]
+    for path, shard in zip(paths, shards):
+        save_file(shard, path, {"format": "pt"}, bf16=True)
+    del shards, tts
+    paths.append(os.path.join(codec_dir, "model.safetensors"))
+    save_file(hf_codec_tensors(wd, gen), paths[-1], {"format": "pt"},
+              bf16=True)
+    return sum(os.path.getsize(p) for p in [*paths, *files])
+
+
+CONVERT_SEED = SEED + 11
+CONVERT_TEXT = "hello world."
+CONVERT_TOKENS = 40           # one generation chunk a synthesis
+PARITY_CPU_SEEDS = (SEED, SEED + 1, SEED + 2)
+# kernels of the port, by the substrings of their names in a profile
+KERNEL_NAMES = ("talker_step", "codepred", "fd_", "res_gemm", "snake_bf16",
+                "snake_convt")
+
+
+def _stage_line(r: dict) -> str:
+    err = (f"not served: {r['error']}" if "error" in r else
+           f"rel {r['rel']:.3e} (tol {r['tol']:.1e})" if "rel" in r else
+           f"codes equal (tol {r['tol']:.1e})" if r["codes_equal"] else
+           f"near-tie margin {r['gap']:.3e} (tol {r['tol']:.1e})")
+    return (f"  {r['stage']:<28} {err} "
+            f"{'OK' if r['ok'] else 'FAIL'}  [{r['impl']}]  launches "
+            f"{r['launches'] or {}}")
+
+
+def _check_parity_report(report: list, n_layers: int) -> None:
+    """Every stage passed; in the bf16 pass the step, the code predictor
+    and the vocoder took their kernels, the xla step decode attention (a
+    launch a layer); the f32 pass launched none of the four kernels that
+    need bf16 weights."""
+    fused_only = ("talker_fused", "codepred", "res_chain", "snake_convt")
+    seen = set()
+    for r in report:
+        ran = r["launches"]
+        if not r["ok"]:
+            raise AssertionError(f"parity stage failed: {r}")
+        if r["pass"] == "f32" and any(k in ran for k in fused_only):
+            raise AssertionError(f"f32 pass launched a kernel: {r}")
+        stage = r["stage"].split(":")[1]
+        if r["pass"] != "bf16":
+            continue
+        need = {"step_hidden[fused]": ("talker_fused",),
+                "code_pred_codes": ("codepred",),
+                "vocoder_audio": ("res_chain", "snake_convt")}.get(stage)
+        if need:
+            if not r["impl"].startswith("fused"):
+                raise AssertionError(f"not the kernel at full width: {r}")
+            if any(ran.get(k, 0) <= 0 for k in need):
+                raise AssertionError(f"{need} did not launch: {r}")
+            seen.add(stage)
+        if stage == "step_hidden[xla]":
+            if ran.get("flash_decode", 0) != n_layers:
+                raise AssertionError(f"decode attention: {r}")
+            seen.add(stage)
+    if len(seen) != 4:
+        raise AssertionError(f"bf16 pass stages missing: {sorted(seen)}")
+
+
+def convert_phase(card, counters, dev) -> dict:
+    """The offline pipeline on the port alone at the full widths: synthetic
+    BF16 HF checkpoints (two TTS shards and the codec) written through
+    io/safetensors.py, converted at f16 by tools/convert_checkpoints.py,
+    then tools/acceptance.run_acceptance on the card under torch.profiler
+    (eagerly, QWEN3_TTS_AOT=0, so that no graph is captured inside the
+    profiler's session): its own conversion,
+    tools/parity.run_parity (both passes; each stage's error against its
+    tolerance, its implementation and its kernel launches), load_models,
+    synthesis, the WAV round trip and the cloned voice from a seeded
+    reference WAV. Returns the phase's kernel launches."""
+    import shutil
+    from pathlib import Path
+    from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.runtime import audio_io
+    from qwen3_tts_tpu_torch.tools import acceptance
+    from qwen3_tts_tpu_torch.tools import convert_checkpoints as cc
+
+    t_phase = time.monotonic()
+    root = Path(tempfile.mkdtemp(prefix="q3tts_convert_"))
+    try:
+        tts, codec = root / "hf_tts", root / "hf_codec"
+        t0 = time.monotonic()
+        n = write_hf_checkpoints(tts, codec, CONVERT_SEED, device=dev)
+        log(f"convert: synthetic BF16 HF checkpoints at the 0.6B widths "
+            f"(TTS in two shards, codec): {n:,} bytes in "
+            f"{time.monotonic() - t0:.1f} s")
+        for what, fn, src in (("tts", cc.convert_tts, tts),
+                              ("codec", cc.convert_codec, codec)):
+            out = root / f"{what}-f16.gguf"
+            t0 = time.monotonic()
+            fn(src, out, "f16")
+            log(f"convert: {what} -> GGUF f16: {out.stat().st_size:,} bytes "
+                f"in {time.monotonic() - t0:.1f} s")
+            out.unlink()
+        wav = root / "ref.wav"
+        audio_io.save_wav(str(wav), _clip(3.0, 24000, CONVERT_SEED), 24000)
+
+        for fn in counters.values():
+            fn.launches = 0
+        coop0 = kernels.codepred_launches()
+        report: list = []
+        # eager under the profiler: no graph is captured inside its session
+        aot = os.environ.get("QWEN3_TTS_AOT")
+        os.environ["QWEN3_TTS_AOT"] = "0"
+        t0 = time.monotonic()
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILER_PAD_S)
+                results = acceptance.run_acceptance(
+                    tts, codec, root / "work", ref_wav=wav, out_type="f16",
+                    text=CONVERT_TEXT, max_tokens=CONVERT_TOKENS,
+                    device=str(dev), parity_report=report)
+                torch.cuda.synchronize()
+                time.sleep(PROFILER_PAD_S)
+        finally:
+            if aot is None:
+                os.environ.pop("QWEN3_TTS_AOT")
+            else:
+                os.environ["QWEN3_TTS_AOT"] = aot
+        secs = time.monotonic() - t0
+        ran = {k: fn.launches for k, fn in counters.items()}
+        coop = kernels.codepred_launches() - coop0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"convert: parity on {card} (reference on the CPU in f32):")
+    for r in report:
+        log(_stage_line(r))
+    for r in results:
+        log(f"  acceptance {r['step']:<20} {r['seconds']:6.1f} s  "
+            f"{'OK' if r['ok'] else 'FAIL'}  {r['detail']}")
+    names: dict = {}
+    for name, _, _ in _kernel_events(prof):
+        m = re.search(r"\w*(?:%s)\w*" % "|".join(KERNEL_NAMES), name)
+        if m:
+            names[m.group(0)] = names.get(m.group(0), 0) + 1
+    log(f"convert: acceptance in {secs:.1f} s; kernel launches {ran}; code "
+        f"predictor {coop} cooperative launches; profiler kernels {names}")
+    failed = [r["step"] for r in results if not r["ok"]]
+    if failed:
+        raise AssertionError(f"acceptance steps failed: {failed}")
+    _check_parity_report(report, HF_WIDTHS["layers"])
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"a kernel never ran in the convert phase: {ran}")
+    log(f"convert: phase took {time.monotonic() - t_phase:.1f} s")
+    return ran
+
+
+def parity_cpu() -> int:
+    """``--parity-cpu``: tools/parity.run_parity through the kernels'
+    twins on the CPU at the full widths, over PARITY_CPU_SEEDS (the
+    measurement behind parity.BF16_TOL): the largest ratio of each stage,
+    and twice it, as one JSON line."""
+    import shutil
+    from pathlib import Path
+    from qwen3_tts_tpu_torch.tools import parity
+
+    worst: dict = {}
+    for seed in PARITY_CPU_SEEDS:
+        root = Path(tempfile.mkdtemp(prefix="q3tts_parity_"))
+        try:
+            t0 = time.monotonic()
+            write_hf_checkpoints(root / "tts", root / "codec", seed)
+            report: list = []
+            parity.run_parity(root / "tts", root / "codec", "cpu",
+                              seed=seed, report=report)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        log(f"seed {seed}: {time.monotonic() - t0:.1f} s")
+        for r in report:
+            stage = r["stage"].split("[")[0]
+            v = r.get("rel", r.get("gap") or 0.0)
+            worst[stage] = max(worst.get(stage, 0.0), v)
+    print(json.dumps({"seeds": list(PARITY_CPU_SEEDS), "max": worst,
+                      "twice": {k: 2 * v for k, v in worst.items()}}),
+          flush=True)
+    return 0
+
+
 COMPARE_CHILD = r"""
 import importlib.util, json, sys
 import torch
@@ -2591,6 +3075,8 @@ def compare(parent: str) -> int:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--compare":
         return compare(sys.argv[2])
+    if sys.argv[1:] == ["--parity-cpu"]:
+        return parity_cpu()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
@@ -2657,17 +3143,19 @@ def main() -> int:
     check_captured(captured, talker_w, cfg, dev, gen)
     clone = load_and_clone(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                            counters, dev)
+    converted = convert_phase(card, counters, dev)
     graphed = graphs_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                            counters, dev)
     meshed = mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                         counters, dev)
     for entry in report:
-        a, b, c, d, e = (lockstep[entry["name"]], serving[entry["name"]],
-                         clone[entry["name"]], graphed[entry["name"]],
-                         meshed[entry["name"]])
-        entry.update(launches=a + b + c + d + e, launches_lockstep=a,
+        a, b, c, d, e, f = (lockstep[entry["name"]], serving[entry["name"]],
+                            clone[entry["name"]], graphed[entry["name"]],
+                            meshed[entry["name"]], converted[entry["name"]])
+        entry.update(launches=a + b + c + d + e + f, launches_lockstep=a,
                      launches_serving=b, launches_clone=c,
-                     launches_graphs=d, launches_mesh=e)
+                     launches_graphs=d, launches_mesh=e,
+                     launches_convert=f)
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on a main path")
         if entry["launches_mesh"] <= 0:

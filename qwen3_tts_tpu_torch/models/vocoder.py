@@ -10,7 +10,13 @@ Convolutions round their input to the weight dtype and accumulate in f32
 (the JAX ``preferred_element_type=f32`` convention). On a CUDA tensor the
 decoder blocks run the hand-written kernels of ops/vocoder_fused.py: the
 residual chain always, the Snake + convT head with trim="causal"; their
-parameters are packed once by ``pack_kernel_weights``.
+parameters are packed once by ``pack_kernel_weights``. The JAX package's
+``set_res_chain_impl`` switch is ported (models/impl_switch.py; no
+environment variable, as in the JAX package): ``auto`` (the default) and
+``fused`` take the kernels on a CUDA tensor (they raise where a shape is
+not served), ``xla`` the plain torch path; a CPU tensor always runs the
+plain path, which is the kernels' twin. The engine's vocoder graphs are
+keyed by it (runtime/graphs.voc_key), so a change takes a new graph.
 ``load_vocoder_weights`` reads the codec GGUF onto a device in f32, as the
 JAX loader does; the pipeline casts (``cast_weights``) and packs.
 """
@@ -26,7 +32,17 @@ import torch.nn.functional as F
 from ..config import VocoderConfig
 from ..ops.layers import NEG_INF, dot, fast_sin2, rms_norm, rope_neox
 from ..ops.vocoder_fused import (fused_residual_chain, fused_snake_convt,
-                                 pack_block)
+                                 pack_block, residual_chain_twin)
+from .impl_switch import ImplSwitch
+
+_SWITCH = ImplSwitch(None, "set_res_chain_impl")
+set_res_chain_impl = _SWITCH.set
+_resolve_impl = _SWITCH.resolve
+
+
+def _kernels(x: torch.Tensor) -> bool:
+    """Whether the decoder blocks take the kernels for `x`."""
+    return x.is_cuda and _SWITCH.resolve() != "xla"
 
 
 def _ncw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -114,8 +130,11 @@ def _residual_block(w, x: torch.Tensor, dilation: int) -> torch.Tensor:
 
 
 def _res_chain(blk_w, x: torch.Tensor) -> torch.Tensor:
-    """The 3-block dilated residual chain (the kernel on a CUDA tensor)."""
-    return fused_residual_chain(x, blk_w)
+    """The 3-block dilated residual chain (the kernel on a CUDA tensor
+    unless the switch says xla)."""
+    if _kernels(x):
+        return fused_residual_chain(x, blk_w)
+    return residual_chain_twin(x, blk_w)
 
 
 def _decoder_block(w, x: torch.Tensor, rate: int,
@@ -125,7 +144,7 @@ def _decoder_block(w, x: torch.Tensor, rate: int,
     trim="both": (K-rate) cut from both sides, output (T+1)*rate - K.
     trim="causal": (K-rate) cut from the left only, output exactly T*rate
     (the streaming path's fixed-chunk sample arithmetic)."""
-    if trim == "causal" and x.is_cuda:
+    if trim == "causal" and _kernels(x):
         return _res_chain(w, fused_snake_convt(x, w, rate))
     k = w["conv_t_w"].shape[-1]
     x = conv_transpose1d(snake(x, w["snake_a"], w["snake_b"]),

@@ -119,11 +119,14 @@ def gen_key(*, model_tag: str, buffers: int, B: int, ctx: int,
 
 
 def voc_key(*, model_tag: str, n: int, frames: int, sub: int | None,
-            pcm16: bool, device, mesh: tuple | None = None) -> str:
+            pcm16: bool, res_impl: str, device,
+            mesh: tuple | None = None) -> str:
     """Name of one vocoder-decode graph (the JAX package's ``_voc_fn``
-    name, plus the device and the mesh position)."""
+    name, plus the residual-chain switch, as ``gen_key`` carries the
+    talker's and the code predictor's, the device and the mesh
+    position)."""
     return (f"voc-{model_tag}-n{n}-f{frames}-s{sub or 0}-p{int(pcm16)}"
-            f"-d{torch.device(device)}{_mesh_tag(mesh)}")
+            f"-v{res_impl}-d{torch.device(device)}{_mesh_tag(mesh)}")
 
 
 # -- launch counters ----------------------------------------------------------

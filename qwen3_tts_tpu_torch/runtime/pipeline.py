@@ -801,7 +801,8 @@ class Qwen3TTS:
         if self.low_mem:
             return codes, decode
         key = voc_key(model_tag=self.model_tag(), n=n, frames=frames,
-                      sub=sub, pcm16=pcm16, device=self.device,
+                      sub=sub, pcm16=pcm16,
+                      res_impl=vocoder._resolve_impl(), device=self.device,
                       mesh=self._mesh_key())
         return codes, self.graphs.get_or_capture(key, decode, self.device)
 

@@ -1100,3 +1100,100 @@ def test_mesh_frame_graph_replays_bitwise(dev, nccl_mesh, monkeypatch):
     _assert_same_audio(first, graph, eager, plain)
     keys = [k for k, _ in eng.graphs.graphs]
     assert keys and all(k.endswith("-m1x1-rk0") for k in keys), keys
+
+
+# -- the offline pipeline (qwen3_tts_tpu_torch/tools) --------------------
+# the talker and code predictor at the widths the kernels serve, one
+# talker layer; a small text vocabulary and speaker encoder
+CARD_GEOMETRY = dict(layers=1, text_vocab=256, text_hidden=64,
+                     spk_hidden=16)
+
+
+def test_converted_bf16_checkpoint_loads_bitwise_on_card(dev, tmp_path):
+    """A small BF16 HF checkpoint converted at f16 by the port's converter
+    into a model directory: load_models(dir, "cuda") gives bitwise the
+    CPU load (the vocoder's matrices cast to bf16 on the card, as
+    load_models casts them there), speaker encoder included."""
+    from qwen3_tts_tpu_torch.config import VocoderConfig as VCfg
+    from qwen3_tts_tpu_torch.io.gguf import GGUFReader
+    from qwen3_tts_tpu_torch.runtime.pipeline import CODEC_FILE, TTS_FILE
+    from qwen3_tts_tpu_torch.tools import convert_checkpoints as cc
+    tts, codec = tmp_path / "hf_tts", tmp_path / "hf_codec"
+    chip_smoke.write_hf_checkpoints(tts, codec, 61, device=dev,
+                                    **CARD_GEOMETRY)
+    mdir = tmp_path / "models"
+    mdir.mkdir()
+    cc.convert_tts(tts, mdir / TTS_FILE, "f16")
+    cc.convert_codec(codec, mdir / CODEC_FILE, "f16")
+    card, host = Qwen3TTS(), Qwen3TTS()
+    assert card.load_models(str(mdir), "cuda"), card.error_msg
+    assert host.load_models(str(mdir), "cpu"), host.error_msg
+    chip_smoke._check_bits(card.talker_w, host.talker_w, dev, "talker")
+    with GGUFReader(str(mdir / CODEC_FILE)) as r:
+        voc_w = vocoder.load_vocoder_weights(r, VCfg.from_gguf(r), "cpu")
+    # cast on the host, packed on the card (exp(alpha) rounds apart there)
+    chip_smoke._check_bits(card.voc_w, vocoder.pack_kernel_weights(
+        chip_smoke._to(vocoder.cast_weights(voc_w), dev)), dev, "vocoder")
+    assert card._ensure_speaker_encoder() and host._ensure_speaker_encoder()
+    chip_smoke._check_bits(card.spk_w, host.spk_w, dev, "speaker encoder")
+
+
+def test_parity_on_card_takes_the_kernels(dev, tmp_path):
+    """tools/parity.run_parity on the card (talker stages): both passes
+    pass; the bf16 pass's step launches the talker megakernel, its xla
+    step decode attention once a layer, its code predictor its kernel;
+    the f32 pass none of the kernels that need bf16 weights."""
+    from qwen3_tts_tpu_torch.tools import parity
+    tts, codec = tmp_path / "hf_tts", tmp_path / "hf_codec"
+    chip_smoke.write_hf_checkpoints(tts, codec, 62, device=dev,
+                                    **CARD_GEOMETRY)
+    report = []
+    failures, _ = parity.run_parity(tts, None, "cuda", seed=62,
+                                    report=report)
+    assert failures == []
+    by = {r["stage"]: r for r in report}
+    assert by["bf16:step_hidden[fused]"]["launches"] == {"talker_fused": 1}
+    assert by["bf16:step_hidden[xla]"]["launches"] == {"flash_decode": 1}
+    assert by["bf16:code_pred_codes"]["launches"] == {"codepred": 1}
+    assert not any(k in r["launches"] for r in report if r["pass"] == "f32"
+                   for k in ("talker_fused", "codepred"))
+
+
+def test_vocoder_xla_switch_on_card(dev, tmp_path):
+    """set_res_chain_impl("xla") takes the plain path on CUDA tensors (no
+    vocoder kernel launch), "auto" the kernels; the audio agrees. The
+    codec is a synthetic checkpoint at its full widths, whose audio stays
+    off tanh's rails (chip_smoke.hf_codec_tensors)."""
+    from qwen3_tts_tpu_torch.config import VocoderConfig as VCfg
+    from qwen3_tts_tpu_torch.io.gguf import GGUFReader
+    from qwen3_tts_tpu_torch.tools import convert_checkpoints as cc
+    chip_smoke.write_hf_checkpoints(
+        tmp_path / "t", tmp_path / "c", 63, device=dev, hidden=64, layers=1,
+        heads=4, kv_heads=2, head_dim=16, inter=192, text_vocab=64,
+        text_hidden=16, cp_layers=1, cp_vocab=64, spk_hidden=16)
+    cc.convert_codec(tmp_path / "c", tmp_path / "codec.gguf", "f16")
+    with GGUFReader(str(tmp_path / "codec.gguf")) as r:
+        vcfg = VCfg.from_gguf(r)
+        w = vocoder.load_vocoder_weights(r, vcfg, dev)
+    w = vocoder.pack_kernel_weights(vocoder.cast_weights(w))
+    gen = torch.Generator(device=dev).manual_seed(63)
+    codes = torch.randint(0, vcfg.codebook_size, (2, 4, vcfg.n_codebooks),
+                          generator=gen, device=dev, dtype=torch.int32)
+    out = {}
+    for impl in ("xla", "auto"):
+        vocoder.set_res_chain_impl(impl)
+        before = (vf.fused_residual_chain.launches,
+                  vf.fused_snake_convt.launches)
+        try:
+            out[impl] = vocoder.vocoder_decode(w, vcfg, codes, "causal")
+            torch.cuda.synchronize()
+        finally:
+            vocoder.set_res_chain_impl(None)
+        ran = (vf.fused_residual_chain.launches - before[0],
+               vf.fused_snake_convt.launches - before[1])
+        assert ran == ((0, 0) if impl == "xla" else (4, 4)), (impl, ran)
+    ref, got = out["xla"].float(), out["auto"].float()
+    assert torch.isfinite(got).all()
+    assert (ref.abs() > 0.99).float().mean() < 0.01    # off the rails
+    rms = ref.pow(2).mean().sqrt()
+    assert (got - ref).pow(2).mean().sqrt() / rms < VOC_MAX_TOL

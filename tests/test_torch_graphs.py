@@ -241,11 +241,11 @@ def test_gen_keys_tell_switches_apart(switch):
 
 def test_voc_keys():
     k = dict(model_tag="abcd1234", n=8, frames=40, sub=None, pcm16=True,
-             device="cuda:0")
+             res_impl="auto", device="cuda:0")
     assert graphs.voc_key(**k) == graphs.voc_key(**dict(k))
     for name, other in (("n", 16), ("frames", 20), ("sub", 4),
-                        ("pcm16", False), ("model_tag", "x"),
-                        ("device", "cuda:1")):
+                        ("pcm16", False), ("res_impl", "xla"),
+                        ("model_tag", "x"), ("device", "cuda:1")):
         assert graphs.voc_key(**k) != graphs.voc_key(**{**k, name: other})
 
 
@@ -269,6 +269,27 @@ def test_engine_keys_follow_the_impl_switches(engine, setup, monkeypatch):
         keys.append(next(k for k in cache.graphs if k not in keys))
     assert len(set(keys)) == 3
     assert "tkauto-cpauto" in keys[0][0] and "tkxla-cpxla" in keys[2][0]
+
+
+def test_engine_voc_keys_follow_the_res_chain_switch(engine, monkeypatch):
+    """Qwen3TTS._voc_fn keys read the vocoder's set_res_chain_impl at each
+    call, as _gen_fn's read the talker's and the code predictor's
+    switches: a change takes a new graph instead of replaying the old."""
+    cache = graphs.GraphCache()
+    monkeypatch.setattr(engine, "_graph_cache", cache)
+    monkeypatch.setattr(graphs.GraphCache, "capturing",
+                        staticmethod(lambda device: True))
+    keys = []
+    try:
+        for impl in (None, "xla", "auto"):
+            tvoc.set_res_chain_impl(impl)
+            engine._voc_fn(2, 40, None, True)
+            keys.append([k for k, _ in cache.graphs])
+    finally:
+        tvoc.set_res_chain_impl(None)
+    assert len(keys[0]) == 1 and "-vauto-" in keys[0][0]
+    assert len(keys[1]) == 2 and "-vxla-" in keys[1][1]
+    assert keys[2] == keys[1]          # auto again: the first graph
 
 
 def test_aot_switch_and_devices(monkeypatch):

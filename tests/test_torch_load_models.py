@@ -41,6 +41,7 @@ from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.ops import codepred_fused  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import generate as tgen  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import pipeline as tpipe  # noqa: E402
+from qwen3_tts_tpu_torch.tools import convert_checkpoints as tcc  # noqa: E402
 
 from .test_converter import (make_codec_checkpoint,  # noqa: E402
                              make_tts_checkpoint)
@@ -146,6 +147,36 @@ def test_speaker_encoder_weights_bitwise(model_dirs, out_type):
         got = tspk.load_speaker_encoder_weights(
             r, SpeakerEncoderConfig.from_gguf(r), "cpu")
     assert_trees_bitwise(got, want)
+
+
+@pytest.mark.parametrize("out_type", ["f32", "q8_0"])
+def test_port_converter_output_loads_bitwise(tmp_path, out_type):
+    """The same checkpoint converted by the port's converter
+    (qwen3_tts_tpu_torch/tools) and by tools/convert_checkpoints.py loads
+    into bitwise the same talker, speaker-encoder and vocoder trees."""
+    rng = np.random.default_rng(320)
+    tts, codec = tmp_path / "hf_tts", tmp_path / "hf_codec"
+    tts.mkdir()
+    codec.mkdir()
+    make_tts_checkpoint(tts, rng)
+    make_codec_checkpoint(codec, rng)
+    trees = []
+    for i, conv in enumerate((cc, tcc)):
+        d = tmp_path / f"out{i}"
+        d.mkdir()
+        conv.convert_tts(tts, d / "tts.gguf", out_type)
+        conv.convert_codec(codec, d / "codec.gguf", out_type)
+        with tg.GGUFReader(str(d / "tts.gguf")) as r:
+            talker_w = W.load_talker_weights(r, TalkerConfig.from_gguf(r),
+                                             "cpu")
+            spk_w = tspk.load_speaker_encoder_weights(
+                r, SpeakerEncoderConfig.from_gguf(r), "cpu")
+        with tg.GGUFReader(str(d / "codec.gguf")) as r:
+            voc_w = tvoc.load_vocoder_weights(r, VocoderConfig.from_gguf(r),
+                                              "cpu")
+        trees.append((talker_w, spk_w, voc_w))
+    for got, want in zip(*trees):
+        assert_trees_bitwise(got, want)
 
 
 def test_codebook_usage_normalised_as_jax(tmp_path):

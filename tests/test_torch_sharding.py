@@ -182,7 +182,7 @@ def test_graph_keys_carry_the_mesh():
     assert r1 == plain + "-m2x1-rk1"
     assert r1 != graphs.gen_key(**key, mesh=(2, 1, 0))
     assert graphs.voc_key(model_tag="t", n=8, frames=40, sub=None,
-                          pcm16=True, device="cuda:0",
+                          pcm16=True, res_impl="auto", device="cuda:0",
                           mesh=(1, 1, 0)).endswith("-m1x1-rk0")
 
 

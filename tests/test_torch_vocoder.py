@@ -277,3 +277,24 @@ def test_chain_scratch_cached_per_shape(monkeypatch):
     bigger = tvf._chain_scratch(dev, 3, 40, 96)
     assert bigger[0].shape == (3, 40, 96)
     assert len(tvf._CHAIN_SCRATCH) == 2
+
+
+@pytest.mark.parametrize("impl", ["xla", "fused", "auto"])
+@pytest.mark.parametrize("trim", ["both", "causal"])
+def test_res_chain_switch_on_cpu(weights, codes, impl, trim):
+    """The ported set_res_chain_impl switch: every implementation runs the
+    plain path on CPU tensors, as the JAX package takes its XLA chain off
+    the TPU, so the audio is the JAX package's under each; None restores
+    the default, auto; fused_interpret raises."""
+    jw, tw = weights
+    want = np.asarray(jv.vocoder_decode(jw, VCFG, jnp.asarray(codes), trim))
+    tv.set_res_chain_impl(impl)
+    try:
+        assert tv._resolve_impl() == impl
+        got = tv.vocoder_decode(tw, TVCFG, torch.from_numpy(codes), trim)
+    finally:
+        tv.set_res_chain_impl(None)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    assert tv._resolve_impl() == "auto"
+    with pytest.raises(ValueError, match="fused_interpret"):
+        tv.set_res_chain_impl("fused_interpret")
