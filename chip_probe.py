@@ -111,9 +111,9 @@ MUTANTS = {
     "res_chain: tap offset off by one dilation": (CHAIN, (
         "kConv7 ? (6 - tap) * p.d : 0;", "kConv7 ? (7 - tap) * p.d : 0;")),
     "res_chain: snake2 skipped": (CHAIN, (
-        "__floats2bfloat162_rn(snake(v0, p.sa[col], p.sib[col]),\n"
-        "                                    snake(v1, p.sa[col + 1], "
-        "p.sib[col + 1]));",
+        "__floats2bfloat162_rn(\n"
+        "                  snake<EXACT>(v0, p.sa[col], p.sib[col]),\n"
+        "                  snake<EXACT>(v1, p.sa[col + 1], p.sib[col + 1]));",
         "__floats2bfloat162_rn(v0, v1);")),
     # for streams after the first, the rows before t = 0 are then the
     # previous stream's last rows (memory-safe; stream 0 still reads zeros)

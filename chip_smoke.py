@@ -64,7 +64,24 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    frame by kernel group, each vocoder kernel on its own, the card's busy
    share; one code-predictor and one talker launch a frame) beside an
    eager one;
-8. mesh (parallel/mesh.py): a world-size-1 NCCL process group in this
+8. pipelined (the lock-step loop that enqueues chunk k+1 before it reads
+   and decodes chunk k): ``synthesize_batch`` over 3 chunks (120 frames)
+   at B 4 and 64, auto bf16 greedy with graphs, unprofiled (generate ms a
+   lock-step frame, wall) and under torch.profiler (the card's busy share
+   of the wall, the three longest idle gaps on the card with the host
+   operation that spanned each; one code-predictor and one talker launch
+   a frame); ``set_decode_attention_impl`` auto / xla / flash on a
+   lock-step and a serving run under QWEN3_TTS_TALKER=xla (xla makes no
+   decode-attention launch, flash as many as auto); an engine made
+   without a vocoder (``from_components(..., None, None, ...)``): codes
+   as the full engine's, "Vocoder not loaded" in lock-step, no audio at
+   24000 Hz from a warmed batcher; ``res_chain_impl_traced`` "fused"
+   after a fresh engine's first decode, "untraced" after a reset and
+   replays only. Before the main paths, the residual chain and the head
+   are also checked against their twins in the exact sin^2 mode
+   (``set_snake_sin2_impl``; one block, B 2, bitwise on a second call)
+   and the 4 blocks timed in both modes;
+9. mesh (parallel/mesh.py): a world-size-1 NCCL process group in this
    process and ``make_mesh(1, 1, "cuda")``; a second engine over the same
    weights, ``shard``-ed, against the unsharded one: ``synthesize_batch``
    (auto bf16, B 4, 80 frames, greedy and at T 0.9 with one seed) and the
@@ -90,7 +107,10 @@ tools/parity.BF16_TOL).
 ``python3 chip_smoke.py --compare DIR`` instead times the code predictor,
 decode attention, the talker megakernel, the residual chain and the Snake
 + convT head through their wrappers in the checkout at DIR and in this
-one, in turns DIR, this, this, DIR.
+one, in turns DIR, this, this, DIR, and in the same turns
+``synthesize_batch`` at B 4 and 64 (120 frames, greedy, bf16 and int8
+KV): generate ms a lock-step frame and wall ms, with every run's codes
+and int16 PCM bitwise the first DIR run's.
 """
 
 from __future__ import annotations
@@ -1575,10 +1595,7 @@ def profile_lockstep(engine, card, dev, mode: str) -> float:
                 break
         else:
             rest += end - start
-    busy, last = 0.0, float("-inf")
-    for _, start, end in sorted(events, key=lambda e: e[1]):
-        busy += max(0.0, end - max(start, last))
-        last = max(last, end)
+    busy = sum(end - start for start, end in _merged(events))
     n_cp = sum("codepred_frame_kernel" in e[0] for e in events)
     n_tf = sum("talker_step_kernel" in e[0] for e in events)
     split = ", ".join(f"{k} {v / 1e3 / frames:.3f}" for k, v in groups.items())
@@ -2347,6 +2364,320 @@ def _mesh_tp_child(rank: int, store: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+# --- pipelined lock-step, the A.19 switches, a vocoder-less engine -----------
+PIPE_B = (4, 64)              # the multi-chunk profile's batches
+PIPE_GAPS = 3                 # the longest idle gaps shown, each profile
+SIN2_BLOCK = 0                # the exact-mode check's decoder block (B = 2)
+
+
+def _merged(events) -> list:
+    """The union of (name, start, end) intervals as sorted [start, end]."""
+    out: list = []
+    for _, start, end in sorted(events, key=lambda e: e[1]):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
+def _host_ops(prof) -> list:
+    """(name, start us, end us) of the profiler's host-side events: aten
+    operators and CUDA runtime calls."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+
+
+def _idle_gaps(kernels, host, n: int) -> list:
+    """The n longest gaps between the card's busy intervals, longest
+    first: (gap us, its start in us after the first kernel's, the host
+    operation that spanned it, the share of the gap it covers). The
+    spanning operation is the shortest host event that covers at least
+    half of the gap (the innermost), else the one covering the most of
+    it."""
+    busy = _merged(kernels)
+    gaps = sorted(((b[0] - a[1], a[1], b[0]) for a, b in zip(busy, busy[1:])),
+                  reverse=True)[:n]
+    out = []
+    for us, g0, g1 in gaps:
+        cover = [(min(g1, e) - max(g0, s), e - s, name)
+                 for name, s, e in host if s < g1 and e > g0]
+        inner = [c for c in cover if c[0] >= us / 2]
+        best = (min(inner, key=lambda c: c[1]) if inner
+                else max(cover, default=(0.0, 0.0, "(no host event)")))
+        out.append((us, g0 - busy[0][0], best[2], best[0] / us if us else 0.0))
+    return out
+
+
+def profile_pipelined(engine, card, dev, B: int, counters) -> dict:
+    """A multi-chunk lock-step run (LOCKSTEP_TOKENS = 3 chunks of the
+    lock-step texts repeated to B streams, greedy, bf16, auto, CUDA
+    graphs): a warm call, an unprofiled call (generate ms a lock-step
+    frame, wall) and one under torch.profiler: the card's busy share of
+    the wall, and its PIPE_GAPS longest idle gaps with the host operation
+    that spanned each. One code-predictor and one talker launch a frame.
+    Returns the unprofiled call's kernel launches."""
+    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
+    os.environ["QWEN3_TTS_KV"] = "bf16"
+    texts = (LOCKSTEP_TEXTS * B)[:B]
+    params = TTSParams(max_audio_tokens=LOCKSTEP_TOKENS, temperature=0.0,
+                       seed=SEED)
+    engine.synthesize_batch(texts, params=params)          # warm
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = engine.synthesize_batch(texts, params=params)
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) * 1e3
+    ran = {k: fn.launches for k, fn in counters.items()}
+    _check_results(res, engine)
+    _expect_launches(ran, "auto", f"pipelined B={B}")
+    steps = ran["talker_fused"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
+        t0 = time.monotonic()
+        pres = engine.synthesize_batch(texts, params=params)
+        torch.cuda.synchronize()
+        pwall = (time.monotonic() - t0) * 1e3
+        time.sleep(PROFILER_PAD_S)
+    events = _kernel_events(prof)
+    busy = sum(e - s for s, e in _merged(events))
+    n_cp = sum("codepred_frame_kernel" in e[0] for e in events)
+    n_tf = sum("talker_step_kernel" in e[0] for e in events)
+    gaps = _idle_gaps(events, _host_ops(prof), PIPE_GAPS)
+    frames = [r.n_frames for r in res]
+    log(f"pipelined: synthesize_batch B={B} auto bf16 greedy, "
+        f"{LOCKSTEP_TOKENS} frames cap, {steps} lock-step frames "
+        f"({steps // CHUNK} chunks), stream frames {min(frames)}-"
+        f"{max(frames)}; unprofiled: generate {res[0].t_generate_ms:.1f} ms "
+        f"= {res[0].t_generate_ms / steps:.3f} ms per lock-step frame, decode "
+        f"{res[0].t_decode_ms:.1f} ms, wall {wall:.1f} ms; profiled: wall "
+        f"{pwall:.1f} ms, card busy {busy / 1e3:.1f} ms = "
+        f"{busy / 1e3 / pwall:.1%} of the wall (idle {1 - busy / 1e3 / pwall:.1%}; busy over the "
+        f"unprofiled wall {busy / 1e3 / wall:.1%}); code predictor {n_cp}, "
+        f"talker {n_tf} launches on {card}")
+    span = (max(e for _, _, e in events) - min(s for _, s, _ in events)) / 1e3
+    for us, at, name, share in gaps:
+        log(f"  idle gap {us / 1e3:.3f} ms at {at / 1e3:.1f} of the "
+            f"{span:.1f} ms from the first kernel to the last, spanned by "
+            f"host op {name!r} ({share:.0%} of the gap)")
+    if not (n_cp == n_tf == steps and steps % CHUNK == 0
+            and steps >= max(frames) and _same(res, pres)):
+        raise AssertionError(f"B={B}: {steps} frames run, code predictor "
+                             f"{n_cp} and talker {n_tf} launches profiled; "
+                             f"profiled audio as unprofiled: "
+                             f"{_same(res, pres)}")
+    return ran
+
+
+def attention_switch_runs(engine, card, counters, dev) -> dict:
+    """set_decode_attention_impl on the main paths under
+    QWEN3_TTS_TALKER=xla (whose per-layer step reaches decode attention):
+    one lock-step synthesize_batch (40 frames) and one ContinuousBatcher
+    run (8 slots, 8 requests) for each of auto, xla and flash. xla makes
+    no decode-attention launch, flash as many as auto; the frames agree.
+    Returns the launches of the three."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.ops import attention
+    from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    os.environ["QWEN3_TTS_KV"] = "bf16"
+    total = dict.fromkeys(counters, 0)
+    attn, frames = {}, {}
+    talker.set_talker_step_impl("xla")
+    try:
+        for impl in ("auto", "xla", "flash"):
+            attention.set_decode_attention_impl(impl)
+            for fn in counters.values():
+                fn.launches = 0
+            res = engine.synthesize_batch(LOCKSTEP_TEXTS, params=TTSParams(
+                max_audio_tokens=CHUNK, temperature=0.0, seed=SEED))
+            cb = ContinuousBatcher(engine, n_slots=SERVE_SLOTS,
+                                   params=TTSParams(temperature=0.0,
+                                                    seed=SEED),
+                                   max_frames=48)
+            rids = [cb.submit(t) for t in [SERVE_SHORT, SERVE_LONG] * 4]
+            out = cb.run_all()
+            torch.cuda.synchronize()
+            served = [out[r] for r in rids]
+            _check_results(res + served, engine)
+            ran = {k: fn.launches for k, fn in counters.items()}
+            total = {k: total[k] + ran[k] for k in counters}
+            attn[impl] = ran["flash_decode"]
+            frames[impl] = [r.n_frames for r in res + served]
+            log(f"decode-attention switch {impl}: lock-step (talker xla, B=4,"
+                f" {CHUNK} frames) and serving (8 requests): kernel launches "
+                f"{ran}")
+    finally:
+        talker.set_talker_step_impl(None)
+        attention.set_decode_attention_impl(None)
+    if not (attn["xla"] == 0 and attn["flash"] == attn["auto"] > 0):
+        raise AssertionError(f"decode-attention launches by switch: {attn}")
+    if not frames["xla"] == frames["auto"] == frames["flash"]:
+        raise AssertionError(f"frames by switch: {frames}")
+    return total
+
+
+def check_exact_sin2(blocks, card, dev, gen) -> dict:
+    """set_snake_sin2_impl("exact") on the kernels: the residual chain and
+    the Snake + convT head at block SIN2_BLOCK's shape, B = VOC_B, against
+    their twins in the same mode (the fast mode's tolerances), two calls
+    bitwise equal; then the 4 blocks of a chunk at B = VOC_B timed in both
+    modes, in turns fast, exact, exact, fast (CUDA events and the
+    profiler's device ms). Returns, per kernel, the exact mode's ms."""
+    from qwen3_tts_tpu_torch.ops import vocoder_fused as vf
+    blk = blocks[SIN2_BLOCK]
+    c, t = CHAIN_SHAPES[SIN2_BLOCK]
+    hc, _, rate, ht = HEAD_SHAPES[SIN2_BLOCK]
+    xc = torch.randn(VOC_B, t, c, generator=gen, device=dev)
+    xh = torch.randn(VOC_B, ht, hc, generator=gen, device=dev)
+    pairs = {"res_chain": (lambda: vf.fused_residual_chain(xc, blk),
+                           lambda: vf.residual_chain_twin(xc, blk)),
+             "snake_convt": (lambda: vf.fused_snake_convt(xh, blk, rate),
+                             lambda: vf.snake_convt_twin(xh, blk, rate))}
+    vf.set_snake_sin2_impl("exact")
+    try:
+        for name, (kern, twin) in pairs.items():
+            got, again, ref = kern(), kern(), twin()
+            _, e_max, e_rms = _rms_check(f"{name} exact sin^2", got, ref,
+                                         f"B={VOC_B} block {SIN2_BLOCK}")
+            if not (torch.equal(got, again) and e_max <= VOC_MAX_TOL
+                    and e_rms <= VOC_RMS_TOL):
+                raise AssertionError(f"{name} in the exact mode: bitwise "
+                                     f"{torch.equal(got, again)}, {e_max}, "
+                                     f"{e_rms}")
+    finally:
+        vf.set_snake_sin2_impl("fast")
+    xs = [torch.randn(VOC_B, t, c, generator=gen, device=dev)
+          for c, t in CHAIN_SHAPES]
+    hs = [torch.randn(VOC_B, t, c, generator=gen, device=dev)
+          for c, _, _, t in HEAD_SHAPES]
+    calls = {"res_chain": (lambda: [vf.fused_residual_chain(x, b) for x, b
+                                    in zip(xs, blocks)], RES_CHAIN_KERNELS),
+             "snake_convt": (lambda: [vf.fused_snake_convt(x, b, r) for
+                                      x, b, (*_, r, _) in zip(hs, blocks,
+                                                              HEAD_SHAPES)],
+                             HEAD_KERNELS)}
+    times = {name: {"fast": [], "exact": []} for name in calls}
+    try:
+        for mode in ("fast", "exact", "exact", "fast"):
+            vf.set_snake_sin2_impl(mode)
+            for name, (fn, names) in calls.items():
+                times[name][mode].append((cuda_time(fn, iters=5),
+                                          device_ms(fn, 3, names)))
+    finally:
+        vf.set_snake_sin2_impl("fast")
+    out = {}
+    for name, by in times.items():
+        txt = "; ".join(f"{m} " + ", ".join(f"{a:.3f} (device {b:.3f})"
+                                            for a, b in v)
+                        for m, v in by.items())
+        log(f"{name}, 4 decoder blocks at B={VOC_B}, ms by sin^2 mode: {txt}"
+            f" on {card}")
+        out[name] = {"exact_ms": min(a for a, _ in by["exact"]),
+                     "exact_device_ms": min(b for _, b in by["exact"]),
+                     "fast_ms_again": min(a for a, _ in by["fast"])}
+    return out
+
+
+def vocoderless_runs(tok, cfg, talker_w, engine, card, counters,
+                     dev) -> dict:
+    """An engine made with from_components(..., voc_cfg=None, voc_w=None)
+    (the JAX package's semantics): synthesize_batch generates the full
+    engine's frames and reports "Vocoder not loaded" with no audio; a
+    warmed ContinuousBatcher serves the full engine's frames with no
+    audio at 24000 Hz; no vocoder kernel launches. Returns the
+    launches."""
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    os.environ["QWEN3_TTS_KV"] = "bf16"
+    bare = Qwen3TTS.from_components(tok, cfg, talker_w, None, None, dev)
+    params = TTSParams(max_audio_tokens=LOCKSTEP_TOKENS, temperature=0.0,
+                       seed=SEED)
+    serve_texts = [SERVE_SHORT, SERVE_LONG] * 4
+    runs, ran = {}, {}
+    for name, eng in (("full", engine), ("bare", bare)):
+        for fn in counters.values():
+            fn.launches = 0
+        res = eng.synthesize_batch(LOCKSTEP_TEXTS, params=params)
+        cb = ContinuousBatcher(eng, n_slots=SERVE_SLOTS, params=TTSParams(
+            temperature=0.0, seed=SEED), max_frames=48)
+        if name == "bare":
+            cb.warmup()
+        rids = [cb.submit(t) for t in serve_texts]
+        out = cb.run_all()
+        torch.cuda.synchronize()
+        runs[name] = (res, [out[r] for r in rids])
+        ran[name] = {k: fn.launches for k, fn in counters.items()}
+    (f_res, f_srv), (b_res, b_srv) = runs["full"], runs["bare"]
+    total = {k: ran["full"][k] + ran["bare"][k] for k in counters}
+    ok = (all(b.n_frames == f.n_frames > 0 and not b.success
+              and b.error_msg == "Vocoder not loaded" and len(b.audio) == 0
+              for b, f in zip(b_res, f_res))
+          and all(b.n_frames == f.n_frames > 0 and b.success
+                  and len(b.audio) == 0 and b.sample_rate == 24000
+                  for b, f in zip(b_srv, f_srv))
+          and ran["bare"]["res_chain"] == ran["bare"]["snake_convt"] == 0)
+    log(f"vocoder-less engine: synthesize_batch frames "
+        f"{[r.n_frames for r in b_res]} (full engine "
+        f"{[r.n_frames for r in f_res]}), messages "
+        f"{sorted({r.error_msg for r in b_res})}; warmed ContinuousBatcher "
+        f"frames {[r.n_frames for r in b_srv]} (full "
+        f"{[r.n_frames for r in f_srv]}), success "
+        f"{all(r.success for r in b_srv)}, rates "
+        f"{sorted({r.sample_rate for r in b_srv})}; launches {ran['bare']}")
+    if not ok:
+        raise AssertionError("the vocoder-less engine broke the JAX "
+                             "package's semantics")
+    return total
+
+
+def traced_runs(tok, cfg, talker_w, vcfg, voc_w, dev) -> None:
+    """res_chain_impl_traced on the card: a fresh engine's first decode
+    captures its vocoder graphs through the kernels' wrappers ("fused");
+    after a reset the same call only replays them ("untraced")."""
+    from qwen3_tts_tpu_torch.models import vocoder
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    fresh = Qwen3TTS.from_components(tok, cfg, talker_w, vcfg, voc_w, dev)
+    params = TTSParams(max_audio_tokens=CHUNK, temperature=0.0, seed=SEED)
+    readings = []
+    for _ in range(2):
+        vocoder.reset_res_chain_traced()
+        fresh.synthesize_batch(LOCKSTEP_TEXTS, params=params)
+        readings.append(vocoder.res_chain_impl_traced())
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"res_chain_impl_traced: first decode {readings[0]!r}, after a "
+        f"reset and replays only {readings[1]!r}")
+    if readings != ["fused", "untraced"]:
+        raise AssertionError(f"res_chain_impl_traced read {readings}")
+
+
+def pipelined_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
+                    dev) -> dict:
+    """The pipelined lock-step loop profiled over 3 chunks at B 4 and 64,
+    the decode-attention switch, a vocoder-less engine and
+    res_chain_impl_traced (module docstring, item 8). Returns the kernel
+    launches of its main-path runs."""
+    t0 = time.monotonic()
+    total = dict.fromkeys(counters, 0)
+    for B in PIPE_B:
+        ran = profile_pipelined(engine, card, dev, B, counters)
+        total = {k: total[k] + ran[k] for k in counters}
+    for ran in (attention_switch_runs(engine, card, counters, dev),
+                vocoderless_runs(tok, cfg, talker_w, engine, card, counters,
+                                 dev)):
+        total = {k: total[k] + ran[k] for k in counters}
+    traced_runs(tok, cfg, talker_w, vcfg, voc_w, dev)
+    log(f"pipelined phase: {time.monotonic() - t0:.1f} s")
+    return total
+
+
 def _counters() -> dict:
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
     from qwen3_tts_tpu_torch.ops import flash_decode as fd
@@ -2366,7 +2697,7 @@ def _same(a, b) -> bool:
 
 def mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
                dev) -> dict:
-    """parallel/mesh.py on the card (module docstring, item 7). Returns
+    """parallel/mesh.py on the card (module docstring, item 9). Returns
     the kernel launches of the sharded runs (the tp = 2 ranks' counted
     once, rank 0's)."""
     import torch.distributed as dist
@@ -2817,15 +3148,14 @@ def _stage_line(r: dict) -> str:
 def _check_parity_report(report: list, n_layers: int) -> None:
     """Every stage passed; in the bf16 pass the step, the code predictor
     and the vocoder took their kernels, the xla step decode attention (a
-    launch a layer); the f32 pass launched none of the four kernels that
-    need bf16 weights."""
-    fused_only = ("talker_fused", "codepred", "res_chain", "snake_convt")
+    launch a layer); the f32 pass, on the plain path end to end (decode
+    attention at xla), launched no kernel."""
     seen = set()
     for r in report:
         ran = r["launches"]
         if not r["ok"]:
             raise AssertionError(f"parity stage failed: {r}")
-        if r["pass"] == "f32" and any(k in ran for k in fused_only):
+        if r["pass"] == "f32" and ran:
             raise AssertionError(f"f32 pass launched a kernel: {r}")
         stage = r["stage"].split(":")[1]
         if r["pass"] != "bf16":
@@ -3038,6 +3368,76 @@ print("COMPARE " + json.dumps(out), flush=True)
 """
 # (B, read_ctx) of the talker steps --compare times
 COMPARE_TALKER = ((4, 256), (8, 256), (8, 1152), (32, 256), (32, 1152))
+COMPARE_LOCKSTEP_B = (4, 64)  # the lock-step row's batches (PIPE_B)
+
+# The lock-step row of --compare: synthesize_batch at the full widths
+# (random weights from SEED), B 4 and 64, LOCKSTEP_TOKENS frames, greedy,
+# bf16 and int8 KV, through the checkout in the working directory; a warm
+# call, then a timed one. Writes each run's codes (the frames the loop
+# handed to the vocoder) and int16 PCM to an .npz at argv[2].
+COMPARE_LOCKSTEP = r"""
+import importlib.util, json, os, sys, time
+import numpy as np
+import torch
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from qwen3_tts_tpu_torch.config import TalkerConfig, VocoderConfig
+from qwen3_tts_tpu_torch.models import weights as W
+from qwen3_tts_tpu_torch.ops import talker_fused as tf
+from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+cfg, vcfg = TalkerConfig(), VocoderConfig()
+eng = Qwen3TTS.from_components(
+    cs.smoke_tokenizer(), cfg, W.init_talker_weights(cfg, gen, dev), vcfg,
+    W.init_vocoder_weights(vcfg, gen, dev), dev)
+seen = {}
+decode = eng._decode_streaming
+def record(frames, *a):
+    seen["frames"] = frames
+    return decode(frames, *a)
+eng._decode_streaming = record
+out, arrays = {}, {}
+for B in cs.COMPARE_LOCKSTEP_B:
+    texts = (cs.LOCKSTEP_TEXTS * B)[:B]
+    for kv in ("bf16", "int8"):
+        os.environ["QWEN3_TTS_KV"] = kv
+        p = TTSParams(max_audio_tokens=cs.LOCKSTEP_TOKENS, temperature=0.0,
+                      seed=cs.SEED, print_timing=False)
+        eng.synthesize_batch(texts, params=p)
+        torch.cuda.synchronize()
+        steps = tf.talker_step_fused.launches
+        t0 = time.monotonic()
+        res = eng.synthesize_batch(texts, params=p)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+        steps = tf.talker_step_fused.launches - steps
+        name = f"B={B} {kv}"
+        out[name] = [res[0].t_generate_ms / steps, wall, steps]
+        arrays[name + " codes"] = np.concatenate(
+            [np.concatenate(f) for f in seen["frames"]])
+        arrays[name + " pcm"] = np.concatenate(
+            [np.round(r.audio * 32767.0).astype(np.int16) for r in res])
+        arrays[name + " frames"] = np.array([r.n_frames for r in res])
+np.savez(sys.argv[2], **arrays)
+print("LOCKSTEP " + json.dumps(out), flush=True)
+"""
+
+
+def _child(code: str, tag: str, root: str, *args) -> dict:
+    """Run a --compare child in the checkout at `root`; its `tag` line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-c", code, os.path.join(here, "chip_smoke.py"),
+         *args], cwd=os.path.abspath(root), capture_output=True, text=True,
+        timeout=900)
+    lines = [l for l in out.stdout.splitlines() if l.startswith(tag + " ")]
+    if out.returncode != 0 or not lines:
+        raise SystemExit(f"compare {root} failed:\n{out.stderr[-3000:]}")
+    return json.loads(lines[0][len(tag) + 1:])
 
 
 def compare(parent: str) -> int:
@@ -3049,26 +3449,41 @@ def compare(parent: str) -> int:
     in the checkout at `parent` and in this one, in turns parent, this,
     this, parent, each in a child process of its own on this card: CUDA
     events per call and the profiler's device ms per call (every kernel
-    the call ran)."""
+    the call ran). In the same turns, the lock-step row
+    (COMPARE_LOCKSTEP): generate ms a lock-step frame and wall ms of
+    synthesize_batch at B 4 and 64, bf16 and int8 KV, greedy; every run's
+    codes and int16 PCM must equal the first parent run's bitwise."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     _, card = device_info()
     here = os.path.dirname(os.path.abspath(__file__))
-    runs = []
-    for name, root in (("parent", parent), ("change", here),
-                       ("change", here), ("parent", parent)):
-        out = subprocess.run(
-            [sys.executable, "-c", COMPARE_CHILD, os.path.join(
-                here, "chip_smoke.py")], cwd=os.path.abspath(root),
-            capture_output=True, text=True, timeout=900)
-        lines = [l for l in out.stdout.splitlines() if l.startswith("COMPARE")]
-        if out.returncode != 0 or not lines:
-            raise SystemExit(f"compare {name} failed:\n{out.stderr[-3000:]}")
-        runs.append((name, json.loads(lines[0][len("COMPARE "):])))
-        log(f"{name} ({root}): " + ", ".join(
-            f"{k} {v[0]:.4f} ms (device {v[1]:.4f})"
-            for k, v in runs[-1][1].items()) + f" on {card}")
+    tmp = tempfile.mkdtemp(prefix="q3tts_compare_")
+    first = None
+    try:
+        for i, (name, root) in enumerate((("parent", parent),
+                                          ("change", here), ("change", here),
+                                          ("parent", parent))):
+            times = _child(COMPARE_CHILD, "COMPARE", root)
+            log(f"{name} ({root}): " + ", ".join(
+                f"{k} {v[0]:.4f} ms (device {v[1]:.4f})"
+                for k, v in times.items()) + f" on {card}")
+            npz = os.path.join(tmp, f"run{i}.npz")
+            rows = _child(COMPARE_LOCKSTEP, "LOCKSTEP", root, npz)
+            got = dict(np.load(npz))
+            first = first or got
+            same = {k: np.array_equal(got[k], first[k]) for k in first}
+            log(f"{name} lock-step ({root}): " + ", ".join(
+                f"{k}: generate {v[0]:.3f} ms a frame ({v[2]} frames), wall "
+                f"{v[1]:.1f} ms" for k, v in rows.items())
+                + f"; codes and PCM bitwise the first parent run's: "
+                f"{all(same.values())} on {card}")
+            if not all(same.values()):
+                raise SystemExit(f"lock-step output differs from the parent:"
+                                 f" {[k for k, v in same.items() if not v]}")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
     return 0
 
 
@@ -3125,6 +3540,9 @@ def main() -> int:
             failed.append(check.__name__)
     if failed:
         raise SystemExit(f"kernel checks failed: {failed}")
+    exact = check_exact_sin2(blocks, card, dev, gen)
+    for entry in report:
+        entry.update(exact.get(entry["name"], {}))
 
     # the main paths through the user's entry points, at the full widths
     tok = smoke_tokenizer()
@@ -3146,16 +3564,20 @@ def main() -> int:
     converted = convert_phase(card, counters, dev)
     graphed = graphs_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                            counters, dev)
+    piped = pipelined_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
+                            counters, dev)
     meshed = mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                         counters, dev)
     for entry in report:
-        a, b, c, d, e, f = (lockstep[entry["name"]], serving[entry["name"]],
-                            clone[entry["name"]], graphed[entry["name"]],
-                            meshed[entry["name"]], converted[entry["name"]])
-        entry.update(launches=a + b + c + d + e + f, launches_lockstep=a,
+        a, b, c, d, e, f, g = (
+            lockstep[entry["name"]], serving[entry["name"]],
+            clone[entry["name"]], graphed[entry["name"]],
+            meshed[entry["name"]], converted[entry["name"]],
+            piped[entry["name"]])
+        entry.update(launches=a + b + c + d + e + f + g, launches_lockstep=a,
                      launches_serving=b, launches_clone=c,
                      launches_graphs=d, launches_mesh=e,
-                     launches_convert=f)
+                     launches_convert=f, launches_pipelined=g)
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on a main path")
         if entry["launches_mesh"] <= 0:

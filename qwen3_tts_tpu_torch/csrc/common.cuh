@@ -1,6 +1,6 @@
 // Shared helpers for the port's Hopper kernels: bf16 <-> f32, the
-// vocoder's snake activation with the JAX package's fast_sin2 polynomial,
-// and block-wide reductions.
+// vocoder's snake activation (the JAX package's fast_sin2 polynomial or the
+// accurate sine), and block-wide reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,9 +40,17 @@ __device__ __forceinline__ float fast_sin2(float z) {
   return s * s;
 }
 
-// x + exp(-beta) * sin^2(exp(alpha) * x) with a = exp(alpha), ib = exp(-beta)
+// x + exp(-beta) * sin^2(exp(alpha) * x) with a = exp(alpha), ib = exp(-beta);
+// sin^2 is fast_sin2, or with EXACT the accurate sinf squared (the JAX
+// package's set_snake_sin2_impl("exact"); built without fast math)
+template <bool EXACT = false>
 __device__ __forceinline__ float snake(float x, float a, float ib) {
-  return x + ib * fast_sin2(x * a);
+  if constexpr (EXACT) {
+    const float s = sinf(x * a);
+    return x + ib * (s * s);
+  } else {
+    return x + ib * fast_sin2(x * a);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

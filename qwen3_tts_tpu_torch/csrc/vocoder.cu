@@ -60,6 +60,12 @@
 // order: two calls on one input are bitwise equal. Bytes bound it at the
 // main path's shapes (it reads x and writes r / 2 times as many f32
 // values), but as built the tensor cores' 2C-deep product sets its time.
+//
+// Snake's sin^2: every kernel that applies snake (the pre-passes, conv7's
+// and conv1's epilogues) takes a template flag EXACT, set by the C entry
+// points' `exact` argument: false is fast_sin2 (the default, the code as it
+// was before the flag), true the accurate sinf, as the TPU kernels honour
+// the JAX package's set_snake_sin2_impl.
 #include <algorithm>
 
 #include "mma_ring.cuh"
@@ -109,7 +115,7 @@ struct ResArgs {
 // One product over a 128-row x BN-column tile of stream blockIdx.z: conv7
 // (tap k reads rows t - (6 - k) d), conv1, or the head (tap k reads rows
 // t + k, zero after each stream's last row)
-template <int BN, int RK_, int MODE>
+template <int BN, int RK_, int MODE, bool EXACT>
 __device__ __forceinline__ void gemm_tile(const ResArgs& p) {
   extern __shared__ __align__(16) char smem[];
   using TL = Tile<BN, RK_>;
@@ -223,8 +229,9 @@ __device__ __forceinline__ void gemm_tile(const ResArgs& p) {
           *reinterpret_cast<float2*>(p.out + o) = make_float2(v0, v1);
         } else if constexpr (MODE == kConv7) {
           *reinterpret_cast<__nv_bfloat162*>(p.y2 + o) =
-              __floats2bfloat162_rn(snake(v0, p.sa[col], p.sib[col]),
-                                    snake(v1, p.sa[col + 1], p.sib[col + 1]));
+              __floats2bfloat162_rn(
+                  snake<EXACT>(v0, p.sa[col], p.sib[col]),
+                  snake<EXACT>(v1, p.sa[col + 1], p.sib[col + 1]));
         } else {
           const float2 xv = *reinterpret_cast<const float2*>(p.x + o);
           const float o0 = xv.x + v0, o1 = xv.y + v1;
@@ -232,26 +239,27 @@ __device__ __forceinline__ void gemm_tile(const ResArgs& p) {
           if (p.s_out)
             *reinterpret_cast<__nv_bfloat162*>(p.s_out + o) =
                 __floats2bfloat162_rn(
-                    snake(o0, p.sa[col], p.sib[col]),
-                    snake(o1, p.sa[col + 1], p.sib[col + 1]));
+                    snake<EXACT>(o0, p.sa[col], p.sib[col]),
+                    snake<EXACT>(o1, p.sa[col + 1], p.sib[col + 1]));
         }
       }
 }
 
 // The chain's products and the head's under names of their own, so that
 // a profile tells them apart
-template <int BN, int RK, bool CONV7>
+template <int BN, int RK, bool CONV7, bool EXACT>
 __global__ void __launch_bounds__(RTHREADS, 2) res_gemm_kernel(ResArgs p) {
-  gemm_tile<BN, RK, CONV7 ? kConv7 : kConv1>(p);
+  gemm_tile<BN, RK, CONV7 ? kConv7 : kConv1, EXACT>(p);
 }
 
 template <int BN>
 __global__ void __launch_bounds__(RTHREADS, 2)
 snake_convt_gemm_kernel(ResArgs p) {
-  gemm_tile<BN, 64, kHead>(p);
+  gemm_tile<BN, 64, kHead, false>(p);   // no snake in the head's epilogue
 }
 
 // s = bf16(snake(x)) over [rows, C], 4 values a thread
+template <bool EXACT>
 __device__ __forceinline__ void snake_rows(const float4* __restrict__ x,
                                            uint2* __restrict__ s, size_t n4,
                                            int C, const float* __restrict__ a,
@@ -261,26 +269,29 @@ __device__ __forceinline__ void snake_rows(const float4* __restrict__ x,
     const float4 v = x[i];
     const int c = (int)(i * 4 % C);
     const __nv_bfloat162 lo = __floats2bfloat162_rn(
-        snake(v.x, a[c], ib[c]), snake(v.y, a[c + 1], ib[c + 1]));
+        snake<EXACT>(v.x, a[c], ib[c]), snake<EXACT>(v.y, a[c + 1], ib[c + 1]));
     const __nv_bfloat162 hi = __floats2bfloat162_rn(
-        snake(v.z, a[c + 2], ib[c + 2]), snake(v.w, a[c + 3], ib[c + 3]));
+        snake<EXACT>(v.z, a[c + 2], ib[c + 2]),
+        snake<EXACT>(v.w, a[c + 3], ib[c + 3]));
     s[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
                       *reinterpret_cast<const uint32_t*>(&hi));
   }
 }
 
+template <bool EXACT>
 __global__ void snake_bf16_kernel(const float4* __restrict__ x,
                                   uint2* __restrict__ s, size_t n4, int C,
                                   const float* __restrict__ a,
                                   const float* __restrict__ ib) {
-  snake_rows(x, s, n4, C, a, ib);
+  snake_rows<EXACT>(x, s, n4, C, a, ib);
 }
 
+template <bool EXACT>
 __global__ void snake_convt_snake_kernel(const float4* __restrict__ x,
                                          uint2* __restrict__ s, size_t n4,
                                          int C, const float* __restrict__ a,
                                          const float* __restrict__ ib) {
-  snake_rows(x, s, n4, C, a, ib);
+  snake_rows<EXACT>(x, s, n4, C, a, ib);
 }
 
 using SnakeKernel = void (*)(const float4*, uint2*, size_t, int, const float*,
@@ -296,7 +307,7 @@ cudaError_t launch_snake(SnakeKernel kern, const float* x, void* s,
   return cudaGetLastError();
 }
 
-template <int BN, int RK, int MODE>
+template <int BN, int RK, int MODE, bool EXACT = false>
 cudaError_t launch_gemm(const ResArgs& p, int B, cudaStream_t st) {
   const int smem = Tile<BN, RK>::SMEM;
   void (*kern)(ResArgs);
@@ -304,7 +315,7 @@ cudaError_t launch_gemm(const ResArgs& p, int B, cudaStream_t st) {
     static_assert(RK == 64, "the head takes 64-row K stages");
     kern = snake_convt_gemm_kernel<BN>;
   } else {
-    kern = res_gemm_kernel<BN, RK, MODE == kConv7>;
+    kern = res_gemm_kernel<BN, RK, MODE == kConv7, EXACT>;
   }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -317,35 +328,45 @@ cudaError_t launch_gemm(const ResArgs& p, int B, cudaStream_t st) {
 // 0 where neither fits
 int tile_n(int n) { return n % 128 == 0 ? 128 : (n % 96 == 0 ? 96 : 0); }
 
-template <int MODE>
-int launch_res_any(const ResArgs& p, int B, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+template <int MODE, bool EXACT>
+int launch_res_tiles(const ResArgs& p, int B, cudaStream_t st) {
   const bool deep = p.C % 64 == 0;
   switch (tile_n(p.C)) {
-    case 128: return (int)launch_gemm<128, 64, MODE>(p, B, st);
+    case 128: return (int)launch_gemm<128, 64, MODE, EXACT>(p, B, st);
     case 96:
-      return (int)(deep ? launch_gemm<96, 64, MODE>(p, B, st)
-                        : launch_gemm<96, 32, MODE>(p, B, st));
+      return (int)(deep ? launch_gemm<96, 64, MODE, EXACT>(p, B, st)
+                        : launch_gemm<96, 32, MODE, EXACT>(p, B, st));
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int MODE>
+int launch_res_any(const ResArgs& p, int B, int exact, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return exact ? launch_res_tiles<MODE, true>(p, B, st)
+               : launch_res_tiles<MODE, false>(p, B, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every entry point's `exact` (0 or 1) picks snake's sin^2: fast_sin2 or
+// the accurate sinf.
+
 // s = bf16(snake(x; a, ib)), x [B, T, C] f32 -> s bf16
 int q3_snake_bf16(const float* x, void* s, int B, int T, int C,
-                  const float* a, const float* ib, void* stream) {
-  return (int)launch_snake(snake_bf16_kernel, x, s, (size_t)B * T * C, C, a,
-                           ib, (cudaStream_t)stream);
+                  const float* a, const float* ib, int exact, void* stream) {
+  return (int)launch_snake(
+      exact ? snake_bf16_kernel<true> : snake_bf16_kernel<false>, x, s,
+      (size_t)B * T * C, C, a, ib, (cudaStream_t)stream);
 }
 
 // y2 = bf16(snake(conv7_d(s) + b1; a2, ib2)); s, y2 [B, T, C] bf16,
 // w7 [7, C, C] bf16 (tap, in, out)
 int q3_res_conv7(const void* s, void* y2, int B, int T, int C, int d,
                  const void* w7, const float* b1, const float* a2,
-                 const float* ib2, void* stream) {
+                 const float* ib2, int exact, void* stream) {
   ResArgs p{};
   p.a = static_cast<const bf16*>(s);
   p.w = static_cast<const bf16*>(w7);
@@ -356,13 +377,13 @@ int q3_res_conv7(const void* s, void* y2, int B, int T, int C, int d,
   p.T = T;
   p.C = p.N = C;
   p.d = d;
-  return launch_res_any<kConv7>(p, B, stream);
+  return launch_res_any<kConv7>(p, B, exact, stream);
 }
 
 // out = x + (y2 @ w1 + b2); s_out, when given, = bf16(snake(out; a, ib))
 int q3_res_conv1(const void* y2, const float* x, float* out, void* s_out,
                  int B, int T, int C, const void* w1, const float* b2,
-                 const float* a, const float* ib, void* stream) {
+                 const float* a, const float* ib, int exact, void* stream) {
   ResArgs p{};
   p.a = static_cast<const bf16*>(y2);
   p.w = static_cast<const bf16*>(w1);
@@ -374,7 +395,7 @@ int q3_res_conv1(const void* y2, const float* x, float* out, void* s_out,
   p.s_out = static_cast<bf16*>(s_out);
   p.T = T;
   p.C = p.N = C;
-  return launch_res_any<kConv1>(p, B, stream);
+  return launch_res_any<kConv1>(p, B, exact, stream);
 }
 
 // The Snake + convT head: s = bf16(snake(x; a, ib)) into the scratch s
@@ -383,10 +404,12 @@ int q3_res_conv1(const void* y2, const float* x, float* out, void* s_out,
 // N of 128 or 96. Two launches; returns the first launch error.
 int q3_snake_convt(const float* x, void* s, float* out, int B, int T, int C,
                    int N, const void* W, const float* bias, const float* a,
-                   const float* ib, void* stream) {
+                   const float* ib, int exact, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (C % 64 != 0 || tile_n(N) == 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = launch_snake(snake_convt_snake_kernel, x, s,
+  const SnakeKernel pre = exact ? snake_convt_snake_kernel<true>
+                                : snake_convt_snake_kernel<false>;
+  const cudaError_t e = launch_snake(pre, x, s,
                                      (size_t)B * T * C, C, a, ib, st);
   if (e != cudaSuccess) return (int)e;
   ResArgs p{};

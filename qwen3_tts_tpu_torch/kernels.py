@@ -34,10 +34,10 @@ _F = ctypes.c_float
 # C signatures (every function also takes the stream last, returns int)
 _SIGNATURES = {
     "q3_codepred_frame": (_P,) * 27 + (_I,) * 4 + (_F,) * 2,
-    "q3_snake_bf16": (_P, _P, _I, _I, _I, _P, _P),
-    "q3_res_conv7": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "q3_res_conv1": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "q3_snake_convt": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "q3_snake_bf16": (_P, _P, _I, _I, _I, _P, _P, _I),
+    "q3_res_conv7": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I),
+    "q3_res_conv1": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I),
+    "q3_snake_convt": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I),
     "q3_flash_decode": (_P,) * 9 + (_I,) * 9 + (_F, _I) + (_P,) * 4,
     "q3_talker_step": (_P,) * 22 + (_I,) * 7 + (_F,) * 3,
 }

@@ -6,8 +6,9 @@ The decode step has two implementations, chosen per call by
 - ``fused``: ops/talker_fused.py, all layers of the step in one CUDA
   kernel on a CUDA tensor, its torch twin on a CPU tensor; raises when
   ``talker_fused.supported`` does not hold;
-- ``xla``: ``stack_step``, the per-layer torch path with the
-  decode-attention kernel on the card;
+- ``xla``: ``stack_step``, the per-layer torch path, whose decode
+  attention follows ``ops.attention.set_decode_attention_impl`` (the
+  kernel on the card by default);
 - ``auto`` (the default): ``fused`` on a CUDA tensor whenever
   ``supported`` holds, in lock-step and ring mode alike, else ``xla``;
   on the CPU always ``xla``.
@@ -18,6 +19,9 @@ each rank's rows. The codec_head logits of a tp split are gathered over
 tp (``mesh.tp_gather``).
 The JAX package's ``fused_interpret`` (Pallas interpret mode) has no
 counterpart: ``fused`` on CPU tensors runs the twin (models/impl_switch.py).
+
+``forward_text`` (project, optional speaker add, prefill) is the
+reference's ``TTSTransformer::forward_text``, as in the JAX package.
 
 Every tensor carries a batch dimension over concurrent streams.
 """
@@ -129,6 +133,18 @@ def _head(w, cfg: TalkerConfig, y: torch.Tensor):
     the logits gathered over tp on a tp-split tree."""
     h = rms_norm(y, w["output_norm"], cfg.rms_norm_eps)
     return h, tp_gather(dot(h, w["codec_head"]), w)
+
+
+def forward_text(w, cfg: TalkerConfig, tokens: torch.Tensor,
+                 speaker_embd: torch.Tensor | None, kv_cache):
+    """Project text tokens [B, T] (+ a speaker embedding [B, H] added to
+    every row, when given) and prefill from them: the reference's
+    ``TTSTransformer::forward_text``. Returns ``talker_prefill``'s
+    (last_hidden, last_logits, kv_cache)."""
+    x = project_text_tokens(w, tokens)
+    if speaker_embd is not None:
+        x = x + speaker_embd[:, None, :].float()
+    return talker_prefill(w, cfg, x, kv_cache)
 
 
 def talker_prefill(w, cfg: TalkerConfig, prefill_embd: torch.Tensor, kv_cache):

@@ -11,12 +11,23 @@ Convolutions round their input to the weight dtype and accumulate in f32
 decoder blocks run the hand-written kernels of ops/vocoder_fused.py: the
 residual chain always, the Snake + convT head with trim="causal"; their
 parameters are packed once by ``pack_kernel_weights``. The JAX package's
-``set_res_chain_impl`` switch is ported (models/impl_switch.py; no
-environment variable, as in the JAX package): ``auto`` (the default) and
-``fused`` take the kernels on a CUDA tensor (they raise where a shape is
-not served), ``xla`` the plain torch path; a CPU tensor always runs the
-plain path, which is the kernels' twin. The engine's vocoder graphs are
-keyed by it (runtime/graphs.voc_key), so a change takes a new graph.
+switches are ported (no environment variable, as in the JAX package):
+- ``set_res_chain_impl`` (models/impl_switch.py): ``auto`` (the default)
+  takes the kernels on a CUDA tensor (they raise where a shape is not
+  served) and the plain torch path on a CPU tensor; ``fused`` the
+  kernels' wrappers on any tensor (on a CPU tensor they run their twins,
+  which are the plain path); ``xla`` the plain path;
+- ``set_snake_sin2_impl`` (ops/vocoder_fused.py): Snake's sin^2, ``fast``
+  (the fast_sin2 polynomial, the default) or ``exact`` (the accurate
+  sine), honoured by the plain path, the twins and the kernels;
+- ``res_chain_impl_traced`` / ``reset_res_chain_traced``: which residual
+  chain ``_res_chain`` took since the reset, "fused" (the kernels'
+  wrappers), "xla" (the plain path), "mixed", or "untraced". It is
+  recorded where Python picks the implementation, at an eager call and at
+  a graph's capture; a replay runs no Python, as a JAX cache hit runs no
+  trace, so a reset followed by replays only reads "untraced".
+The engine's vocoder graphs are keyed by the first two
+(runtime/graphs.voc_key), so a change takes a new graph.
 ``load_vocoder_weights`` reads the codec GGUF onto a device in f32, as the
 JAX loader does; the pipeline casts (``cast_weights``) and packs.
 """
@@ -30,19 +41,37 @@ import torch
 import torch.nn.functional as F
 
 from ..config import VocoderConfig
-from ..ops.layers import NEG_INF, dot, fast_sin2, rms_norm, rope_neox
+from ..ops.layers import NEG_INF, dot, rms_norm, rope_neox
+# set_snake_sin2_impl / snake_sin2_impl: the switch lives beside the
+# kernels that honour it and is re-exported here, where the JAX package has it
 from ..ops.vocoder_fused import (fused_residual_chain, fused_snake_convt,
-                                 pack_block, residual_chain_twin)
+                                 pack_block, residual_chain_twin,
+                                 set_snake_sin2_impl, sin2, snake_sin2_impl)
 from .impl_switch import ImplSwitch
 
 _SWITCH = ImplSwitch(None, "set_res_chain_impl")
 set_res_chain_impl = _SWITCH.set
 _resolve_impl = _SWITCH.resolve
+_RES_TRACED: set = set()     # "fused" / "xla": what _res_chain took
+
+
+def reset_res_chain_traced() -> None:
+    _RES_TRACED.clear()
+
+
+def res_chain_impl_traced() -> str:
+    """"fused" / "xla" / "mixed" over every residual chain that Python
+    dispatched since the last reset; "untraced" if none (graph replays
+    only; module docstring)."""
+    if not _RES_TRACED:
+        return "untraced"
+    return next(iter(_RES_TRACED)) if len(_RES_TRACED) == 1 else "mixed"
 
 
 def _kernels(x: torch.Tensor) -> bool:
-    """Whether the decoder blocks take the kernels for `x`."""
-    return x.is_cuda and _SWITCH.resolve() != "xla"
+    """Whether the decoder blocks take the kernels' wrappers for `x`."""
+    impl = _SWITCH.resolve()
+    return impl == "fused" or (impl == "auto" and x.is_cuda)
 
 
 def _ncw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -76,11 +105,11 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
 
 def snake(x: torch.Tensor, alpha_log: torch.Tensor,
           beta_log: torch.Tensor) -> torch.Tensor:
-    """x + exp(-beta) * sin^2(exp(alpha) * x), per channel; sin^2 is the
-    fast_sin2 polynomial (the JAX package's default)."""
+    """x + exp(-beta) * sin^2(exp(alpha) * x), per channel; sin^2 as
+    ``set_snake_sin2_impl`` says (the fast_sin2 polynomial by default)."""
     a = torch.exp(alpha_log.float())
     inv_b = torch.exp(-beta_log.float())
-    return x + inv_b * fast_sin2(x.float() * a)
+    return x + inv_b * sin2(x.float() * a)
 
 
 def _pre_tfm_layer(wl, x: torch.Tensor, positions: torch.Tensor,
@@ -131,9 +160,11 @@ def _residual_block(w, x: torch.Tensor, dilation: int) -> torch.Tensor:
 
 def _res_chain(blk_w, x: torch.Tensor) -> torch.Tensor:
     """The 3-block dilated residual chain (the kernel on a CUDA tensor
-    unless the switch says xla)."""
+    unless the switch says xla), recorded for ``res_chain_impl_traced``."""
     if _kernels(x):
+        _RES_TRACED.add("fused")
         return fused_residual_chain(x, blk_w)
+    _RES_TRACED.add("xla")
     return residual_chain_twin(x, blk_w)
 
 

@@ -1,5 +1,6 @@
-"""Core transformer ops: f32-result matmul, RMSNorm, NEOX RoPE, GQA
-attention, fast sin^2 (port of qwen3_tts_tpu/ops/layers.py).
+"""Core transformer ops: f32-result matmul, RMSNorm, NEOX RoPE, SwiGLU,
+GQA attention (prefill; decode over the seq-major and the kv-major
+cache), fast sin^2 (port of qwen3_tts_tpu/ops/layers.py).
 
 Numerics follow the JAX package: bf16 operands with f32 results
 (``jnp.dot(..., preferred_element_type=f32)``), softmax and norms in f32.
@@ -76,6 +77,38 @@ def gqa_attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bkgts,bksd->bkgtd", probs.to(vh.dtype).float(),
                        vh.float())
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, n_heads * D)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU FFN: (silu(x @ Wg) * (x @ Wu)) @ Wd with f32 results, the
+    activation rounded to Wd's dtype. Mixed dtypes promote, as ``jnp.dot``
+    does (``dot`` would round x to the weights' dtype)."""
+    gate = x.float() @ w_gate.float()
+    up = x.float() @ w_up.float()
+    act = (torch.nn.functional.silu(gate) * up).to(w_down.dtype)
+    return act.float() @ w_down.float()
+
+
+def gqa_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       n_valid: torch.Tensor) -> torch.Tensor:
+    """Single-token decode attention over a seq-major cache. q: [B, n_heads,
+    D]; k, v: [B, S, n_kv, D]; n_valid: [B] valid slots per stream.
+    Returns [B, n_heads*D] f32."""
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            < n_valid[:, None])
+    return gqa_attention_step_masked(q, k, v, mask)
+
+
+def gqa_attention_step_masked(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              mask: torch.Tensor) -> torch.Tensor:
+    """Decode attention with a per-slot bitmask over a seq-major cache
+    (k, v: [B, S, n_kv, D]; mask: [B, S] bool), the plain reference the
+    JAX package keeps beside the kv-major production path. Returns
+    [B, n_heads*D] f32."""
+    return gqa_attention_step_kvmajor(q, k.transpose(1, 2), v.transpose(1, 2),
+                                      mask)
 
 
 def gqa_attention_step_kvmajor(q: torch.Tensor, k: torch.Tensor,

@@ -29,6 +29,13 @@ snake and the residual adds are f32. Both wrappers take a decoder block's
 weight dict: a CPU tensor runs the twin on its parameters; a CUDA tensor
 launches the kernel on the block's ``kernel`` entry (``pack_block``, made
 once at load time) or raises.
+
+Snake's sin^2 follows ``set_snake_sin2_impl`` (the JAX package's
+models/vocoder.py switch, which its two Pallas kernels honour; models/
+vocoder.py re-exports it): ``fast`` (the default) is the fast_sin2
+polynomial, ``exact`` the accurate sine, in the plain path, both twins and
+both kernels alike (a template parameter of the kernels' snake; the
+``fast`` code is the one compiled before the switch existed).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .layers import fast_sin2
 
 DILATIONS = (1, 3, 9)
 # the GEMMs' column tiles (csrc/vocoder.cu): the chain's C and the head's
@@ -45,6 +53,32 @@ HEAD_K_STAGE = 64   # the head's K rows a ring stage: C must be a multiple
 
 _CHAIN_SCRATCH: dict = {}   # (device, C) -> flat (s, y2, tmp)
 _HEAD_SCRATCH: dict = {}    # (device, C) -> flat (s,)
+
+SIN2_IMPLS = ("fast", "exact")
+_sin2_impl = "fast"
+
+
+def set_snake_sin2_impl(impl: str) -> None:
+    """Snake's sin^2 for every later call: ``fast`` (fast_sin2, the
+    default) or ``exact`` (the accurate sine). The engine's vocoder graphs
+    are keyed by it (runtime/graphs.voc_key), so a change takes a new
+    graph."""
+    global _sin2_impl
+    if impl not in SIN2_IMPLS:
+        raise ValueError(f"impl must be one of {SIN2_IMPLS}")
+    _sin2_impl = impl
+
+
+def snake_sin2_impl() -> str:
+    return _sin2_impl
+
+
+def sin2(z: torch.Tensor) -> torch.Tensor:
+    """sin^2(z) as ``set_snake_sin2_impl`` says."""
+    if _sin2_impl == "fast":
+        return fast_sin2(z)
+    s = torch.sin(z)
+    return s * s
 
 
 def _snake_consts(alpha_log, beta_log):
@@ -148,24 +182,25 @@ def fused_residual_chain(x: torch.Tensor, blk_w) -> torch.Tensor:
         kernels.require(w1, "w1", torch.bfloat16, (C, C))
     lib = kernels.lib()
     st = kernels.stream(x.device)
+    exact = int(_sin2_impl == "exact")
     s, y2, tmp = _chain_scratch(x.device, B, T, C)
     out = torch.empty_like(x)
     kernels.check(lib.q3_snake_bf16(x.data_ptr(), s.data_ptr(), B, T, C,
                                     res[0][0].data_ptr(),
-                                    res[0][1].data_ptr(), st),
+                                    res[0][1].data_ptr(), exact, st),
                   "q3_snake_bf16")
     for u, ((_, _, w7, b1, a2, ib2, w1, b2), d, (src, dst)) in enumerate(zip(
             res, DILATIONS, ((x, out), (out, tmp), (tmp, out)))):
         kernels.check(lib.q3_res_conv7(
             s.data_ptr(), y2.data_ptr(), B, T, C, d, w7.data_ptr(),
-            b1.data_ptr(), a2.data_ptr(), ib2.data_ptr(), st),
+            b1.data_ptr(), a2.data_ptr(), ib2.data_ptr(), exact, st),
             "q3_res_conv7")
         nxt = res[u + 1] if u + 1 < len(res) else None
         kernels.check(lib.q3_res_conv1(
             y2.data_ptr(), src.data_ptr(), dst.data_ptr(),
             s.data_ptr() if nxt else None, B, T, C, w1.data_ptr(),
             b2.data_ptr(), nxt[0].data_ptr() if nxt else None,
-            nxt[1].data_ptr() if nxt else None, st), "q3_res_conv1")
+            nxt[1].data_ptr() if nxt else None, exact, st), "q3_res_conv1")
     fused_residual_chain.launches += 1
     return out
 
@@ -211,7 +246,8 @@ def fused_snake_convt(x: torch.Tensor, blk_w, rate: int) -> torch.Tensor:
     kernels.check(kernels.lib().q3_snake_convt(
         x.data_ptr(), s.data_ptr(), out.data_ptr(), B, T, C, N, w.data_ptr(),
         bias.data_ptr(), a.data_ptr(), ib.data_ptr(),
-        kernels.stream(x.device)), "q3_snake_convt")
+        int(_sin2_impl == "exact"), kernels.stream(x.device)),
+        "q3_snake_convt")
     fused_snake_convt.launches += 1
     return out.view(B, T * rate, C2)
 

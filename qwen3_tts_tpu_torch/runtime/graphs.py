@@ -100,17 +100,17 @@ def gen_key(*, model_tag: str, buffers: int, B: int, ctx: int,
             kv_quant: bool, talker_impl: str, codepred_impl: str,
             read_ctx: int, top_k: int, greedy: bool, ring: bool,
             trailing: int, top_p: float, temperature: float,
-            repetition_penalty: float, device,
+            repetition_penalty: float, device, attn_impl: str,
             mesh: tuple | None = None) -> str:
     """Name of one generation graph: the JAX package's ``_key_base``
     (model tag, slots, ctx, KV quantisation, mesh shape, impl switches)
     and ``_gen_fn`` name (read_ctx, top_k, greedy, ring, trailing buffer,
     top_p), plus what the port bakes in besides: B, the device, the
-    sampling scalars, the buffers' owner and, on a mesh ((dp, tp, rank)),
-    the rank."""
+    sampling scalars, the decode-attention switch (ops/attention.py), the
+    buffers' owner and, on a mesh ((dp, tp, rank)), the rank."""
     parts = dict(b=B, c=ctx, q=kv_quant, tk=talker_impl, cp=codepred_impl,
-                 rc=read_ctx, k=top_k, g=greedy, r=ring, t=trailing,
-                 p=float(top_p), T=float(temperature),
+                 at=attn_impl, rc=read_ctx, k=top_k, g=greedy, r=ring,
+                 t=trailing, p=float(top_p), T=float(temperature),
                  rp=float(repetition_penalty), s=buffers,
                  d=torch.device(device))
     return (f"gen-{model_tag}-" + "-".join(f"{k}{_fmt(v)}"
@@ -119,14 +119,15 @@ def gen_key(*, model_tag: str, buffers: int, B: int, ctx: int,
 
 
 def voc_key(*, model_tag: str, n: int, frames: int, sub: int | None,
-            pcm16: bool, res_impl: str, device,
+            pcm16: bool, res_impl: str, sin2: str, device,
             mesh: tuple | None = None) -> str:
     """Name of one vocoder-decode graph (the JAX package's ``_voc_fn``
-    name, plus the residual-chain switch, as ``gen_key`` carries the
-    talker's and the code predictor's, the device and the mesh
-    position)."""
+    name, plus the residual-chain and Snake sin^2 switches, as
+    ``gen_key`` carries the talker's and the code predictor's, the device
+    and the mesh position)."""
     return (f"voc-{model_tag}-n{n}-f{frames}-s{sub or 0}-p{int(pcm16)}"
-            f"-v{res_impl}-d{torch.device(device)}{_mesh_tag(mesh)}")
+            f"-v{res_impl}-z{sin2}-d{torch.device(device)}"
+            f"{_mesh_tag(mesh)}")
 
 
 # -- launch counters ----------------------------------------------------------

@@ -18,9 +18,25 @@ as the JAX package keeps them there. ``QWEN3_TTS_LOW_MEM=1`` keeps the
 vocoder's weights, its kernels' packed copies included, in pinned host
 memory and stages them to the card for each decode.
 
-Audio leaves the card as int16 PCM through ``readback_submit``: a
-non-blocking copy into pinned host memory whose end a CUDA event marks.
-``PCMRef`` names one stream's row of such a copy and resolves it lazily.
+Dispatch is pipelined, as in the JAX loop: chunk k+1 is enqueued before
+the host reads chunk k's codes and runs its vocoder decode, so the card's
+queue holds the next chunk while the host does its per-stream
+bookkeeping. The read window comes from the frames dispatched so far,
+counted on the host, so no readback lands between two dispatches; a
+chunk's codes, valid mask and ``done`` leave the card through ``Readback``
+(a non-blocking copy into pinned host memory whose end a CUDA event
+marks), taken in stream order right after the chunk, before the next
+chunk overwrites them, and the host waits only for chunk k's copies. The
+vocoder's codes go up from pinned memory without blocking, so that its
+decode queues behind chunk k+1 instead of waiting for it.
+
+Audio leaves the card as int16 PCM through ``readback_submit``, another
+``Readback``. ``PCMRef`` names one stream's row of such a copy and
+resolves it lazily.
+
+Without a vocoder (``from_components(..., voc_w=None)``) the engine still
+generates codes; each stream then reports "Vocoder not loaded", as in the
+JAX package.
 
 Compiled executables (runtime/graphs.py, the port of the JAX package's
 AOT cache): on the card each frame of a 40-frame lock-step chunk replays
@@ -28,6 +44,8 @@ the CUDA graph of its bucket (``_gen_fn``) over static state buffers,
 prefilled in place and kept for the last batch shape, and each vocoder
 decode replays the graph of its (n, frames, sub, pcm16) bucket
 (``_voc_fn``); both are captured on first use into ``Qwen3TTS.graphs``.
+A replay overwrites the buffers the last one wrote, which is why the
+chunk's copies are taken in stream order before the next replay.
 ``QWEN3_TTS_AOT=0`` runs them eagerly, as the CPU does.
 
 A mesh (``Qwen3TTS.shard``, parallel/mesh.py): one process per device,
@@ -67,6 +85,7 @@ from ..models import speaker_encoder as spk
 from ..models import talker, vocoder
 from ..models import weights as W
 from ..models.stack import QuantKV
+from ..ops.attention import get_decode_attention_impl
 from ..parallel.mesh import (dp_rows, gather_chunk, gather_objects,
                              graphs_allowed, mesh_dims, rank_seed,
                              shard_talker_weights)
@@ -239,10 +258,12 @@ class Qwen3TTS:
                         device, spk_cfg=None, spk_w=None) -> "Qwen3TTS":
         """Assemble an engine from in-memory components whose tensors
         already live on `device`; the vocoder kernels' parameters are
-        packed here, once."""
-        return cls(tokenizer, talker_cfg, talker_w, voc_cfg,
-                   vocoder.pack_kernel_weights(voc_w), device, spk_cfg,
-                   spk_w)
+        packed here, once. voc_w=None: an engine without a vocoder
+        (module docstring)."""
+        if voc_w is not None:
+            voc_w = vocoder.pack_kernel_weights(voc_w)
+        return cls(tokenizer, talker_cfg, talker_w, voc_cfg, voc_w, device,
+                   spk_cfg, spk_w)
 
     def shard(self, mesh) -> "Qwen3TTS":
         """Shard the engine over a dp x tp mesh (``parallel.make_mesh``;
@@ -527,32 +548,45 @@ class Qwen3TTS:
             t_decode = 0.0
             n_chunks = -(-p.max_audio_tokens // CHUNK_FRAMES)
             greedy = p.temperature <= 0.0
-            for chunk_idx in range(n_chunks):
+            steps_dispatched = 0
+
+            def dispatch():
+                """Enqueue one chunk and the copies of its (codes, valid,
+                done), in stream order, before any later chunk."""
+                nonlocal steps_dispatched
                 # every stream's n_past is at most prefill + frames so far
-                read_ctx = ctx_bucket(prefill_len + chunk_idx * CHUNK_FRAMES,
+                read_ctx = ctx_bucket(prefill_len + steps_dispatched,
                                       CHUNK_FRAMES, max_ctx)
+                steps_dispatched += CHUNK_FRAMES
                 codes, valid = self._gen_fn(state, consts, bufs, read_ctx,
                                             p.top_k, greedy, p.top_p)()
                 done = state.done
                 if self.mesh is not None:   # the whole batch, every rank
                     codes, valid, done = gather_chunk(self.mesh, codes,
                                                       valid, done)
-                # the graph's outputs: copied out before the next replay
-                codes_h = codes.cpu().numpy()            # [chunk, B, 16]
-                valid_h = valid.cpu().numpy()            # [chunk, B]
+                return tuple(Readback(t) for t in (codes, valid, done))
+
+            # module docstring: chunk k+1 is enqueued as soon as chunk k's
+            # `done` is home, before chunk k's codes are read and decoded
+            inflight, n_dispatched = dispatch(), 1
+            while inflight is not None:
+                codes_r, valid_r, done_r = inflight
+                inflight = None
+                if n_dispatched < n_chunks and not done_r.result().all():
+                    inflight, n_dispatched = dispatch(), n_dispatched + 1
+                codes_h = codes_r.result()               # [chunk, B, 16]
+                valid_h = valid_r.result()               # [chunk, B]
                 for b in range(B):
                     got = codes_h[valid_h[:, b], b]
                     have = sum(len(f) for f in frames[b])
                     got = got[:p.max_audio_tokens - have]
                     if len(got):
                         frames[b].append(got)
-                if p.streaming_vocoder:
+                if p.streaming_vocoder and self.voc_w is not None:
                     td0 = _now_ms()
                     self._decode_streaming(frames, audio_parts, on_chunk,
                                            rows)
                     t_decode += _now_ms() - td0
-                if bool(done.all()):
-                    break
             if state.generator is not generator:
                 generator.set_state(state.generator.get_state())
             t_gen = _now_ms() - t0 - t_decode
@@ -566,6 +600,9 @@ class Qwen3TTS:
                 results[b].n_frames = len(fr)
                 if len(fr) == 0:
                     results[b].error_msg = "No speech codes generated"
+                    continue
+                if self.voc_w is None:
+                    results[b].error_msg = "Vocoder not loaded"
                     continue
                 results[b].sample_rate = self.voc_cfg.sample_rate
                 results[b].success = True
@@ -652,8 +689,14 @@ class Qwen3TTS:
             d for d in (cap, 32, 16, 8, 4, 2, 1) if d <= cap and n % d == 0)
         with torch.inference_mode():
             buf, decode = self._voc_fn(n, codes.shape[1], sub, pcm16)
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(codes,
-                                                            np.int32)))
+            host = torch.from_numpy(np.ascontiguousarray(codes, np.int32))
+            if buf.is_cuda:
+                # from pageable memory the copy would wait for every chunk
+                # queued ahead (module docstring); a pinned block from the
+                # caching host allocator stays alive until the copy is done
+                buf.copy_(host.pin_memory(), non_blocking=True)
+            else:
+                buf.copy_(host)
             audio = decode()
             return audio if pcm16 else audio.cpu().numpy()
 
@@ -681,11 +724,13 @@ class Qwen3TTS:
         """The generation chunk over `state` and `consts` (static
         buffers, owner id `buffers`) at one read_ctx bucket: a callable
         returning (codes [chunk, B, 16], valid [chunk, B]), buffers of
-        this key that the next chunk overwrites. A chunk is CHUNK_FRAMES
-        calls of the frame's graph on the card (captured on the first),
-        which writes its codes at a frame index kept on the card: a
-        40-frame graph replays no faster, and instantiating one takes
-        longer than the eager chunk under QWEN3_TTS_TALKER=xla (PERF.md).
+        this key that the next chunk overwrites, so a caller takes their
+        copies (``Readback``) in stream order before it enqueues another.
+        A chunk is CHUNK_FRAMES calls of the frame's graph on the card
+        (captured on the first), which writes its codes at a frame index
+        kept on the card: a 40-frame graph replays no faster, and
+        instantiating one takes longer than the eager chunk under
+        QWEN3_TTS_TALKER=xla (PERF.md).
         The key reads the impl switches now, as the JAX package bakes
         them in at trace time."""
         cache = state.kv_cache
@@ -694,7 +739,8 @@ class Qwen3TTS:
             B=state.n_past.shape[0], ctx=state.valid_mask.shape[1],
             kv_quant=isinstance(cache, QuantKV),
             talker_impl=talker._resolve_impl(),
-            codepred_impl=code_predictor._resolve_impl(), read_ctx=read_ctx,
+            codepred_impl=code_predictor._resolve_impl(),
+            attn_impl=get_decode_attention_impl(), read_ctx=read_ctx,
             top_k=top_k, greedy=greedy, ring=ring,
             trailing=consts.trailing_hidden.shape[1], top_p=top_p,
             temperature=consts.temperature,
@@ -803,7 +849,7 @@ class Qwen3TTS:
         key = voc_key(model_tag=self.model_tag(), n=n, frames=frames,
                       sub=sub, pcm16=pcm16,
                       res_impl=vocoder._resolve_impl(), device=self.device,
-                      mesh=self._mesh_key())
+                      sin2=vocoder.snake_sin2_impl(), mesh=self._mesh_key())
         return codes, self.graphs.get_or_capture(key, decode, self.device)
 
     def _vocoder_weights(self):

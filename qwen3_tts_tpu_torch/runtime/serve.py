@@ -11,7 +11,8 @@ decode attention reads each stream's bitmask inside its lifetime window
 Dispatch is pipelined: the next chunk is enqueued before this chunk's
 codes are decoded, and chunk codes and audio come back through
 non-blocking copies into pinned memory (pipeline.Readback), so the host
-waits on the card only where it needs a value.
+waits on the card only where it needs a value. On an engine without a
+vocoder the slots generate codes and return no audio.
 
 Failure isolation covers host-side failures: a poisoned text or
 embedding, or a raising on_audio callback, fails its request only; any
@@ -209,6 +210,8 @@ class ContinuousBatcher:
             park_slot(self.state, 0)
             for rc in gen_buckets:
                 self._gen_fn(rc)()
+            if self.engine.voc_w is None:   # an engine without a vocoder
+                voc_sizes = []
             # largest first: the smaller buckets' graphs then reuse its
             # blocks of the shared pool, which a larger one cannot
             for nb in reversed(voc_sizes):
@@ -516,7 +519,9 @@ class ContinuousBatcher:
     def _decode_slots(self, live: list[_Slot], retired: list[_Slot]) -> None:
         """Vocoder-decode every slot's ready 40-frame chunks, batched
         across slots (one [n, 40] call per wave), plus the ragged final
-        tail of retired slots."""
+        tail of retired slots. Nothing without a vocoder."""
+        if self.engine.voc_w is None:
+            return
         n_cb = self.cfg.n_codebooks
         eng = self.engine
         targets = [(s, False) for s in live] + [(s, True) for s in retired]
@@ -572,8 +577,9 @@ class ContinuousBatcher:
                 slot.error = (f"on_audio callback failed: "
                               f"{type(e).__name__}: {e}")
             slot.final_sent = True
+        voc_cfg = self.engine.voc_cfg
         r = TTSResult(n_frames=slot.n_frames,
-                      sample_rate=self.engine.voc_cfg.sample_rate)
+                      sample_rate=voc_cfg.sample_rate if voc_cfg else 24000)
         try:
             r.audio = Qwen3TTS._pcm_parts_to_f32(slot.audio)
         except Exception as e:  # a readback failure is per request too

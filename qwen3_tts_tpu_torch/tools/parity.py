@@ -19,17 +19,19 @@ greedy code predictor, vocoder decode.
 
 The port's stack runs two passes:
   - f32: GGUF converted at f32, weights loaded in f32
-    (``weights.MATMUL_DTYPE = torch.float32``), every switch at ``xla``
-    and TF32 off: the math of the plain path, gated at --tol as the JAX
-    tool gates it (the residual is the bf16 KV cache's rounding);
+    (``weights.MATMUL_DTYPE = torch.float32``), every switch at ``xla``,
+    decode attention's included (``set_decode_attention_impl``), and TF32
+    off: the plain path end to end, no kernel launched, gated at --tol as
+    the JAX tool gates it (the residual is the bf16 KV cache's rounding);
   - bf16: the production weights (GGUF f16 loaded as bf16; the vocoder's
     matrices cast to bf16, as ``load_models`` does on the card). The
     talker step, the code predictor and the vocoder take their kernels
     (``fused``: on a CUDA tensor the kernel, on a CPU tensor its torch
     twin); a geometry a kernel does not serve (``fused`` raises; the 0.6B
     model's is served by every kernel) fails its stage, never falls back
-    to the plain path. The step then runs once more under ``xla``, so
-    that the decode-attention kernel runs in the per-layer step. The
+    to the plain path. The step then runs once more under ``xla`` with
+    decode attention at ``flash``, so that the decode-attention kernel
+    runs in the per-layer step (its twin on the CPU). The
     vocoder decodes with the streaming (causal) trim there, which the
     Snake + convT head kernel serves; every layer is causal, so the
     reference's both-sides-trimmed audio is a prefix of it, and the stage
@@ -66,7 +68,8 @@ from ..io.safetensors import checkpoint_files, iter_tensors
 from ..models import code_predictor, talker, vocoder
 from ..models import weights as W
 from ..models.stack import init_kv_cache
-from ..ops import codepred_fused, flash_decode, talker_fused, vocoder_fused
+from ..ops import (attention, codepred_fused, flash_decode, talker_fused,
+                   vocoder_fused)
 from . import convert_checkpoints as cc
 
 PASSES = ("f32", "bf16")
@@ -471,7 +474,8 @@ def _launch_counts() -> dict:
 
 
 def _switches():
-    return (talker._SWITCH, code_predictor._SWITCH, vocoder._SWITCH)
+    return (talker._SWITCH, code_predictor._SWITCH, vocoder._SWITCH,
+            attention._SWITCH)
 
 
 @contextlib.contextmanager
@@ -483,6 +487,7 @@ def _pass_settings(name: str):
              [s.impl for s in _switches()])
     try:
         if name == "f32":
+            attention.set_decode_attention_impl("xla")
             W.MATMUL_DTYPE = torch.float32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -504,8 +509,11 @@ def _label(what: str, impl: str, dev: torch.device) -> str:
                "codepred": "csrc/codepred.cu",
                "vocoder": "csrc/vocoder.cu chain + head"}[what]
         return f"fused: {src}" if card else "fused: torch twin (CPU)"
-    attn = ", csrc/flash_decode.cu" if card and what != "vocoder" else ""
-    return f"xla: plain torch{attn}"
+    attn = attention.get_decode_attention_impl()
+    if what == "vocoder" or attn == "xla" or (attn == "auto" and not card):
+        return "xla: plain torch"
+    return ("xla: plain torch, " + ("csrc/flash_decode.cu" if card else
+                                    "decode attention's torch twin (CPU)"))
 
 
 def _clamp_ids(cfg: TalkerConfig) -> TalkerConfig:
@@ -644,6 +652,9 @@ def _talker_stages(tts_dir, td, dev, rng, stat, unserved, tag, failures,
             n_past, widx = i32([P]), i32(P)
             for impl in ("xla",) if pname == "f32" else ("fused", "xla"):
                 talker.set_talker_step_impl(impl)
+                if pname != "f32":      # the per-layer step's kernel
+                    attention.set_decode_attention_impl(
+                        "flash" if impl == "xla" else None)
                 label = _label("talker", impl, dev)
                 try:
                     h2, logits2, _ = talker.talker_step(

@@ -314,6 +314,43 @@ def test_snake_convt(dev, blk_idx, t, B):
     _assert_close_rms(got, ref)
 
 
+# one decoder block's chain and head in the exact sin^2 mode (the accurate
+# sinf in the kernels, torch.sin in the twins), against the twins at the
+# fast mode's tolerances above; the fast mode's output is unchanged after
+@pytest.mark.parametrize("blk_idx,t,B", [(0, 1280, 2), (3, 7681, 1)])
+def test_vocoder_kernels_exact_sin2(dev, blk_idx, t, B):
+    blocks, gen = _blocks(20 + blk_idx, dev)
+    blk = blocks[blk_idx]
+    rate = VocoderConfig().upsample_rates[blk_idx]
+    xc = torch.randn(B, t, blk["conv_t_w"].shape[1], generator=gen,
+                     device=dev)
+    xh = torch.randn(B, t // rate, blk["conv_t_w"].shape[0], generator=gen,
+                     device=dev)
+    fast = (vf.fused_residual_chain(xc, blk), vf.fused_snake_convt(xh, blk,
+                                                                   rate))
+    vf.set_snake_sin2_impl("exact")
+    try:
+        before = (vf.fused_residual_chain.launches,
+                  vf.fused_snake_convt.launches)
+        got = [vf.fused_residual_chain(xc, blk),
+               vf.fused_snake_convt(xh, blk, rate)]
+        again = [vf.fused_residual_chain(xc, blk),
+                 vf.fused_snake_convt(xh, blk, rate)]
+        ref = [vf.residual_chain_twin(xc, blk),
+               vf.snake_convt_twin(xh, blk, rate)]
+        assert (vf.fused_residual_chain.launches,
+                vf.fused_snake_convt.launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    finally:
+        vf.set_snake_sin2_impl("fast")
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)                    # deterministic
+        _assert_close_rms(g, r)
+    assert all(torch.equal(f, g) for f, g in zip(fast, (
+        vf.fused_residual_chain(xc, blk), vf.fused_snake_convt(xh, blk,
+                                                               rate))))
+
+
 def test_vocoder_wrappers_refuse_unserved_shapes(dev):
     blocks, _ = _blocks(2, dev)
     blk = blocks[3]
@@ -1142,7 +1179,7 @@ def test_parity_on_card_takes_the_kernels(dev, tmp_path):
     """tools/parity.run_parity on the card (talker stages): both passes
     pass; the bf16 pass's step launches the talker megakernel, its xla
     step decode attention once a layer, its code predictor its kernel;
-    the f32 pass none of the kernels that need bf16 weights."""
+    the f32 pass (decode attention at xla) no kernel at all."""
     from qwen3_tts_tpu_torch.tools import parity
     tts, codec = tmp_path / "hf_tts", tmp_path / "hf_codec"
     chip_smoke.write_hf_checkpoints(tts, codec, 62, device=dev,
@@ -1155,8 +1192,7 @@ def test_parity_on_card_takes_the_kernels(dev, tmp_path):
     assert by["bf16:step_hidden[fused]"]["launches"] == {"talker_fused": 1}
     assert by["bf16:step_hidden[xla]"]["launches"] == {"flash_decode": 1}
     assert by["bf16:code_pred_codes"]["launches"] == {"codepred": 1}
-    assert not any(k in r["launches"] for r in report if r["pass"] == "f32"
-                   for k in ("talker_fused", "codepred"))
+    assert not any(r["launches"] for r in report if r["pass"] == "f32")
 
 
 def test_vocoder_xla_switch_on_card(dev, tmp_path):
@@ -1197,3 +1233,82 @@ def test_vocoder_xla_switch_on_card(dev, tmp_path):
     assert (ref.abs() > 0.99).float().mean() < 0.01    # off the rails
     rms = ref.pow(2).mean().sqrt()
     assert (got - ref).pow(2).mean().sqrt() / rms < VOC_MAX_TOL
+
+
+def test_decode_attention_switch_on_card(dev):
+    """set_decode_attention_impl on the card, lock-step and serving under
+    QWEN3_TTS_TALKER=xla (where the per-layer step reaches decode
+    attention): xla launches no decode-attention kernel, flash as many as
+    auto; the codes of the three runs agree in frame counts."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.ops import attention
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    eng = _engine(dev, 5)
+    ran, frames = {}, {}
+    talker.set_talker_step_impl("xla")
+    try:
+        for impl in ("auto", "xla", "flash"):
+            attention.set_decode_attention_impl(impl)
+            before = fd.flash_decode.launches
+            res = eng.synthesize_batch(["hello world.", "he"],
+                                       params=TTSParams(max_audio_tokens=16,
+                                                        temperature=0.0,
+                                                        seed=0))
+            cb = ContinuousBatcher(eng, n_slots=2, params=TTSParams(
+                temperature=0.0, seed=0), max_frames=8)
+            rids = [cb.submit(t) for t in ("hello.", "world.")]
+            out = cb.run_all()
+            torch.cuda.synchronize()
+            _check_results(res + [out[r] for r in rids], eng)
+            ran[impl] = fd.flash_decode.launches - before
+            frames[impl] = [r.n_frames for r in res]
+    finally:
+        talker.set_talker_step_impl(None)
+        attention.set_decode_attention_impl(None)
+    assert ran["xla"] == 0 and ran["flash"] == ran["auto"] > 0, ran
+    assert frames["xla"] == frames["auto"] == frames["flash"]
+
+
+def test_vocoderless_engine_on_card(dev):
+    """An engine made with voc_w=None on the card (the JAX package's
+    semantics): synthesize_batch generates codes and reports "Vocoder not
+    loaded"; a warmed ContinuousBatcher serves codes with no audio at
+    24000 Hz; no vocoder kernel launches."""
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    full = _engine(dev, 8)
+    eng = Qwen3TTS.from_components(full.tokenizer, full.talker_cfg,
+                                   full.talker_w, None, None, dev)
+    before = (vf.fused_residual_chain.launches, vf.fused_snake_convt.launches)
+    res = eng.synthesize_batch(["hello world.", "he"], params=TTSParams(
+        max_audio_tokens=16, temperature=0.0, seed=0))
+    assert all(r.n_frames > 0 and not r.success and len(r.audio) == 0
+               and r.error_msg == "Vocoder not loaded" for r in res)
+    cb = ContinuousBatcher(eng, n_slots=2, params=TTSParams(
+        temperature=0.0, seed=0), max_frames=8)
+    cb.warmup()
+    rids = [cb.submit(t) for t in ("hello.", "world.")]
+    out = cb.run_all()
+    assert all(out[r].success and out[r].n_frames > 0
+               and len(out[r].audio) == 0 and out[r].sample_rate == 24000
+               for r in rids)
+    assert (vf.fused_residual_chain.launches,
+            vf.fused_snake_convt.launches) == before
+
+
+def test_res_chain_impl_traced_on_card(dev):
+    """res_chain_impl_traced reads "fused" after a first decode (its
+    graphs captured through the kernels' wrappers) and "untraced" after a
+    reset followed by the same call, whose vocoder decodes only replay
+    their graphs (no Python runs in a replay, as a JAX cache hit runs no
+    trace)."""
+    eng = _engine(dev, 9)
+    params = TTSParams(max_audio_tokens=48, temperature=0.0, seed=0)
+    vocoder.reset_res_chain_traced()
+    first = eng.synthesize_batch(["hello world.", "he"], params=params)
+    assert vocoder.res_chain_impl_traced() == "fused"
+    vocoder.reset_res_chain_traced()
+    again = eng.synthesize_batch(["hello world.", "he"], params=params)
+    assert vocoder.res_chain_impl_traced() == "untraced"
+    for a, b in zip(first, again):
+        assert np.array_equal(a.audio, b.audio)

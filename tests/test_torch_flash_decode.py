@@ -243,3 +243,39 @@ def test_split_plan_covers_every_tile_once():
             per, n_split = fd.split_plan(n_pairs, n_tiles, 132)
             assert 1 <= n_split <= n_tiles
             assert (n_split - 1) * per < n_tiles <= n_split * per
+
+
+def test_dispatcher_switch(monkeypatch):
+    """set_decode_attention_impl (tests/test_flash_decode.py::
+    test_dispatcher_switch): auto, flash (the kernel's twin on CPU
+    tensors) and xla each agree with the JAX dispatcher's xla at the
+    kernel's tolerance (TOL); only flash reaches the kernel's wrapper on
+    the CPU; None restores auto; bogus and flash_interpret raise."""
+    q, k, v = _mk(1, 64, 4, 2, 64, seed=4)
+    n_valid = np.array([33], np.int32)
+    jattn.set_decode_attention_impl("xla")
+    try:
+        want = np.asarray(jattn.decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(n_valid)))
+    finally:
+        jattn.set_decode_attention_impl("auto")
+    calls = []
+    wrapper = tattn.flash_decode
+    monkeypatch.setattr(tattn, "flash_decode",
+                        lambda *a, **kw: calls.append(1) or wrapper(*a, **kw))
+    for impl in ("auto", "flash", "xla"):
+        tattn.set_decode_attention_impl(impl)
+        try:
+            assert tattn.get_decode_attention_impl() == impl
+            got = tattn.decode_attention(*map(torch.from_numpy, (q, k, v)),
+                                         torch.from_numpy(n_valid))
+        finally:
+            tattn.set_decode_attention_impl(None)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        assert len(calls) == (impl == "flash"), impl
+        calls.clear()
+    assert tattn.get_decode_attention_impl() == "auto"
+    for bad in ("bogus", "flash_interpret"):
+        with pytest.raises(ValueError):
+            tattn.set_decode_attention_impl(bad)

@@ -224,12 +224,12 @@ def test_static_buffer_runner_matches_plain_calls(engine, setup):
 KEY = dict(model_tag="abcd1234", buffers=1, B=4, ctx=1152, kv_quant=False,
            talker_impl="auto", codepred_impl="auto", read_ctx=512, top_k=50,
            greedy=True, ring=True, trailing=256, top_p=1.0, temperature=0.0,
-           repetition_penalty=1.05, device="cuda:0")
+           repetition_penalty=1.05, device="cuda:0", attn_impl="auto")
 OTHER = dict(buffers=2, B=8, ctx=2048, kv_quant=True, talker_impl="xla",
              codepred_impl="fused", read_ctx=1024, top_k=20, greedy=False,
              ring=False, trailing=512, top_p=0.9, temperature=0.9,
              repetition_penalty=1.1, device="cuda:1",
-             model_tag="ffff0000")
+             model_tag="ffff0000", attn_impl="xla")
 
 
 @pytest.mark.parametrize("switch", list(OTHER))
@@ -241,10 +241,11 @@ def test_gen_keys_tell_switches_apart(switch):
 
 def test_voc_keys():
     k = dict(model_tag="abcd1234", n=8, frames=40, sub=None, pcm16=True,
-             res_impl="auto", device="cuda:0")
+             res_impl="auto", sin2="fast", device="cuda:0")
     assert graphs.voc_key(**k) == graphs.voc_key(**dict(k))
     for name, other in (("n", 16), ("frames", 20), ("sub", 4),
                         ("pcm16", False), ("res_impl", "xla"),
+                        ("sin2", "exact"),
                         ("model_tag", "x"), ("device", "cuda:1")):
         assert graphs.voc_key(**k) != graphs.voc_key(**{**k, name: other})
 
@@ -369,3 +370,38 @@ def test_decode_paths_share_the_bucket_buffers(engine):
     np.testing.assert_array_equal(
         chunked, engine._decode_chunk_batch(
             np.pad(frames, ((0, 15), (0, 0)))[None])[0][:len(chunked)])
+
+
+def test_engine_keys_follow_the_attention_and_sin2_switches(
+        engine, setup, monkeypatch):
+    """A frame graph bakes decode attention's switch in and a vocoder
+    graph Snake's sin^2 (ops/attention.py, ops/vocoder_fused.py): the
+    engine's keys read them at each call, so a change takes a new graph
+    (lock-step and ring chunks alike) and the old value the old one."""
+    from qwen3_tts_tpu_torch.ops import attention as tattn
+    _, tw, _, tp = setup
+    st = tgen.init_state(tw, TCFG, tp, 64, None)
+    cs = tgen.make_consts(tp, 0.0, 1.05)
+    cache = graphs.GraphCache()
+    monkeypatch.setattr(engine, "_graph_cache", cache)
+    monkeypatch.setattr(graphs.GraphCache, "capturing",
+                        staticmethod(lambda device: True))
+    keys = []
+    try:
+        for attn, sin2 in ((None, "fast"), ("xla", "exact"),
+                           ("flash", "fast"), (None, "fast")):
+            tattn.set_decode_attention_impl(attn)
+            tvoc.set_snake_sin2_impl(sin2)
+            for ring in (False, True):
+                engine._gen_fn(st, cs, 7, 64, 50, True, 1.0, ring=ring)
+            engine._voc_fn(2, 40, None, True)
+            keys.append([k for k, _ in cache.graphs])
+    finally:
+        tattn.set_decode_attention_impl(None)
+        tvoc.set_snake_sin2_impl("fast")
+    assert [len(k) for k in keys] == [3, 6, 8, 8]
+    assert all("-atauto-" in k for k in keys[0][:2])
+    assert all("-atxla-" in k for k in keys[1][3:5])
+    assert all("-atflash-" in k for k in keys[2][6:])
+    assert "-zfast-" in keys[0][2] and "-zexact-" in keys[1][5]
+    assert keys[3] == keys[2]          # the first values again

@@ -109,3 +109,53 @@ def test_dot_keeps_f32_result():
     got = tl.dot(at, wt)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_swiglu(dtype):
+    """ops.swiglu (exported as in the JAX ops package) against
+    jl.swiglu: f32 inputs, or bf16 inputs and weights; the activation
+    rounds to Wd's dtype in both, so a bf16 ulp of it may land apart."""
+    rng = np.random.default_rng(4)
+    x, wg, wu, wd = (rng.standard_normal(s) * 0.3 for s in
+                     ((3, 5, 32), (32, 48), (32, 48), (48, 32)))
+    if dtype == "bf16":
+        (jx, tx), (jg, tg), (ju, tu), (jd, td) = map(_bf16_pair,
+                                                     (x, wg, wu, wd))
+    else:
+        jx, jg, ju, jd = (jnp.asarray(a, jnp.float32) for a in (x, wg, wu, wd))
+        tx, tg, tu, td = (torch.from_numpy(a.astype(np.float32))
+                          for a in (x, wg, wu, wd))
+    from qwen3_tts_tpu_torch import ops
+    got = ops.swiglu(tx, tg, tu, td)
+    want = jl.swiglu(jx, jg, ju, jd)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5 if dtype == "f32" else 2e-2)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["prefix", "mask"])
+def test_gqa_attention_step_seq_major(masked):
+    """ops.gqa_attention_step (prefix) and gqa_attention_step_masked
+    (bitmask) over the seq-major cache [B, S, n_kv, D] against the JAX
+    functions; probabilities round to bf16 before PV in both (1 bf16 ulp,
+    as in test_gqa_attention_prefill)."""
+    from qwen3_tts_tpu_torch import ops
+    rng = np.random.default_rng(5)
+    B, S, n_heads, n_kv, D = 3, 24, 8, 2, 16
+    q = rng.standard_normal((B, n_heads, D))
+    k = rng.standard_normal((B, S, n_kv, D))
+    v = rng.standard_normal((B, S, n_kv, D))
+    (qj, qt), (kj, kt), (vj, vt) = map(_bf16_pair, (q, k, v))
+    if masked:
+        mask = rng.random((B, S)) < 0.5
+        mask[:, 0] = True
+        want = jl.gqa_attention_step_masked(qj, kj, vj, jnp.asarray(mask))
+        got = ops.gqa_attention_step_masked(qt, kt, vt,
+                                            torch.from_numpy(mask))
+    else:
+        n_valid = np.array([1, 13, 24], np.int32)
+        want = jl.gqa_attention_step(qj, kj, vj, jnp.asarray(n_valid))
+        got = ops.gqa_attention_step(qt, kt, vt, torch.from_numpy(n_valid))
+    assert got.shape == (B, n_heads * D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-2)

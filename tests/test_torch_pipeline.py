@@ -92,6 +92,192 @@ def test_decode_codes_chunked_length(engines):
     assert teng.voc_bucket(3, 16) == 4 and teng.voc_bucket(20, 16) == 16
 
 
+def _vocoderless(engines):
+    """Both engines' weights and tokenizer, without a vocoder."""
+    jeng, teng = engines
+    return (jpipe.Qwen3TTS.from_components(jeng.tokenizer, jeng.talker_cfg,
+                                           jeng.talker_w, jeng.voc_cfg, None),
+            tpipe.Qwen3TTS.from_components(teng.tokenizer, teng.talker_cfg,
+                                           teng.talker_w, teng.voc_cfg, None,
+                                           "cpu"))
+
+
+@pytest.mark.parametrize("max_tokens", [0, 56])
+def test_vocoderless_engine_matches_jax(engines, max_tokens):
+    """An engine made with voc_w=None builds and still generates codes;
+    each stream reports what the JAX engine reports (frames, success,
+    message, rate): "No speech codes generated" with no frame, else
+    "Vocoder not loaded", and no audio. Exact: no tolerance."""
+    jeng, teng = _vocoderless(engines)
+    assert teng.voc_w is None
+    kw = dict(max_audio_tokens=max_tokens, temperature=0.0, seed=0)
+    want = jeng.synthesize_batch(TEXTS, params=jpipe.TTSParams(
+        print_timing=False, **kw))
+    got = teng.synthesize_batch(TEXTS, params=tpipe.TTSParams(**kw))
+    for g, w in zip(got, want):
+        assert (g.n_frames, g.success, g.error_msg, g.sample_rate) == (
+            w.n_frames, w.success, w.error_msg, w.sample_rate)
+        assert len(g.audio) == 0
+    assert [g.error_msg for g in got] == [
+        "Vocoder not loaded" if max_tokens else "No speech codes generated"
+    ] * len(TEXTS)
+
+
+def _jax_chunk_draws(key, B, cfg):
+    """The Gumbel noise of one lock-step chunk of the JAX loop, drawn
+    from its state key as generate_chunk splits it (per frame: key, CB0
+    key, code-predictor key; the code predictor splits once per sampled
+    codebook): [chunk, B, codec_vocab] and [chunk, 15, B, V]."""
+    cb0, codes = [], []
+    for _ in range(tpipe.CHUNK_FRAMES):
+        key, k_cb0, k_codes = jax.random.split(key, 3)
+        cb0.append(np.array(jax.random.gumbel(
+            k_cb0, (B, cfg.codec_vocab_size), np.float32)))
+        rows = []
+        for _ in range(cfg.n_codebooks - 1):
+            k_codes, sub = jax.random.split(k_codes)
+            rows.append(np.array(jax.random.gumbel(
+                sub, (B, cfg.code_pred_vocab_size), np.float32)))
+        codes.append(np.stack(rows))
+    return torch.from_numpy(np.stack(cb0)), torch.from_numpy(np.stack(codes))
+
+
+def _recorded_run(mod, eng, params, monkeypatch, keys=None):
+    """synthesize_batch with its chunks, frames and on_chunk calls
+    recorded: (results, codes per stream, chunks dispatched, on_chunk
+    calls per stream). keys: the JAX loop's state key at each chunk is
+    appended to it (JAX), or its chunks' draws are passed to the port's
+    frames (port)."""
+    seen = {"chunks": 0, "frames": None}
+    calls = [0] * len(TEXTS)
+    decode = eng._decode_streaming
+
+    def record_frames(frames, *a):
+        seen["frames"] = frames
+        return decode(frames, *a)
+
+    monkeypatch.setattr(eng, "_decode_streaming", record_frames)
+    if mod is jpipe:
+        chunk = jpipe.generate_chunk
+
+        def counted(w, cfg, state, *a, **kw):
+            seen["chunks"] += 1
+            if keys is not None:
+                keys.append(np.asarray(state.key))   # donated below
+            return chunk(w, cfg, state, *a, **kw)
+
+        monkeypatch.setattr(jpipe, "generate_chunk", counted)
+    else:
+        gen_fn = eng._gen_fn
+
+        def counted_gen_fn(*a, **kw):
+            run = gen_fn(*a, **kw)
+
+            def chunk():
+                seen["chunks"] += 1
+                return run()
+            return chunk
+
+        monkeypatch.setattr(eng, "_gen_fn", counted_gen_fn)
+        if keys is not None:
+            frame = tpipe.generate_frame
+            draws, n = {}, [0]
+
+            def with_draws(w, cfg, state, *a, **kw):
+                k, f = divmod(n[0], tpipe.CHUNK_FRAMES)
+                if k not in draws:
+                    draws[k] = _jax_chunk_draws(keys[k], len(TEXTS), cfg)
+                n[0] += 1
+                return frame(w, cfg, state, *a, cb0_gumbel=draws[k][0][f],
+                             codes_gumbel=draws[k][1][f], **kw)
+
+            monkeypatch.setattr(tpipe, "generate_frame", with_draws)
+
+    def on_chunk(b, pcm):
+        calls[b] += 1
+
+    res = eng.synthesize_batch(TEXTS, params=params, on_chunk=on_chunk)
+    codes = [np.concatenate(f) if f else np.zeros((0, 16), np.int32)
+             for f in seen["frames"]]
+    monkeypatch.undo()
+    return res, codes, seen["chunks"], calls
+
+
+# (temperature, KV cache, max_audio_tokens, seed): 400 frames end every
+# stream by EOS before the chunk cap, 56 cut the longest streams at the
+# cap. The sampled seeds are ones whose streams do not part from the JAX
+# package's: with other draws a stream can (seed 0 with int8: stream 2,
+# frame 34, codebook 13), and the unpipelined loop gives the same codes
+# bitwise as this one there, so the parting comes from the two packages'
+# rounding (ROADMAP.md C, bf16 near-ties), not from the loop's order
+LOOP_CASES = {"greedy-bf16-cap": (0.0, "bf16", 56, 0),
+              "greedy-int8-eos": (0.0, "int8", 400, 0),
+              "sampled-bf16-eos": (0.9, "bf16", 400, 0),
+              "sampled-int8-cap": (0.9, "int8", 56, 2)}
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_pipelined_loop_matches_jax(engines, monkeypatch, case):
+    """The pipelined lock-step loop against the JAX loop, at the tiny
+    dims: codes exact (sampled: the JAX loop's draws passed in), the int16
+    PCM up to a step (2.5 / 32767, as above), the same number of chunks
+    dispatched and of on_chunk calls per stream; the EOS cases end before
+    the chunk cap, the cap cases cut a stream at max_audio_tokens."""
+    temperature, kv, max_tokens, seed = LOOP_CASES[case]
+    jeng, teng = engines
+    keys = [] if temperature > 0 else None
+    kw = dict(max_audio_tokens=max_tokens, temperature=temperature,
+              seed=seed)
+    monkeypatch.setenv("QWEN3_TTS_KV", kv)
+    want, wcodes, wchunks, wcalls = _recorded_run(
+        jpipe, jeng, jpipe.TTSParams(print_timing=False, **kw), monkeypatch,
+        keys)
+    monkeypatch.setenv("QWEN3_TTS_KV", kv)
+    got, gcodes, gchunks, gcalls = _recorded_run(
+        tpipe, teng, tpipe.TTSParams(**kw), monkeypatch, keys)
+    assert gchunks == wchunks and gcalls == wcalls
+    n_chunks = -(-max_tokens // tpipe.CHUNK_FRAMES)
+    frames = [r.n_frames for r in got]
+    if case.endswith("eos"):
+        assert gchunks < n_chunks and max(frames) < max_tokens
+    else:
+        assert gchunks == n_chunks and max(frames) == max_tokens
+    for g, w, gc, wc in zip(got, want, gcodes, wcodes):
+        assert g.success and w.success, (g.error_msg, w.error_msg)
+        np.testing.assert_array_equal(gc, wc)
+        assert g.n_frames == w.n_frames == len(gc)
+        np.testing.assert_allclose(g.audio, w.audio, atol=2.5 / 32767)
+
+
+def test_loop_enqueues_next_chunk_before_decoding(engines, monkeypatch):
+    """Chunk k+1 is dispatched before chunk k's codes are decoded: the
+    order of chunk dispatches ("gen") and streaming decodes ("decode") is
+    gen, then (gen, decode) per later chunk, then the last decode."""
+    _, teng = engines
+    events = []
+    gen_fn, decode = teng._gen_fn, teng._decode_streaming
+
+    def gen(*a, **kw):
+        run = gen_fn(*a, **kw)
+
+        def chunk():
+            events.append("gen")
+            return run()
+        return chunk
+
+    def dec(*a):
+        events.append("decode")
+        return decode(*a)
+
+    monkeypatch.setattr(teng, "_gen_fn", gen)
+    monkeypatch.setattr(teng, "_decode_streaming", dec)
+    res = teng.synthesize_batch(TEXTS, params=tpipe.TTSParams(
+        max_audio_tokens=400, temperature=0.0, seed=0))
+    n = events.count("gen")
+    assert n >= 2 and all(r.success for r in res)
+    assert events == ["gen"] + ["gen", "decode"] * (n - 1) + ["decode"]
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports (the CLI, GGUF, speaker-encoder,
     trace and audio modules by name), and a tiny synthesis and speaker

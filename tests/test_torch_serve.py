@@ -346,3 +346,31 @@ def test_warmup_long_token_bucket(engines):
     assert cb.trailing_buf >= 32  # grew (capped at max_frames)
     r = cb.submit("hello.")
     assert cb.run_all()[r].success
+
+
+def test_vocoderless_batcher_matches_jax(engines):
+    """A batcher over an engine made with voc_w=None (the JAX package's
+    semantics): warmup() skips the vocoder, the slots generate codes, and
+    every request reports the JAX batcher's frames, success, message and
+    rate (24000 Hz with no vocoder config) with no audio. Exact: no
+    tolerance."""
+    jeng, teng = engines
+    jeng = jpipe.Qwen3TTS.from_components(jeng.tokenizer, jeng.talker_cfg,
+                                          jeng.talker_w, None, None)
+    teng = tpipe.Qwen3TTS.from_components(teng.tokenizer, teng.talker_cfg,
+                                          teng.talker_w, None, None, "cpu")
+    texts = ("hello world.", "hello.", "hello hello world.")
+    out = []
+    for mod, serve_mod, eng in ((jpipe, jserve, jeng),
+                                (tpipe, tserve, teng)):
+        cb = serve_mod.ContinuousBatcher(eng, n_slots=2,
+                                         params=_params(mod), max_frames=48)
+        if mod is tpipe:
+            cb.warmup()
+        rids = [cb.submit(t) for t in texts]
+        res = cb.run_all()
+        out.append([res[r] for r in rids])
+    for g, w in zip(*reversed(out)):
+        assert (g.n_frames, g.success, g.error_msg, g.sample_rate) == (
+            w.n_frames, w.success, w.error_msg, w.sample_rate)
+        assert g.n_frames > 0 and len(g.audio) == len(w.audio) == 0

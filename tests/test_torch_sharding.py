@@ -176,13 +176,14 @@ def test_graph_keys_carry_the_mesh():
                kv_quant=False, talker_impl="auto", codepred_impl="auto",
                read_ctx=512, top_k=50, greedy=True, ring=True, trailing=256,
                top_p=1.0, temperature=0.0, repetition_penalty=1.05,
-               device="cuda:0")
+               device="cuda:0", attn_impl="auto")
     plain = graphs.gen_key(**key)
     r1 = graphs.gen_key(**key, mesh=(2, 1, 1))
     assert r1 == plain + "-m2x1-rk1"
     assert r1 != graphs.gen_key(**key, mesh=(2, 1, 0))
     assert graphs.voc_key(model_tag="t", n=8, frames=40, sub=None,
-                          pcm16=True, res_impl="auto", device="cuda:0",
+                          pcm16=True, res_impl="auto", sin2="fast",
+                          device="cuda:0",
                           mesh=(1, 1, 0)).endswith("-m1x1-rk0")
 
 

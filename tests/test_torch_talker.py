@@ -131,3 +131,27 @@ def test_prefill_and_steps(weights, inputs, quant):
     for a, b in zip(_cache_np(tc), _cache_np(jc)):
         np.testing.assert_allclose(a, b, atol=2e-2)
 
+
+
+def test_forward_text(weights, inputs):
+    """forward_text (project, optional speaker add, prefill) against the
+    JAX function on the same weights, with and without the speaker
+    embedding, at the stack's bf16 tolerance (BF16_TOL above)."""
+    jw, tw = weights
+    tokens, _, spk = inputs
+    tokens = tokens[:, :5]
+    args = (CFG.n_layers, B, 16, CFG.n_key_value_heads, CFG.head_dim)
+    for emb in (spk, None):
+        jh, jlog, _ = jtalker.forward_text(
+            jw, CFG, jnp.asarray(tokens),
+            None if emb is None else jnp.asarray(emb),
+            jstack.init_kv_cache(*args))
+        th, tlog, _ = ttalker.forward_text(
+            tw, TCFG, torch.from_numpy(tokens),
+            None if emb is None else torch.from_numpy(emb),
+            tstack.init_kv_cache(*args, "cpu"))
+        np.testing.assert_allclose(_np(th), _np(jh), atol=BF16_TOL)
+        np.testing.assert_allclose(_np(tlog), _np(jlog), atol=BF16_TOL)
+        if emb is not None:
+            with_spk = _np(th)
+    assert not np.allclose(_np(th), with_spk)

@@ -298,3 +298,105 @@ def test_res_chain_switch_on_cpu(weights, codes, impl, trim):
     assert tv._resolve_impl() == "auto"
     with pytest.raises(ValueError, match="fused_interpret"):
         tv.set_res_chain_impl("fused_interpret")
+
+
+def test_snake_fast_vs_exact():
+    """set_snake_sin2_impl (tests/test_ops.py::TestFastSin2): fast against
+    exact at the JAX test's tolerance (1e-5), each mode against the JAX
+    snake in the same mode (f32 sines a few ulps apart: 1e-6); fast is
+    the default; an unknown value raises."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((2, 64, 8)) * 20).astype(np.float32)
+    a = (rng.standard_normal(8) * 0.3).astype(np.float32)
+    b = (rng.standard_normal(8) * 0.3).astype(np.float32)
+    got, want = {}, {}
+    assert tv.snake_sin2_impl() == "fast"
+    for impl in ("exact", "fast"):
+        tv.set_snake_sin2_impl(impl)
+        jv.set_snake_sin2_impl(impl)
+        try:
+            got[impl] = tv.snake(*map(torch.from_numpy, (x, a, b))).numpy()
+            want[impl] = np.asarray(jv.snake(*map(jnp.asarray, (x, a, b))))
+        finally:
+            tv.set_snake_sin2_impl("fast")
+            jv.set_snake_sin2_impl("fast")
+        np.testing.assert_allclose(got[impl], want[impl], atol=1e-6,
+                                   rtol=1e-6)
+    np.testing.assert_allclose(got["fast"], got["exact"], atol=1e-5,
+                               rtol=1e-5)
+    assert not np.array_equal(got["fast"], got["exact"])
+    with pytest.raises(ValueError):
+        tv.set_snake_sin2_impl("nope")
+
+
+@pytest.mark.parametrize("kernel", ["chain", "head"])
+def test_twins_exact_match_pallas_interpret(kernel):
+    """Both vocoder kernels' twins in the exact sin^2 mode against the JAX
+    Pallas kernels (interpret mode) in the JAX package's exact mode, at
+    the fast-mode tests' tolerance above (one bf16 ulp of a snake
+    output)."""
+    rng = np.random.default_rng(9)
+    tv.set_snake_sin2_impl("exact")
+    jv.set_snake_sin2_impl("exact")
+    try:
+        if kernel == "chain":
+            res = _res_list(64, 5)
+            x = (rng.standard_normal((2, 256, 64)) * 3).astype(np.float32)
+            want = np.asarray(jvf.fused_residual_chain(
+                jnp.asarray(x), jax.tree.map(jnp.asarray, res),
+                interpret=True))
+            got = tvf.fused_residual_chain(torch.from_numpy(x),
+                                           {"res": _torch_res(res)}).numpy()
+        else:
+            a, b, w, bias = _head_block(64, 32, 4, 7)
+            x = (rng.standard_normal((2, 64, 64)) * 3).astype(np.float32)
+            want = np.asarray(jvf.fused_snake_convt(
+                *map(jnp.asarray, (x, a, b, w, bias)), 4, interpret=True))
+            blk = {"snake_a": torch.from_numpy(a),
+                   "snake_b": torch.from_numpy(b),
+                   "conv_t_w": torch.from_numpy(w).to(torch.bfloat16),
+                   "conv_t_b": torch.from_numpy(bias)}
+            got = tvf.fused_snake_convt(torch.from_numpy(x), blk, 4).numpy()
+    finally:
+        tv.set_snake_sin2_impl("fast")
+        jv.set_snake_sin2_impl("fast")
+    np.testing.assert_allclose(got, want, atol=5e-3 * np.abs(want).max())
+
+
+def test_res_chain_impl_traced():
+    """res_chain_impl_traced (tests/test_vocoder_fused.py::
+    test_res_chain_impl_traced_observation) reads what _res_chain took
+    since the last reset, as the JAX function does over the same calls:
+    untraced, auto on the CPU (the plain path, "xla"), fused (the
+    wrappers, which run their twins on CPU tensors; the JAX package's
+    fused_interpret), both ("mixed")."""
+    C, T, B = 32, 64, 2
+    res = _res_list(C, 11)
+    x = np.random.default_rng(12).standard_normal((B, T, C)).astype(
+        np.float32)
+    jres, jx = jax.tree.map(jnp.asarray, res), jnp.asarray(x)
+    tres, tx = {"res": _torch_res(res)}, torch.from_numpy(x)
+    readings = []
+    for port in (False, True):
+        mod = tv if port else jv
+        fused = "fused" if port else "fused_interpret"
+        got = []
+        mod.reset_res_chain_traced()
+        got.append(mod.res_chain_impl_traced())
+        run = ((lambda: tv._res_chain(tres, tx)) if port
+               else (lambda: jv._res_chain(jres, jx)))
+        run()
+        got.append(mod.res_chain_impl_traced())
+        mod.reset_res_chain_traced()
+        mod.set_res_chain_impl(fused)
+        try:
+            run()
+            got.append(mod.res_chain_impl_traced())
+            mod.set_res_chain_impl("xla")
+            run()
+            got.append(mod.res_chain_impl_traced())
+        finally:
+            mod.set_res_chain_impl(None if port else "auto")
+        readings.append(got)
+    assert readings[0] == readings[1] == ["untraced", "xla", "fused",
+                                          "mixed"]
