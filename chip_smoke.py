@@ -93,7 +93,15 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    (its CUDA tensors), full width, B 4, greedy, 40 frames, eager: codes
    equal to the unsharded xla run's up to bf16 near-ties (the margin of
    the reference's scores at each stream's first differing code), ms a
-   frame.
+   frame;
+10. bench (qwen3_tts_tpu_torch/tools, in process on the weights above):
+   ``bench`` over the ladder 192:int8:stacked,192:bf16:stacked (one chunk,
+   one run), ``bench_serve`` at 16 slots (24 requests, 120-frame cap) and
+   ``bench_breakdown`` at B 16 and 192 and at B 16 under the xla talker
+   (through decode attention); every record line parses, no request
+   fails, ``voc_impl`` reads the kernels ("fused"), every number is
+   finite, and every kernel launched (``launches_bench`` in the kernels
+   line); the phase's wall time is printed. It runs before the mesh.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -2678,6 +2686,70 @@ def pipelined_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
     return total
 
 
+BENCH_LADDER = "192:int8:stacked,192:bf16:stacked"
+BENCH_SERVE = ("--slots", "16", "--requests", "24", "--frames", "120")
+BENCH_BREAKDOWN = ((16, None), (192, None), (16, "xla"))
+
+
+def bench_phase(cfg, talker_w, vcfg, voc_w, card, counters, dev) -> dict:
+    """The measurement programs of qwen3_tts_tpu_torch/tools in process on
+    the smoke's weights (module docstring, item 10): every record line
+    parses, no request fails, the vocoder ran its kernels. Returns the
+    kernel launches of their runs."""
+    import io
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.tools import bench, bench_breakdown, bench_serve
+    t0 = time.monotonic()
+    for fn in counters.values():
+        fn.launches = 0
+    weights, out = (cfg, talker_w, vcfg, voc_w), io.StringIO()
+    bench.run(bench.parse_args(["--ladder", BENCH_LADDER, "--chunks", "1",
+                                "--runs", "1"]), weights, dev, out)
+    n_bench = len(out.getvalue().splitlines())
+    rc = bench_serve.run(bench_serve.parse_args(list(BENCH_SERVE)), weights,
+                         dev, out)
+    for B, impl in BENCH_BREAKDOWN:
+        talker.set_talker_step_impl(impl)
+        try:
+            bench_breakdown.run(bench_breakdown.parse_args(
+                ["--batch", str(B)]), weights, dev, out)
+        finally:
+            talker.set_talker_step_impl(None)
+    torch.cuda.synchronize()
+    ran = {k: fn.launches for k, fn in counters.items()}
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"bench record: {line}")
+    recs = [json.loads(line) for line in lines]    # every line parses
+    ladder, serve, breakdown = (recs[:n_bench], recs[n_bench],
+                                recs[n_bench + 1:])
+    if rc != 0 or "error" in serve:
+        raise AssertionError(f"bench_serve: a request failed (rc {rc}): "
+                             f"{serve}")
+    if [(r["kv"], r["voc_impl"]) for r in ladder] != [
+            ("int8", "fused"), ("bf16", "fused")]:
+        raise AssertionError(f"bench ladder records: {ladder}")
+    numbers = [r[k] for r in ladder for k in ("value", "gen_ms_per_frame",
+                                              "voc_ms_per_frame",
+                                              "total_ms_per_frame")]
+    numbers += [serve[k] for k in ("value", "ttfa_p50_ms", "ttfa_p99_ms")]
+    numbers += [r[k] for r in breakdown for k in (
+        "talker_step_ms", "talker_step_device_ms", "sum_of_stages_ms",
+        "frame_graph_ms", "frame_graph_device_ms")]
+    if not all(np.isfinite(x) and x > 0 for x in numbers):
+        raise AssertionError(f"a bench number is not finite and positive: "
+                             f"{numbers}")
+    if [r["talker_impl"] for r in breakdown] != ["auto", "auto", "xla"]:
+        raise AssertionError(f"breakdown talker impls: {breakdown}")
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"bench phase: a kernel never launched: {ran}")
+    log(f"bench phase on {card}: {time.monotonic() - t0:.1f} s wall; "
+        f"kernel launches {ran}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ran
+
+
 def _counters() -> dict:
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
     from qwen3_tts_tpu_torch.ops import flash_decode as fd
@@ -3566,22 +3638,27 @@ def main() -> int:
                            counters, dev)
     piped = pipelined_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                             counters, dev)
+    benched = bench_phase(cfg, talker_w, vcfg, voc_w, card, counters, dev)
     meshed = mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                         counters, dev)
     for entry in report:
-        a, b, c, d, e, f, g = (
+        a, b, c, d, e, f, g, h = (
             lockstep[entry["name"]], serving[entry["name"]],
             clone[entry["name"]], graphed[entry["name"]],
             meshed[entry["name"]], converted[entry["name"]],
-            piped[entry["name"]])
-        entry.update(launches=a + b + c + d + e + f + g, launches_lockstep=a,
-                     launches_serving=b, launches_clone=c,
-                     launches_graphs=d, launches_mesh=e,
-                     launches_convert=f, launches_pipelined=g)
+            piped[entry["name"]], benched[entry["name"]])
+        entry.update(launches=a + b + c + d + e + f + g + h,
+                     launches_lockstep=a, launches_serving=b,
+                     launches_clone=c, launches_graphs=d, launches_mesh=e,
+                     launches_convert=f, launches_pipelined=g,
+                     launches_bench=h)
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on a main path")
         if entry["launches_mesh"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on the mesh")
+        if entry["launches_bench"] <= 0:
+            raise AssertionError(f"{entry['name']} never ran in the bench "
+                                 f"phase")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

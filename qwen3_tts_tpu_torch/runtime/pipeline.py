@@ -676,6 +676,15 @@ class Qwen3TTS:
                 return b
         return cap
 
+    def voc_sub(self, n: int, max_batch: int | None = None) -> int | None:
+        """The tail's sub-batch width for a decode of n streams: None (the
+        whole batch at once) up to max_batch (default VOC_MAX_BATCH), else
+        the largest of max_batch, 32, 16, 8, 4, 2, 1 that is not above
+        max_batch and divides n."""
+        cap = self.VOC_MAX_BATCH if max_batch is None else max_batch
+        return None if n <= cap else next(
+            d for d in (cap, 32, 16, 8, 4, 2, 1) if d <= cap and n % d == 0)
+
     def _decode_chunk_batch(self, codes: np.ndarray, pcm16: bool = False,
                             max_batch: int | None = None):
         """[n, CHUNK, 16] -> [n, CHUNK*1920] audio (causal trim), the tail
@@ -684,9 +693,7 @@ class Qwen3TTS:
         int16 PCM as a tensor on the engine's device, for readback_submit;
         otherwise host f32."""
         n = len(codes)
-        cap = self.VOC_MAX_BATCH if max_batch is None else max_batch
-        sub = None if n <= cap else next(
-            d for d in (cap, 32, 16, 8, 4, 2, 1) if d <= cap and n % d == 0)
+        sub = self.voc_sub(n, max_batch)
         with torch.inference_mode():
             buf, decode = self._voc_fn(n, codes.shape[1], sub, pcm16)
             host = torch.from_numpy(np.ascontiguousarray(codes, np.int32))

@@ -12,9 +12,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import faulthandler
 import io
 import os
 import pickle
+import sys
+import time
 import traceback
 
 import numpy as np
@@ -24,6 +27,7 @@ import torch.distributed as dist
 CHUNK = 6               # frames of the lock-step chunk
 RING_CHUNK = 4          # frames of a serving chunk
 B = 8                   # streams of the lock-step and serving batches
+COLLECTIVE_S = 120      # gloo's collective timeout, and the exit wait's
 
 
 @dataclasses.dataclass
@@ -251,38 +255,86 @@ def run_jobs(inp: Inputs, mesh, names) -> dict:
     return {name: JOBS[name](inp, mesh) for name in names}
 
 
+def _stderr_path(out_dir: str, rank: int) -> str:
+    return os.path.join(out_dir, f"rank{rank}.stderr")
+
+
+def _result_path(out_dir: str, rank: int) -> str:
+    return os.path.join(out_dir, f"rank{rank}.pkl")
+
+
+def _write_result(out_dir: str, rank: int, out: dict) -> None:
+    """Write a rank's results whole, or not at all (rename into place)."""
+    tmp = _result_path(out_dir, rank) + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(out, f)
+    os.replace(tmp, _result_path(out_dir, rank))
+
+
+def _wait_for_results(out_dir: str, world: int, timeout_s: float) -> None:
+    """Until every rank has written its results (or `timeout_s`)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline and not all(
+            os.path.exists(_result_path(out_dir, r)) for r in range(world)):
+        time.sleep(0.05)
+
+
 def _entry(rank: int, world: int, n_tp: int, store: str, out_dir: str,
            inp: Inputs, names) -> None:
+    # this rank's stderr, the C++ side's included, goes to a file that
+    # spawn() puts into its error; a fatal signal dumps the Python stack
+    err = open(_stderr_path(out_dir, rank), "w", buffering=1)
+    os.dup2(err.fileno(), 2)
+    sys.stderr = err
+    faulthandler.enable(err)
     torch.set_num_threads(1)
     # a rank that fails ends the others' collectives in seconds, not in
     # gloo's 30-minute default
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world,
-                            timeout=datetime.timedelta(seconds=120))
+                            timeout=datetime.timedelta(seconds=COLLECTIVE_S))
     try:
         from qwen3_tts_tpu_torch.parallel.mesh import make_mesh
-        mesh = make_mesh(world // n_tp, n_tp, "cpu")
-        try:
-            out = run_jobs(inp, mesh, names)
-        except Exception:
-            out = {"error": traceback.format_exc()}
-            raise
-        finally:
-            with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-                pickle.dump(out, f)
-    finally:
-        dist.destroy_process_group()
+        out = run_jobs(inp, make_mesh(world // n_tp, n_tp, "cpu"), names)
+    except Exception:
+        _write_result(out_dir, rank, {"error": traceback.format_exc()})
+        raise
+    _write_result(out_dir, rank, out)
+    # No rank tears its gloo groups down: gloo's TCP transport can abort
+    # the process there ("terminate called without an active exception").
+    # Its event loop's destructor calls shutdown(), which returns at once
+    # when the loop's done flag is already set, joined or not, and then
+    # destroys the loop's std::thread, which terminates if still joinable.
+    # Once every rank has written its results no collective is left
+    # anywhere, and each rank leaves without running a destructor.
+    _wait_for_results(out_dir, world, COLLECTIVE_S)
+    err.flush()
+    os._exit(0)
 
 
 def spawn(inp: Inputs, world: int, n_tp: int, names, tmp) -> list[dict]:
     """Run `names` on a (world / n_tp) x n_tp gloo mesh of `world` spawned
-    processes; returns each rank's results."""
+    processes; returns each rank's results. If a rank fails, the error
+    raised here holds every rank's stderr."""
     tmp = str(tmp)
-    torch.multiprocessing.spawn(
-        _entry, args=(world, n_tp, os.path.join(tmp, "store"), tmp, inp,
-                      tuple(names)), nprocs=world, join=True)
+    try:
+        torch.multiprocessing.spawn(
+            _entry, args=(world, n_tp, os.path.join(tmp, "store"), tmp, inp,
+                          tuple(names)), nprocs=world, join=True)
+    except (torch.multiprocessing.ProcessExitedException,
+            torch.multiprocessing.ProcessRaisedException) as e:
+        logs = []
+        for rank in range(world):
+            try:
+                with open(_stderr_path(tmp, rank)) as f:
+                    text = f.read()
+            except OSError as oe:
+                text = f"(no stderr file: {oe})"
+            logs.append(f"--- rank {rank} stderr ---\n{text}")
+        raise RuntimeError("\n".join([f"mesh workers failed: {e}", *logs])
+                           ) from e
     out = []
     for rank in range(world):
-        with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+        with open(_result_path(tmp, rank), "rb") as f:
             out.append(pickle.load(f))
     return out
