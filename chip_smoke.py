@@ -255,6 +255,24 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def call_split(res) -> tuple[float, float]:
+    """(generate ms, decode ms) of the latest synthesize_batch call, whose
+    results are `res`, from its spans (utils/trace.py): decode is its
+    vocoder waves and its tail flush, generate the rest of the call after
+    its tokenization. A checkout whose results still carry
+    ``t_generate_ms`` / ``t_decode_ms`` (``--compare`` against an older
+    one) gives those."""
+    if hasattr(res[0], "t_generate_ms"):
+        return res[0].t_generate_ms, res[0].t_decode_ms
+    from qwen3_tts_tpu_torch.utils import trace
+    call = [s for s in trace.spans() if s.name == "call"][-1]
+    part = {n: sum(s.ms for s in trace.spans(call.t0, call.t1)
+                   if s.parent == call.sid and s.name == n)
+            for n in ("call.tokenize", "call.decode", "call.tail_flush")}
+    decode = part["call.decode"] + part["call.tail_flush"]
+    return call.ms - part["call.tokenize"] - decode, decode
+
+
 def ptxas_summary(text: str) -> list:
     """'kernel<template args>: N registers, S bytes spilled' per kernel
     from nvcc's -Xptxas=-v output."""
@@ -1531,12 +1549,13 @@ def lockstep_run(engine, impl, kv, temperature, top_p, card, counters,
     cfg = engine.talker_cfg
     steps = _talker_steps(ran, cfg, impl)
     audio_s = sum(len(r.audio) for r in res) / engine.voc_cfg.sample_rate
+    gen_ms, dec_ms = call_split(res)
     log(f"synthesize_batch talker={impl} kv={kv} temperature={temperature} "
         f"top_p={top_p}: {len(res)} requests, frames "
         f"{[r.n_frames for r in res]}, "
         f"{audio_s:.2f} s of audio in {wall:.2f} s wall (generate "
-        f"{res[0].t_generate_ms:.0f} ms, decode {res[0].t_decode_ms:.0f} ms)"
-        f"; generate {res[0].t_generate_ms / steps:.2f} ms per lock-step "
+        f"{gen_ms:.0f} ms, decode {dec_ms:.0f} ms)"
+        f"; generate {gen_ms / steps:.2f} ms per lock-step "
         f"frame ({steps} frames) on {card}; kernel launches {ran}")
     _expect_launches(ran, impl, "synthesize_batch", top_p)
     coop = kernels.codepred_launches() - coop0
@@ -1595,6 +1614,7 @@ def profile_lockstep(engine, card, dev, mode: str) -> float:
         os.environ.pop("QWEN3_TTS_AOT", None)
     events = _kernel_events(prof)
     frames = max(r.n_frames for r in res)
+    gen_ms, dec_ms = call_split(res)
     groups, rest = {}, 0.0
     for name, start, end in events:
         for label, keys in PROFILE_GROUPS:
@@ -1609,7 +1629,7 @@ def profile_lockstep(engine, card, dev, mode: str) -> float:
     split = ", ".join(f"{k} {v / 1e3 / frames:.3f}" for k, v in groups.items())
     log(f"profiled synthesize_batch ({mode}) talker=auto kv=bf16 greedy, "
         f"{frames} lock-step frames, wall {wall:.1f} ms (generate "
-        f"{res[0].t_generate_ms:.1f} ms, decode {res[0].t_decode_ms:.1f} ms; "
+        f"{gen_ms:.1f} ms, decode {dec_ms:.1f} ms; "
         f"host clock under the profiler) on {card}: device ms per frame: "
         f"{split}, other kernels {rest / 1e3 / frames:.3f} "
         f"({len(events)} kernels in all; code predictor {n_cp}, talker "
@@ -1955,6 +1975,7 @@ def load_and_clone(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
         torch.cuda.synchronize()
         res = eng.synthesize_with_voice(LOCKSTEP_TEXTS[0], ref, params)
         _check_results([res], eng)
+        res_gen = call_split([res])[0]
         embs = list(batch_emb[:len(LOCKSTEP_TEXTS)])
         steps = counters["talker_fused"].launches
         t0 = time.monotonic()
@@ -1963,11 +1984,11 @@ def load_and_clone(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
         steps = counters["talker_fused"].launches - steps
         _check_results(got, eng)
         log(f"synthesize_with_voice: {res.n_frames} frames, t_encode_ms "
-            f"{res.t_encode_ms:.1f}, t_generate_ms {res.t_generate_ms:.1f}, "
+            f"{res.t_encode_ms:.1f}, generate {res_gen:.1f} ms, "
             f"t_total_ms {res.t_total_ms:.1f}; synthesize_batch with "
             f"{len(embs)} cloned voices, greedy: frames "
             f"{[r.n_frames for r in got]}, {wall:.2f} s wall, generate "
-            f"{got[0].t_generate_ms / steps:.2f} ms per lock-step frame "
+            f"{call_split(got)[0] / steps:.2f} ms per lock-step frame "
             f"({steps} frames) on {card}")
         low_got = low.synthesize_batch(LOCKSTEP_TEXTS, embs, params)
         for a, b in zip(got, low_got):
@@ -2062,7 +2083,7 @@ def _lockstep_once(engine, impl, temperature, top_p, aot, counters, dev):
     _check_results(res, engine)
     _expect_launches(ran, impl, "synthesize_batch", top_p)
     steps = _talker_steps(ran, engine.talker_cfg, impl)
-    return res, res[0].t_generate_ms / steps, ran
+    return res, call_split(res)[0] / steps, ran
 
 
 def _design_times(engine, impl, card, dev) -> None:
@@ -2074,6 +2095,7 @@ def _design_times(engine, impl, card, dev) -> None:
     from qwen3_tts_tpu_torch.models import talker
     from qwen3_tts_tpu_torch.runtime import generate as G
     from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.utils import trace
     cfg, w = engine.talker_cfg, engine.talker_w
     talker.set_talker_step_impl(impl)
     cache = graphs.GraphCache()
@@ -2101,10 +2123,11 @@ def _design_times(engine, impl, card, dev) -> None:
                 reps = CHUNK // n
                 ms = cuda_time(lambda: [fn() for _ in range(reps)], 2)
                 if frames:
-                    stats = cache.stats[key]
+                    cap = [s for s in trace.spans()
+                           if s.name == "graphs.capture"][-1].attrs
                     out.append(f"{frames}-frame graph: warm run "
-                               f"{stats['warm_s'] * 1e3:.1f} ms, capture and "
-                               f"instantiate {stats['capture_s'] * 1e3:.1f} ms,"
+                               f"{cap['warm_us'] / 1e3:.1f} ms, capture and "
+                               f"instantiate {cap['capture_us'] / 1e3:.1f} ms,"
                                f" {ms:.2f} ms per {CHUNK} frames replayed")
                 else:
                     out.append(f"eager {ms:.2f} ms per {CHUNK} frames")
@@ -2141,6 +2164,7 @@ def graphs_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
     from qwen3_tts_tpu_torch import kernels
     from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
     from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    from qwen3_tts_tpu_torch.utils import trace
     os.environ["QWEN3_TTS_KV"] = "bf16"
     total = dict.fromkeys(counters, 0)
     per_frame = {}
@@ -2188,18 +2212,18 @@ def graphs_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
                                    max_frames=SERVE_MAX_FRAMES)
             reserved0 = torch.cuda.memory_reserved(dev)
             if mode == "graph":
+                t_warm = time.monotonic_ns()
                 cb.warmup()
-                keys = list(fresh.graphs.stats)
+                caps = [s for s in trace.spans(t_warm)
+                        if s.name == "graphs.capture"]
                 log(f"graphs: warmup of an {SERVE_SLOTS}-slot batcher "
                     f"(max_frames {SERVE_MAX_FRAMES}, buckets "
                     f"{cb.warmup_buckets()}): {cb.warmup_s:.2f} s, "
-                    f"{len(keys)} graphs captured: " + "; ".join(
-                        f"{k.split('-')[0]} {k.split('-')[2]} warm run "
-                        f"{fresh.graphs.stats[k]['warm_s'] * 1e3:.1f} ms, "
-                        f"capture {fresh.graphs.stats[k]['capture_s'] * 1e3:.1f}"
-                        f" ms, pool then "
-                        f"{fresh.graphs.stats[k]['pool_bytes'] / 2**20:.0f} MiB"
-                        for k in keys)
+                    f"{len(caps)} graphs captured: " + "; ".join(
+                        f"{c.attrs['kind']} warm run "
+                        f"{c.attrs['warm_us'] / 1e3:.1f} ms, capture "
+                        f"{c.attrs['capture_us'] / 1e3:.1f} ms"
+                        for c in caps)
                     + f"; pool {fresh.graphs.pool_bytes(dev) / 2**20:.1f} MiB"
                     f", reserved +{(torch.cuda.memory_reserved(dev) - reserved0) / 2**20:.1f} MiB"
                     f" on {card}")
@@ -2365,7 +2389,7 @@ def _mesh_tp_child(rank: int, store: str, out: str) -> None:
                 audio=[r.audio for r in res],
                 ok=[r.success and bool(np.isfinite(r.audio).all())
                     for r in res],
-                ms=res[0].t_generate_ms / len(frames),
+                ms=call_split(res)[0] / len(frames),
                 launches={k: fn.launches for k, fn in counters.items()}),
                 out)
     finally:
@@ -2443,6 +2467,7 @@ def profile_pipelined(engine, card, dev, B: int, counters) -> dict:
     _check_results(res, engine)
     _expect_launches(ran, "auto", f"pipelined B={B}")
     steps = ran["talker_fused"]
+    gen_ms, dec_ms = call_split(res)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2461,9 +2486,9 @@ def profile_pipelined(engine, card, dev, B: int, counters) -> dict:
     log(f"pipelined: synthesize_batch B={B} auto bf16 greedy, "
         f"{LOCKSTEP_TOKENS} frames cap, {steps} lock-step frames "
         f"({steps // CHUNK} chunks), stream frames {min(frames)}-"
-        f"{max(frames)}; unprofiled: generate {res[0].t_generate_ms:.1f} ms "
-        f"= {res[0].t_generate_ms / steps:.3f} ms per lock-step frame, decode "
-        f"{res[0].t_decode_ms:.1f} ms, wall {wall:.1f} ms; profiled: wall "
+        f"{max(frames)}; unprofiled: generate {gen_ms:.1f} ms "
+        f"= {gen_ms / steps:.3f} ms per lock-step frame, decode "
+        f"{dec_ms:.1f} ms, wall {wall:.1f} ms; profiled: wall "
         f"{pwall:.1f} ms, card busy {busy / 1e3:.1f} ms = "
         f"{busy / 1e3 / pwall:.1%} of the wall (idle {1 - busy / 1e3 / pwall:.1%}; busy over the "
         f"unprofiled wall {busy / 1e3 / wall:.1%}); code predictor {n_cp}, "
@@ -2805,7 +2830,7 @@ def mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
                 _expect_launches(ran, "auto", f"mesh synthesize_batch {name}")
                 if name == "sharded":
                     total = {k: total[k] + ran[k] for k in counters}
-                runs[name].append((res, res[0].t_generate_ms
+                runs[name].append((res, call_split(res)[0]
                                    / ran["talker_fused"]))
             same = all(_same(r, runs["unsharded"][0][0])
                        for r, _ in runs["unsharded"] + runs["sharded"])
@@ -2877,6 +2902,7 @@ def mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
             max_audio_tokens=MESH_TP_FRAMES, temperature=0.0, seed=SEED,
             print_timing=False))
         torch.cuda.synchronize()
+        ref_ms = call_split(ref)[0]
     finally:
         undo()
         talker.set_talker_step_impl(None)
@@ -2893,7 +2919,7 @@ def mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card, counters,
     log(f"mesh: tp=2 (two ranks sharing the card over gloo, eager) "
         f"synthesize_batch full width B={MESH_B} greedy {MESH_TP_FRAMES} "
         f"frames: {tp['ms']:.2f} ms per lock-step frame (xla unsharded "
-        f"{ref[0].t_generate_ms / MESH_TP_FRAMES:.2f}, eager), frames "
+        f"{ref_ms / MESH_TP_FRAMES:.2f}, eager), frames "
         f"{tp['n_frames']} (unsharded xla {n_ref}), code agreement "
         f"{agree:.4f}, "
         + ("codes and audio bitwise equal" if same else
@@ -3488,7 +3514,7 @@ for B in cs.COMPARE_LOCKSTEP_B:
         wall = (time.monotonic() - t0) * 1e3
         steps = tf.talker_step_fused.launches - steps
         name = f"B={B} {kv}"
-        out[name] = [res[0].t_generate_ms / steps, wall, steps]
+        out[name] = [cs.call_split(res)[0] / steps, wall, steps]
         arrays[name + " codes"] = np.concatenate(
             [np.concatenate(f) for f in seen["frames"]])
         arrays[name + " pcm"] = np.concatenate(

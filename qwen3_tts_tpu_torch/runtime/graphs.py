@@ -43,13 +43,18 @@ What a graph keeps from its capture:
 
 Eager, with ``fn`` itself returned: CPU tensors (there is nothing to
 capture; that is the device the caller asked for), ``QWEN3_TTS_AOT=0``
-(the switch the JAX package reads, with the same meaning), a kernel's
+(the switch the JAX package reads, with the same meaning) and a kernel's
 phase clock set (``predict_codes_fused.phase_ns``,
-``talker_step_fused.phase_ns``, whose pointers a graph would keep) and a
-``QWEN3_TTS_PROFILE`` trace. Graphs live as long as their cache, which
-the engine owns; CUDA graphs have no serialized form, so nothing is
-written to disk (the kernels' build cache in ``_build/`` is the port's
-on-disk artifact).
+``talker_step_fused.phase_ns``, whose pointers a graph would keep). A
+``QWEN3_TTS_PROFILE`` trace replays the graphs an untraced run replays;
+the program's own ranges there are the recorder's (utils/trace.py).
+Graphs live as long as their cache, which the engine owns; CUDA graphs
+have no serialized form, so nothing is written to disk (the kernels'
+build cache in ``_build/`` is the port's on-disk artifact).
+
+Each capture is a ``graphs.capture`` span (``kind`` gen or voc,
+``warm_us``, ``capture_us``); ``pool_bytes()`` reads the pool's memory
+when asked.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ import torch
 
 from .. import kernels
 from ..ops import codepred_fused, flash_decode, talker_fused, vocoder_fused
+from ..utils import trace
 
 _BUFFER_IDS = itertools.count(1)
 
@@ -179,25 +185,25 @@ class _Graph:
         self.outputs = None
         self.delta = None
         self.keep: list = []
-        self.replays = 0
 
     def __call__(self):
         if self.graph is None:
-            return self._capture()
+            with trace.span("graphs.capture",
+                            kind=self.key.split("-", 1)[0]) as sp:
+                return self._capture(sp)
         self.graph.replay()
         _add_counts(self.delta)
-        self.replays += 1
         return self.outputs
 
-    def _capture(self):
+    def _capture(self, sp):
         main = torch.cuda.current_stream(self.device)
         side = self.cache.side_stream(self.device)
         side.wait_stream(main)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         with torch.cuda.stream(side):
             warm = self.fn()
         side.synchronize()
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
@@ -223,9 +229,8 @@ class _Graph:
         self.keep = _scratch_refs()
         if flash_decode.flash_decode.wrapped is not None:
             self.keep.append(flash_decode.flash_decode.wrapped)
-        self.cache.stats[self.key] = dict(
-            warm_s=t1 - t0, capture_s=time.perf_counter() - t1,
-            pool_bytes=self.cache.pool_bytes(self.device))
+        sp.set(warm_us=(t1 - t0) // 1000,
+               capture_us=(time.perf_counter_ns() - t1) // 1000)
         return warm
 
 
@@ -235,8 +240,6 @@ class GraphCache:
 
     def __init__(self):
         self.graphs: dict = {}
-        # key -> warm_s, capture_s, pool_bytes (after the capture)
-        self.stats: dict[str, dict] = {}
         self._pools: dict = {}
         self._streams: dict = {}
 
@@ -244,8 +247,7 @@ class GraphCache:
     def capturing(device) -> bool:
         """Whether calls on `device` run as graphs (module docstring)."""
         return (torch.device(device).type == "cuda" and aot_enabled()
-                and not _phase_clocks_on()
-                and not os.environ.get("QWEN3_TTS_PROFILE"))
+                and not _phase_clocks_on())
 
     def pool(self, device):
         if device not in self._pools:
@@ -284,7 +286,8 @@ class GraphCache:
                        if g.owner != owner}
 
     def pool_bytes(self, device) -> int:
-        """Card memory the graphs' pool holds (reserved segments)."""
+        """Card memory the graphs' pool holds (reserved segments): a walk
+        over the allocator's snapshot, made only when asked."""
         if device not in self._pools:
             return 0
         pool = tuple(self._pools[device])

@@ -90,7 +90,8 @@ from ..parallel.mesh import (dp_rows, gather_chunk, gather_objects,
                              graphs_allowed, mesh_dims, rank_seed,
                              shard_talker_weights)
 from ..tokenizer import TextTokenizer
-from ..utils.trace import StageTimer, memory_snapshot, profile_trace
+from ..utils import trace
+from ..utils.trace import memory_snapshot, print_report, profile_trace
 from . import audio_io
 from .generate import (ctx_bucket, generate_frame, init_state,
                        kv_quant_enabled, make_consts, required_ctx)
@@ -104,12 +105,14 @@ CHUNK_FRAMES = 40  # streaming vocoder interval
 class Readback:
     """A device -> host copy in flight. A CUDA tensor is copied
     non-blocking into pinned host memory and an event marks the copy's
-    end: done() polls the event, result() waits on it. A CPU tensor is
-    copied at once."""
+    end: done() polls the event, result() waits on it, inside a
+    ``host.wait`` span (``what``: codes, done or audio) when the copy has
+    not landed yet. A CPU tensor is copied at once."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "what")
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t: torch.Tensor, what: str = "codes"):
+        self.what = what
         if t.is_cuda:
             self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self.host.copy_(t, non_blocking=True)
@@ -123,8 +126,9 @@ class Readback:
         return self.event is None or self.event.query()
 
     def result(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
+        if self.event is not None and not self.event.query():
+            with trace.span("host.wait", what=self.what):
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -168,8 +172,6 @@ class TTSResult:
     n_frames: int = 0
     t_tokenize_ms: float = 0.0
     t_encode_ms: float = 0.0    # synthesize_with_voice: the speaker encode
-    t_generate_ms: float = 0.0
-    t_decode_ms: float = 0.0
     t_total_ms: float = 0.0
     # serving only (ContinuousBatcher): wall time from submit to admission;
     # t_total_ms counts from admission, so a client waits the sum
@@ -479,8 +481,12 @@ class Qwen3TTS:
         generator: the sampling noise source, on self.device; when None, one
         is seeded from params.seed (or at random). on_chunk(stream, samples)
         fires per decoded 40-frame chunk. QWEN3_TTS_PROFILE=<dir> writes a
-        torch.profiler trace of the call (utils/trace.py)."""
-        with profile_trace("synthesize_batch"):
+        torch.profiler trace of the call (utils/trace.py). The call is a
+        ``call`` span; inside it ``call.tokenize``, ``call.prefill``, a
+        ``call.dispatch`` a chunk, a ``call.decode`` a vocoder wave and a
+        tail decode (``rows``, ``bucket``), and ``call.tail_flush``."""
+        with profile_trace("synthesize_batch"), \
+                trace.span("call", streams=len(texts)):
             return self._synthesize_batch_impl(texts, embeddings, params,
                                                generator, on_chunk)
 
@@ -494,12 +500,11 @@ class Qwen3TTS:
             return results
         cfg = self.talker_cfg
         dev = self.device
-        t_total0 = _now_ms()
-        timer = StageTimer()
+        t_total0 = time.monotonic_ns()
 
-        with timer.stage("Tokenization"):
+        with trace.span("call.tokenize"):
             token_lists = [self.tokenizer.encode_for_tts(t) for t in texts]
-        t_tok = timer.stages["Tokenization"]
+        t_tok = (time.monotonic_ns() - t_total0) / 1e6
         bad = set()
         for i, (r, toks) in enumerate(zip(results, token_lists)):
             if len(toks) < 4:
@@ -529,23 +534,23 @@ class Qwen3TTS:
         active = (None if rows_pad == B else
                   torch.arange(lo, hi, device=dev) < B)
 
-        t0 = _now_ms()
         with torch.inference_mode():
-            prefill = talker.build_prefill_inputs(
-                self.talker_w, cfg, torch.as_tensor(tokens[lo:hi], device=dev),
-                torch.as_tensor(lens[lo:hi], device=dev),
-                torch.as_tensor(spk_emb[lo:hi], device=dev),
-                language_id=torch.full((hi - lo,), p.language_id,
-                                       dtype=torch.int32, device=dev))
-            prefill_len = prefill.prefill_embd.shape[1]
-            max_ctx = required_ctx(prefill_len, p.max_audio_tokens,
-                                   CHUNK_FRAMES)
-            state, consts, bufs = self._lockstep_state(prefill, max_ctx, p,
-                                                       generator, active)
+            with trace.span("call.prefill"):
+                prefill = talker.build_prefill_inputs(
+                    self.talker_w, cfg,
+                    torch.as_tensor(tokens[lo:hi], device=dev),
+                    torch.as_tensor(lens[lo:hi], device=dev),
+                    torch.as_tensor(spk_emb[lo:hi], device=dev),
+                    language_id=torch.full((hi - lo,), p.language_id,
+                                           dtype=torch.int32, device=dev))
+                prefill_len = prefill.prefill_embd.shape[1]
+                max_ctx = required_ctx(prefill_len, p.max_audio_tokens,
+                                       CHUNK_FRAMES)
+                state, consts, bufs = self._lockstep_state(
+                    prefill, max_ctx, p, generator, active)
 
             frames: list[list[np.ndarray]] = [[] for _ in range(B)]
             audio_parts: list[list[np.ndarray]] = [[] for _ in range(B)]
-            t_decode = 0.0
             n_chunks = -(-p.max_audio_tokens // CHUNK_FRAMES)
             greedy = p.temperature <= 0.0
             steps_dispatched = 0
@@ -554,17 +559,21 @@ class Qwen3TTS:
                 """Enqueue one chunk and the copies of its (codes, valid,
                 done), in stream order, before any later chunk."""
                 nonlocal steps_dispatched
-                # every stream's n_past is at most prefill + frames so far
-                read_ctx = ctx_bucket(prefill_len + steps_dispatched,
-                                      CHUNK_FRAMES, max_ctx)
-                steps_dispatched += CHUNK_FRAMES
-                codes, valid = self._gen_fn(state, consts, bufs, read_ctx,
-                                            p.top_k, greedy, p.top_p)()
-                done = state.done
-                if self.mesh is not None:   # the whole batch, every rank
-                    codes, valid, done = gather_chunk(self.mesh, codes,
-                                                      valid, done)
-                return tuple(Readback(t) for t in (codes, valid, done))
+                with trace.span("call.dispatch"):
+                    # every stream's n_past is at most prefill + frames so
+                    # far
+                    read_ctx = ctx_bucket(prefill_len + steps_dispatched,
+                                          CHUNK_FRAMES, max_ctx)
+                    steps_dispatched += CHUNK_FRAMES
+                    codes, valid = self._gen_fn(state, consts, bufs,
+                                                read_ctx, p.top_k, greedy,
+                                                p.top_p)()
+                    done = state.done
+                    if self.mesh is not None:   # the whole batch, every rank
+                        codes, valid, done = gather_chunk(self.mesh, codes,
+                                                          valid, done)
+                    return (Readback(codes, "codes"),
+                            Readback(valid, "codes"), Readback(done, "done"))
 
             # module docstring: chunk k+1 is enqueued as soon as chunk k's
             # `done` is home, before chunk k's codes are read and decoded
@@ -583,64 +592,70 @@ class Qwen3TTS:
                     if len(got):
                         frames[b].append(got)
                 if p.streaming_vocoder and self.voc_w is not None:
-                    td0 = _now_ms()
                     self._decode_streaming(frames, audio_parts, on_chunk,
                                            rows)
-                    t_decode += _now_ms() - td0
             if state.generator is not generator:
                 generator.set_state(state.generator.get_state())
-            t_gen = _now_ms() - t0 - t_decode
+            with trace.span("call.tail_flush"):
+                for b in range(B):
+                    if b in bad:
+                        continue
+                    fr = (np.concatenate(frames[b]) if frames[b]
+                          else np.zeros((0, cfg.n_codebooks), np.int32))
+                    results[b].n_frames = len(fr)
+                    if len(fr) == 0:
+                        results[b].error_msg = "No speech codes generated"
+                        continue
+                    if self.voc_w is None:
+                        results[b].error_msg = "Vocoder not loaded"
+                        continue
+                    results[b].sample_rate = self.voc_cfg.sample_rate
+                    results[b].success = True
+                    if b not in rows:
+                        continue          # another dp rank's stream
+                    if p.streaming_vocoder:
+                        self._flush_streaming(b, frames, audio_parts,
+                                              on_chunk, len(rows))
+                        results[b].audio = self._pcm_parts_to_f32(
+                            audio_parts[b])
+                    else:
+                        results[b].audio = self.decode_codes(fr)
+                if self.mesh is not None:
+                    for part in gather_objects(self.mesh, {
+                            b: results[b].audio for b in rows}):
+                        for b, audio in part.items():
+                            results[b].audio = audio
+                _sync(dev)
 
-            td0 = _now_ms()
-            for b in range(B):
-                if b in bad:
-                    continue
-                fr = (np.concatenate(frames[b]) if frames[b]
-                      else np.zeros((0, cfg.n_codebooks), np.int32))
-                results[b].n_frames = len(fr)
-                if len(fr) == 0:
-                    results[b].error_msg = "No speech codes generated"
-                    continue
-                if self.voc_w is None:
-                    results[b].error_msg = "Vocoder not loaded"
-                    continue
-                results[b].sample_rate = self.voc_cfg.sample_rate
-                results[b].success = True
-                if b not in rows:
-                    continue          # another dp rank's stream
-                if p.streaming_vocoder:
-                    self._flush_streaming(b, frames, audio_parts, on_chunk,
-                                          len(rows))
-                    results[b].audio = self._pcm_parts_to_f32(audio_parts[b])
-                else:
-                    results[b].audio = self.decode_codes(fr)
-            if self.mesh is not None:
-                for part in gather_objects(self.mesh, {
-                        b: results[b].audio for b in rows}):
-                    for b, audio in part.items():
-                        results[b].audio = audio
-            _sync(dev)
-            t_decode += _now_ms() - td0
-
-        timer.add("Code generation", t_gen)
-        timer.add("Vocoder decode", t_decode)
         rss = memory_snapshot()["rss_peak_bytes"]
         dev_mem = (torch.cuda.max_memory_allocated(dev)
                    if dev.type == "cuda" else 0)
+        t_total = (time.monotonic_ns() - t_total0) / 1e6
         for r in results:
             r.t_tokenize_ms = t_tok
-            r.t_generate_ms = t_gen
-            r.t_decode_ms = t_decode
-            r.t_total_ms = _now_ms() - t_total0
+            r.t_total_ms = t_total
             r.mem_rss_peak_bytes = rss
             r.device_mem_bytes = dev_mem
         if p.print_timing and results[0].success:
-            timer.report(audio_seconds=sum(len(x.audio) for x in results)
+            print_report(self._call_stages(trace.spans(t_total0)), t_total,
+                         audio_seconds=sum(len(x.audio) for x in results)
                          / results[0].sample_rate)
             _log(f"  Streams:         {len(results)}")
             _log(f"  RSS peak:        {rss / 2**20:.0f} MB; "
                  f"device mem peak: {dev_mem / 2**20:.0f} MB")
         return results
+
+    @staticmethod
+    def _call_stages(spans) -> dict[str, float]:
+        """The ``Timing:`` report's stages, ms, from one call's spans
+        (nested: the host waits lie inside the decodes and the flush, the
+        tail decodes inside the flush)."""
+        names = (("Tokenization", "call.tokenize"), ("Prefill", "call.prefill"),
+                 ("Host waits", "host.wait"), ("Vocoder decode", "call.decode"),
+                 ("Tail flush", "call.tail_flush"))
+        return {label: sum(s.ms for s in spans if s.name == name)
+                for label, name in names
+                if any(s.name == name for s in spans)}
 
     # -- vocoder paths -------------------------------------------------------
     def decode_codes(self, frames: np.ndarray,
@@ -872,7 +887,7 @@ class Qwen3TTS:
 
     def readback_submit(self, dev_audio: torch.Tensor) -> Readback:
         """Start ONE whole-batch [nb, T] copy to the host; returns it."""
-        return Readback(dev_audio)
+        return Readback(dev_audio, "audio")
 
     @staticmethod
     def _pcm_parts_to_f32(parts) -> np.ndarray:
@@ -921,16 +936,17 @@ class Qwen3TTS:
             if not ready:
                 return
             nb = self.voc_bucket(len(ready), len(rows))
-            batch = np.zeros((nb, CHUNK_FRAMES, n_cb), np.int32)
-            for i, (_, part) in enumerate(ready):
-                batch[i] = part
-            fut = self.readback_submit(
-                self._decode_chunk_batch(batch, pcm16=True))
-            for i, (b, _) in enumerate(ready):
-                ref = PCMRef(fut, i)
-                audio_parts[b].append(ref)
-                if on_chunk:
-                    on_chunk(b, self._pcm_to_f32(ref))
+            with trace.span("call.decode", rows=len(ready), bucket=nb):
+                batch = np.zeros((nb, CHUNK_FRAMES, n_cb), np.int32)
+                for i, (_, part) in enumerate(ready):
+                    batch[i] = part
+                fut = self.readback_submit(
+                    self._decode_chunk_batch(batch, pcm16=True))
+                for i, (b, _) in enumerate(ready):
+                    ref = PCMRef(fut, i)
+                    audio_parts[b].append(ref)
+                    if on_chunk:
+                        on_chunk(b, self._pcm_to_f32(ref))
 
     def _flush_streaming(self, b, frames, audio_parts, on_chunk,
                          n_rows: int) -> None:
@@ -945,12 +961,13 @@ class Qwen3TTS:
             return
         part = full[done:]
         nb = self.voc_bucket(1, n_rows)
-        batch = np.zeros((nb, CHUNK_FRAMES, full.shape[1]), np.int32)
-        batch[0, :len(part)] = part
-        valid = vocoder.vocoder_output_length(self.voc_w, self.voc_cfg,
-                                              len(part), trim="causal")
-        ref = PCMRef(self.readback_submit(
-            self._decode_chunk_batch(batch, pcm16=True)), 0, valid)
-        audio_parts[b].append(ref)
-        if on_chunk:
-            on_chunk(b, self._pcm_to_f32(ref))
+        with trace.span("call.decode", rows=1, bucket=nb):
+            batch = np.zeros((nb, CHUNK_FRAMES, full.shape[1]), np.int32)
+            batch[0, :len(part)] = part
+            valid = vocoder.vocoder_output_length(self.voc_w, self.voc_cfg,
+                                                  len(part), trim="causal")
+            ref = PCMRef(self.readback_submit(
+                self._decode_chunk_batch(batch, pcm16=True)), 0, valid)
+            audio_parts[b].append(ref)
+            if on_chunk:
+                on_chunk(b, self._pcm_to_f32(ref))

@@ -44,6 +44,15 @@ failure inside a step on some ranks only is not coordinated: the
 isolation above holds where every rank sees the failure alike (a bad
 request).
 
+Spans (utils/trace.py): a ``serve.step`` a step (``busy`` slots at its
+dispatch, ``slots``), inside it ``serve.admit`` (``admitted``),
+``serve.dispatch``, a ``serve.decode`` a vocoder wave (``rows``,
+``bucket``) and ``serve.finalize`` (``finalized``); per request, under
+its id, ``req.queue`` (submit to admission; ``t_queue_ms`` is its
+length), ``req.first_codes`` (admission to its first chunk's codes on the
+host) and ``req.first_audio`` (admission to its first ``on_audio`` call
+with samples); ``serve.warmup``.
+
 Not ported: the per-step timing print and the per-stream scatter mode
 (``QWEN3_TTS_RING=0``, which raises NotImplementedError here).
 """
@@ -63,6 +72,7 @@ import torch
 from ..models import talker, vocoder
 from ..parallel.mesh import (dp_rows, gather_chunk, gather_objects,
                              mesh_dims, rank_seed)
+from ..utils import trace
 from .generate import (RING_PREFILL_SLOTS, admit_slots, ctx_bucket,
                        init_state, kv_quant_enabled, make_consts, park_slot,
                        required_ctx_ring)
@@ -82,10 +92,11 @@ class _Slot:
     n_decoded: int = 0     # frames already sent to the vocoder
     audio: list = field(default_factory=list)
     max_frames: int = 0
-    t_start: float = 0.0
+    t_start: int = 0           # admission, ns (time.monotonic_ns)
     t_queue_ms: float = 0.0    # submit -> admission wall time
     on_audio: Callable[[np.ndarray, bool], None] | None = None
     final_sent: bool = False   # a final=True on_audio callback fired
+    first_audio_sent: bool = False   # an on_audio call carried samples
     error: str = ""
 
 
@@ -123,14 +134,16 @@ class ContinuousBatcher:
         self.cfg = engine.talker_cfg
         self.device = engine.device
         self.slots = [_Slot() for _ in range(n_slots)]
+        # (id, text, embedding, on_audio, submit time in ns)
         self._queue: list[tuple[int, str, np.ndarray | None,
-                                Callable | None, float]] = []
+                                Callable | None, int]] = []
         self._next_id = 0
         self._failed: dict[int, TTSResult] = {}
         self._retiring: list[_Slot] = []
         # retired slots whose audio copies are still in flight: a later
         # step() emits their results once the copies have landed
         self._finalizing: list[_Slot] = []
+        self._busy_at_dispatch = 0   # busy slots at this step's dispatch
         self.ctx = required_ctx_ring(max_frames, CHUNK_FRAMES)
         # vocoder decode cap, local to this batcher (passed per call): the
         # talker cache and an in-flight chunk share the card with it
@@ -191,7 +204,7 @@ class ContinuousBatcher:
         t0 = time.monotonic()
         cfg, dev, K = self.cfg, self.device, self.n_local
         gen_buckets, voc_sizes = self.warmup_buckets()
-        with torch.inference_mode():
+        with torch.inference_mode(), trace.span("serve.warmup"):
             for tb in token_buckets:
                 tb = max(-(-tb // 16) * 16, 16)
                 pf = talker.build_prefill_inputs(
@@ -291,7 +304,7 @@ class ContinuousBatcher:
         rid = self._next_id
         self._next_id += 1
         self._queue.append((rid, text, embedding, on_audio,
-                            time.monotonic()))
+                            time.monotonic_ns()))
         return rid
 
     def pending(self) -> bool:
@@ -313,11 +326,16 @@ class ContinuousBatcher:
         rows repeat the last real one; a rank with none makes no call).
         Token arrays pad to 16-token buckets of the longest admitted
         text, as the trailing buffer grows, alike on every rank."""
+        with trace.span("serve.admit") as sp:
+            sp.set(admitted=self._admit())
+
+    def _admit(self) -> int:
+        """``_admit_pending``'s body; returns how many it admitted."""
         cfg, dev = self.cfg, self.device
         free = [i for i, s in enumerate(self.slots) if not s.busy]
         take = min(len(free), len(self._queue))
         if take == 0:
-            return
+            return 0
         batch, token_lists = [], []
         while len(batch) < take and self._queue:
             item = self._queue.pop(0)
@@ -337,7 +355,7 @@ class ContinuousBatcher:
                     f"bad request: {type(e).__name__}: {e}")
         take = len(batch)
         if take == 0:
-            return
+            return 0
         slot_ids = free[:take]
 
         t_max = max(-(-max(len(t) for t in token_lists) // 16) * 16, 16)
@@ -370,32 +388,39 @@ class ContinuousBatcher:
                 trailing_hidden=self._pad_trailing(prefill.trailing_hidden))
             admit_slots(self.engine.talker_w, cfg, self.state, self.consts,
                         torch.as_tensor(slots_arr, device=dev), prefill)
-        t_admit = time.monotonic()
+        t_admit = time.monotonic_ns()
         for j in range(take):
             rid, _, _, on_audio, t_submit = batch[j]
             self.slots[slot_ids[j]] = _Slot(
                 busy=True, request_id=rid, max_frames=self.max_frames,
                 buf=np.empty((self.max_frames, cfg.n_codebooks), np.int32),
                 t_start=t_admit, on_audio=on_audio,
-                t_queue_ms=(t_admit - t_submit) * 1e3)
+                t_queue_ms=(t_admit - t_submit) / 1e6)
+            trace.add("req.queue", t_submit, t_admit, rid=rid)
+        return take
 
     # ------------------------------------------------------------------
     def _dispatch_chunk(self) -> None:
         """Enqueue one 40-frame generation chunk on the device."""
-        # attention reads the prefill region + every ring slot written so
-        # far (bucketed; the whole cache once the ring has wrapped), known
-        # on the host without reading the device
-        covered = RING_PREFILL_SLOTS + self._steps_done + CHUNK_FRAMES
-        read_ctx = ctx_bucket(min(covered, self.ctx), 0, self.ctx)
-        codes, valid = self._gen_fn(read_ctx)()
-        self._steps_done += CHUNK_FRAMES
-        done = self.state.done
-        if self.mesh is not None:     # every slot's, on every rank
-            codes, valid, done = gather_chunk(self.mesh, codes, valid, done)
-        # start the host copies now, with `done` as of this chunk: the live
-        # state moves on (admissions, parks, the next chunk, which
-        # overwrites a graph's codes and valid) before step() reads them
-        self._inflight = tuple(Readback(t) for t in (codes, valid, done))
+        self._busy_at_dispatch = sum(s.busy for s in self.slots)
+        with trace.span("serve.dispatch"):
+            # attention reads the prefill region + every ring slot written
+            # so far (bucketed; the whole cache once the ring has wrapped),
+            # known on the host without reading the device
+            covered = RING_PREFILL_SLOTS + self._steps_done + CHUNK_FRAMES
+            read_ctx = ctx_bucket(min(covered, self.ctx), 0, self.ctx)
+            codes, valid = self._gen_fn(read_ctx)()
+            self._steps_done += CHUNK_FRAMES
+            done = self.state.done
+            if self.mesh is not None:     # every slot's, on every rank
+                codes, valid, done = gather_chunk(self.mesh, codes, valid,
+                                                  done)
+            # start the host copies now, with `done` as of this chunk: the
+            # live state moves on (admissions, parks, the next chunk, which
+            # overwrites a graph's codes and valid) before step() reads them
+            self._inflight = (Readback(codes, "codes"),
+                              Readback(valid, "codes"),
+                              Readback(done, "done"))
 
     def step(self) -> dict[int, TTSResult]:
         """Process one 40-frame chunk across all slots; admit queued
@@ -405,21 +430,24 @@ class ContinuousBatcher:
         so the card always has queued work; requests admitted into slots
         freed this step join that next chunk. Failure isolation as in the
         module docstring."""
-        with torch.inference_mode():
+        self._busy_at_dispatch = 0
+        with torch.inference_mode(), trace.span(
+                "serve.step", slots=self.n_slots) as sp:
             try:
                 out = self._step_impl()
             except Exception as e:
                 out = self._fail_inflight(e)
+            sp.set(busy=self._busy_at_dispatch)
         if self._failed:
             out = {**self._failed, **out}
             self._failed = {}
         return out
 
-    def _error_result(self, msg: str, t_start: float | None = None
+    def _error_result(self, msg: str, t_start: int | None = None
                       ) -> TTSResult:
         r = TTSResult(success=False, error_msg=msg)
         if t_start:
-            r.t_total_ms = (time.monotonic() - t_start) * 1e3
+            r.t_total_ms = (time.monotonic_ns() - t_start) / 1e6
         return r
 
     def _fail_inflight(self, exc: Exception) -> dict[int, TTSResult]:
@@ -463,6 +491,9 @@ class ContinuousBatcher:
                 continue
             got = codes_h[valid_h[:, b], b]
             got = got[:slot.max_frames - slot.n_frames]
+            if len(got) and not slot.n_frames:
+                trace.add("req.first_codes", slot.t_start,
+                          time.monotonic_ns(), rid=slot.request_id)
             if len(got):
                 slot.buf[slot.n_frames:slot.n_frames + len(got)] = got
                 slot.n_frames += len(got)
@@ -508,11 +539,13 @@ class ContinuousBatcher:
         never waited on); with block=True, finalize all of them."""
         out: dict[int, TTSResult] = {}
         still: list[_Slot] = []
-        for slot in self._finalizing:
-            if block or all(p.fut.done() for p in slot.audio):
-                out[slot.request_id] = self._finalize(slot)
-            else:
-                still.append(slot)
+        with trace.span("serve.finalize") as sp:
+            for slot in self._finalizing:
+                if block or all(p.fut.done() for p in slot.audio):
+                    out[slot.request_id] = self._finalize(slot)
+                else:
+                    still.append(slot)
+            sp.set(finalized=len(out))
         self._finalizing = still
         return out
 
@@ -543,29 +576,42 @@ class ContinuousBatcher:
             if not work:
                 return
             nb = eng.voc_bucket(len(work), self.n_local)
-            batch = np.zeros((nb, CHUNK_FRAMES, n_cb), np.int32)
-            for i, (_, chunk, _, _) in enumerate(work):
-                batch[i] = chunk
-            # int16 PCM on the device; ONE whole-batch copy per decode
-            fut = eng.readback_submit(eng._decode_chunk_batch(
-                batch, pcm16=True, max_batch=self.voc_max_batch))
-            for i, (slot, _, k, is_tail) in enumerate(work):
-                slot.n_decoded += k
-                valid = None
-                if k < CHUNK_FRAMES:
-                    valid = vocoder.vocoder_output_length(
-                        eng.voc_w, eng.voc_cfg, k, trim="causal")
-                ref = PCMRef(fut, i, valid)
-                slot.audio.append(ref)
-                if slot.on_audio:
-                    try:
-                        slot.on_audio(Qwen3TTS._pcm_to_f32(ref), is_tail)
-                        slot.final_sent = slot.final_sent or is_tail
-                    except Exception as e:
-                        # a raising sink fails ITS request, not the batch
-                        slot.error = (f"on_audio callback failed: "
-                                      f"{type(e).__name__}: {e}")
-                        slot.on_audio = None
+            with trace.span("serve.decode", rows=len(work), bucket=nb):
+                self._decode_wave(work, nb)
+
+    def _decode_wave(self, work: list, nb: int) -> None:
+        """One vocoder wave of `work` (slot, [40, n_cb] codes, frames,
+        final) in a decode bucket of `nb` rows; each slot's audio goes to
+        its on_audio at once."""
+        eng = self.engine
+        batch = np.zeros((nb, CHUNK_FRAMES, self.cfg.n_codebooks), np.int32)
+        for i, (_, chunk, _, _) in enumerate(work):
+            batch[i] = chunk
+        # int16 PCM on the device; ONE whole-batch copy per decode
+        fut = eng.readback_submit(eng._decode_chunk_batch(
+            batch, pcm16=True, max_batch=self.voc_max_batch))
+        for i, (slot, _, k, is_tail) in enumerate(work):
+            slot.n_decoded += k
+            valid = None
+            if k < CHUNK_FRAMES:
+                valid = vocoder.vocoder_output_length(
+                    eng.voc_w, eng.voc_cfg, k, trim="causal")
+            ref = PCMRef(fut, i, valid)
+            slot.audio.append(ref)
+            if slot.on_audio:
+                try:
+                    pcm = Qwen3TTS._pcm_to_f32(ref)
+                    if len(pcm) and not slot.first_audio_sent:
+                        trace.add("req.first_audio", slot.t_start,
+                                  time.monotonic_ns(), rid=slot.request_id)
+                        slot.first_audio_sent = True
+                    slot.on_audio(pcm, is_tail)
+                    slot.final_sent = slot.final_sent or is_tail
+                except Exception as e:
+                    # a raising sink fails ITS request, not the batch
+                    slot.error = (f"on_audio callback failed: "
+                                  f"{type(e).__name__}: {e}")
+                    slot.on_audio = None
 
     def _finalize(self, slot: _Slot) -> TTSResult:
         if slot.on_audio and not slot.final_sent and not slot.error:
@@ -590,7 +636,7 @@ class ContinuousBatcher:
             r.error_msg = slot.error
         elif not r.success:
             r.error_msg = "No speech codes generated"
-        r.t_total_ms = (time.monotonic() - slot.t_start) * 1e3
+        r.t_total_ms = (time.monotonic_ns() - slot.t_start) / 1e6
         r.t_queue_ms = slot.t_queue_ms
         return r
 

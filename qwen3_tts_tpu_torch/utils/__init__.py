@@ -1,3 +1,3 @@
-from .trace import StageTimer, log_memory, memory_snapshot, profile_trace
+from .trace import memory_snapshot, print_report, profile_trace
 
-__all__ = ["StageTimer", "profile_trace", "memory_snapshot", "log_memory"]
+__all__ = ["profile_trace", "memory_snapshot", "print_report"]

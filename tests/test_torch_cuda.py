@@ -842,8 +842,19 @@ def test_stager_copies_in_chunks(dev):
 GRAPH_TEXTS = ["hello world.", "he", "world hello.", "hello."]
 
 
-def _replays(eng) -> int:
-    return sum(g.replays for g in eng.graphs.graphs.values())
+def _count_replays(monkeypatch):
+    """A callable giving the graph replays (calls of a captured
+    ``graphs._Graph``) since this call."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+    n = [0]
+    real = graphs._Graph.__call__
+
+    def call(self):
+        n[0] += self.graph is not None
+        return real(self)
+
+    monkeypatch.setattr(graphs._Graph, "__call__", call)
+    return lambda: n[0]
 
 
 def _graph_vs_eager(eng, monkeypatch, params, impl=None):
@@ -855,10 +866,11 @@ def _graph_vs_eager(eng, monkeypatch, params, impl=None):
     talker.set_talker_step_impl(impl)
     try:
         monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+        replays = _count_replays(monkeypatch)
         first = eng.synthesize_batch(GRAPH_TEXTS, params=params)
-        before = _replays(eng)
+        before = replays()
         graph = eng.synthesize_batch(GRAPH_TEXTS, params=params)
-        assert _replays(eng) > before, "the second call did not replay"
+        assert replays() > before, "the second call did not replay"
         monkeypatch.setenv("QWEN3_TTS_AOT", "0")
         eager = eng.synthesize_batch(GRAPH_TEXTS, params=params)
     finally:
@@ -917,20 +929,66 @@ def test_graph_replay_counts_launches(dev, monkeypatch):
     from qwen3_tts_tpu_torch import kernels
     from qwen3_tts_tpu_torch.ops import talker_fused as tf
     monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    replays = _count_replays(monkeypatch)
     eng = _engine(dev, 24)
     params = TTSParams(max_audio_tokens=40, temperature=0.0, seed=0)
     eng.synthesize_batch(GRAPH_TEXTS, params=params)           # capture
     torch.cuda.synchronize()
     before = (cf.predict_codes_fused.launches, kernels.codepred_launches(),
-              tf.talker_step_fused.launches, _replays(eng))
+              tf.talker_step_fused.launches, replays())
     names = _profiled_kernels(
         lambda: eng.synthesize_batch(GRAPH_TEXTS, params=params))
     after = (cf.predict_codes_fused.launches, kernels.codepred_launches(),
-             tf.talker_step_fused.launches, _replays(eng))
+             tf.talker_step_fused.launches, replays())
     assert after[3] > before[3]
     assert [a - b for a, b in zip(after[:3], before[:3])] == [40, 40, 40]
     assert sum("codepred_frame_kernel" in n for n in names) == 40
     assert sum("talker_step_kernel" in n for n in names) == 40
+
+
+@pytest.mark.parametrize("warm", [True, False])
+def test_profiled_call_replays_graphs(dev, monkeypatch, tmp_path, warm):
+    """A synthesize_batch under QWEN3_TTS_PROFILE runs the graphs an
+    untraced call runs: kernels under cudaGraphLaunch and the recorder's
+    q3/ ranges (host ops, none on the card's timeline) in its Chrome
+    trace, audio as the untraced call's; cold
+    (warm=False), its captures run under the live profiler. The call's
+    spans hold host waits of each kind (codes, done, audio)."""
+    import json
+
+    from qwen3_tts_tpu_torch.utils import trace
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    monkeypatch.delenv("QWEN3_TTS_TRACE", raising=False)
+    eng = _engine(dev, 28)
+    params = TTSParams(max_audio_tokens=48, temperature=0.0, seed=0)
+    want = eng.synthesize_batch(GRAPH_TEXTS, params=params)
+    if not warm:
+        eng = _engine(dev, 28)
+    replays = _count_replays(monkeypatch)
+    monkeypatch.setenv("QWEN3_TTS_PROFILE", str(tmp_path))
+    t0 = time.monotonic_ns()
+    got = eng.synthesize_batch(GRAPH_TEXTS, params=params)
+    monkeypatch.delenv("QWEN3_TTS_PROFILE")
+    _check_results(got, eng)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.audio, w.audio)
+    assert replays() > 0
+    (path,) = tmp_path.glob("synthesize_batch.*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"cudaGraphLaunch", "q3/call", "q3/call.dispatch",
+            "q3/call.decode", "q3/call.tail_flush"} <= names
+    assert any(e.get("cat") == "kernel" and "codepred_frame_kernel"
+               in e.get("name", "") for e in events)
+    # host ranges only: nothing named q3/ on the card's timeline
+    assert {e.get("cat") for e in events
+            if str(e.get("name", "")).startswith("q3/")} == {"cpu_op"}
+    caps = [s for s in trace.spans(t0) if s.name == "graphs.capture"]
+    assert (len(caps) > 0) != warm
+    assert {s.attrs["kind"] for s in caps} <= {"gen", "voc"}
+    waits = {s.attrs["what"] for s in trace.spans(t0)
+             if s.name == "host.wait"}
+    assert waits <= {"codes", "done", "audio"} and waits
 
 
 def test_graph_ring_chunk_bitwise(dev, monkeypatch):
@@ -940,6 +998,7 @@ def test_graph_ring_chunk_bitwise(dev, monkeypatch):
     after it bit for bit."""
     from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
     monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    replays = _count_replays(monkeypatch)
     eng = _engine(dev, 25)
     cb = ContinuousBatcher(eng, n_slots=4,
                            params=TTSParams(temperature=0.0, seed=0),
@@ -967,10 +1026,10 @@ def test_graph_ring_chunk_bitwise(dev, monkeypatch):
         for aot in ("1", "1", "0"):
             monkeypatch.setenv("QWEN3_TTS_AOT", aot)
             restore(saved)
-            before = _replays(eng)
+            before = replays()
             codes, valid = cb._gen_fn(128)()
             runs.append((codes.clone(), valid.clone(), snap(),
-                         _replays(eng) - before))
+                         replays() - before))
         torch.cuda.synchronize()
     assert [r[3] for r in runs] == [39, 40, 0]
     for codes, valid, state, _ in runs[1:]:
@@ -984,6 +1043,7 @@ def test_graph_vocoder_bucket_bitwise(dev, monkeypatch):
     """A vocoder decode bucket: the replayed graph (both vocoder kernels
     inside it) gives the eager int16 PCM bit for bit."""
     monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    replays = _count_replays(monkeypatch)
     eng = _engine(dev, 26)
     rng = np.random.default_rng(0)
     codes = rng.integers(0, 2048, (4, 40, 16)).astype(np.int32)
@@ -993,7 +1053,7 @@ def test_graph_vocoder_bucket_bitwise(dev, monkeypatch):
     got = eng._decode_chunk_batch(codes, pcm16=True).clone()
     monkeypatch.setenv("QWEN3_TTS_AOT", "0")
     want = eng._decode_chunk_batch(codes, pcm16=True)
-    assert _replays(eng) == 2
+    assert replays() == 2
     assert torch.equal(first, want) and torch.equal(got, want)
 
 
@@ -1003,6 +1063,7 @@ def test_graph_warmed_serving_matches_eager(dev, monkeypatch):
     audio of an unwarmed batcher running eagerly, bit for bit."""
     from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
     monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    replays = _count_replays(monkeypatch)
     eng = _engine(dev, 27)
     texts = ("hello world.", "he", "world hello world.")
 
@@ -1014,11 +1075,11 @@ def test_graph_warmed_serving_matches_eager(dev, monkeypatch):
     params = TTSParams(temperature=0.0, seed=0)
     cb = ContinuousBatcher(eng, n_slots=2, params=params, max_frames=48)
     cb.warmup()
-    n_warm, replays = len(eng.graphs.graphs), _replays(eng)
+    n_warm, warm_replays = len(eng.graphs.graphs), replays()
     assert n_warm > 0
     got = serve(cb)
     assert len(eng.graphs.graphs) == n_warm, "serving captured a new bucket"
-    assert _replays(eng) > replays
+    assert replays() > warm_replays
     monkeypatch.setenv("QWEN3_TTS_AOT", "0")
     want = serve(ContinuousBatcher(eng, n_slots=2, params=params,
                                    max_frames=48))

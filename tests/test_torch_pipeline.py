@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import jax
@@ -24,6 +25,7 @@ from qwen3_tts_tpu.models.weights import (init_talker_weights,  # noqa: E402
 from qwen3_tts_tpu.runtime import pipeline as jpipe  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import pipeline as tpipe  # noqa: E402
+from qwen3_tts_tpu_torch.utils import trace  # noqa: E402
 
 from .test_tokenizer import make_tiny_tokenizer  # noqa: E402
 from .test_torch_config import port_cfg, port_tokenizer  # noqa: E402
@@ -73,6 +75,7 @@ def test_synthesize_batch_matches_jax(engines):
 def test_streaming_chunks_sampled(engines):
     _, teng = engines
     seen = []
+    t0 = time.monotonic_ns()
     res = teng.synthesize_batch(
         TEXTS, params=tpipe.TTSParams(max_audio_tokens=48, temperature=0.9,
                                       seed=3),
@@ -80,7 +83,51 @@ def test_streaming_chunks_sampled(engines):
     for b, r in enumerate(res):
         assert r.success and np.isfinite(r.audio).all()
         assert sum(n for s, n in seen if s == b) == len(r.audio)
-        assert r.t_total_ms >= r.t_generate_ms
+    # the call's own spans: t_total_ms is timed inside its `call` span,
+    # which holds its prefill, dispatches and decodes
+    spans = trace.spans(t0)
+    call = [s for s in spans if s.name == "call"]
+    assert len(call) == 1 and call[0].attrs == {"streams": len(TEXTS)}
+    assert 0.0 < res[0].t_total_ms <= call[0].ms
+    inner = [s for s in spans if s.name != "call"]
+    assert {s.name for s in inner} >= {"call.tokenize", "call.prefill",
+                                       "call.dispatch", "call.decode",
+                                       "call.tail_flush"}
+    assert all(call[0].t0 <= s.t0 <= s.t1 <= call[0].t1 for s in inner)
+
+
+def test_call_spans_flush_and_decodes(engines, capsys):
+    """One synthesize_batch: one call.tail_flush after the last dispatch,
+    a call.decode per vocoder wave and per tail decode (rows <= bucket;
+    the tail decodes one stream each, inside the flush), and the
+    ``Timing:`` report read from those spans."""
+    _, teng = engines
+    t0 = time.monotonic_ns()
+    res = teng.synthesize_batch(
+        TEXTS, params=tpipe.TTSParams(max_audio_tokens=52, temperature=0.9,
+                                      seed=5))
+    assert all(r.success for r in res)
+    spans = trace.spans(t0)
+    call = next(s for s in spans if s.name == "call")
+    flush = [s for s in spans if s.name == "call.tail_flush"]
+    assert len(flush) == 1 and flush[0].parent == call.sid
+    assert max(s.t1 for s in spans if s.name == "call.dispatch") \
+        <= flush[0].t0
+    decodes = [s for s in spans if s.name == "call.decode"]
+    assert all(1 <= s.attrs["rows"] <= s.attrs["bucket"] for s in decodes)
+    waves = [s for s in decodes if s.parent == call.sid]
+    tails = [s for s in decodes if s.parent == flush[0].sid]
+    assert len(waves) + len(tails) == len(decodes)
+    # one 40-frame wave of every stream that reached 40 frames, then a
+    # tail decode of every stream with a ragged tail
+    full = sum(r.n_frames >= 40 for r in res)
+    assert [s.attrs["rows"] for s in waves] == ([full] if full else [])
+    assert len(tails) == sum(r.n_frames % 40 > 0 for r in res) > 0
+    assert all(s.attrs == {"rows": 1, "bucket": 1} for s in tails)
+    err = capsys.readouterr().err
+    for line in ("Timing:", "Tokenization:", "Prefill:", "Vocoder decode:",
+                 "Tail flush:", "Total:", "RTF="):
+        assert line in err
 
 
 def test_decode_codes_chunked_length(engines):

@@ -4,6 +4,7 @@ behaviour of tests/test_serve.py on the port: streaming, failure isolation,
 frame caps and queue accounting."""
 
 import dataclasses
+import time
 
 import jax
 import numpy as np
@@ -20,6 +21,7 @@ from qwen3_tts_tpu.runtime import serve as jserve  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import pipeline as tpipe  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import serve as tserve  # noqa: E402
+from qwen3_tts_tpu_torch.utils import trace  # noqa: E402
 
 from .test_tokenizer import make_tiny_tokenizer  # noqa: E402
 from .test_torch_config import port_cfg, port_tokenizer  # noqa: E402
@@ -273,6 +275,44 @@ def test_queue_wait_recorded(engines):
         assert results[r].t_queue_ms > results[first[0]].t_queue_ms
         assert results[r].t_queue_ms > 50.0
     assert results[queued[0]].t_total_ms > 0.0
+
+
+def test_request_and_step_spans(engines):
+    """Each request's spans, under its id, in order: req.queue <=
+    req.first_codes <= req.first_audio, all from its admission on, and
+    t_queue_ms is its req.queue; a serve.step a step with its busy slots,
+    a serve.decode a wave with rows <= bucket."""
+    _, teng = engines
+    t0 = time.monotonic_ns()
+    cb = tserve.ContinuousBatcher(teng, n_slots=2, params=_params(tpipe),
+                                  max_frames=48)
+    audio = {}
+    rids = [cb.submit(t, on_audio=lambda x, final, i=i: audio.setdefault(
+        i, time.monotonic_ns())) for i, t in enumerate(
+            ["hello world.", "hello.", "world hello."])]
+    results = cb.run_all()
+    spans = trace.spans(t0)
+    for i, rid in enumerate(rids):
+        assert results[rid].success
+        mine = {s.name: s for s in spans if s.rid == rid}
+        assert set(mine) == {"req.queue", "req.first_codes",
+                             "req.first_audio"}
+        q, c, a = (mine[n] for n in ("req.queue", "req.first_codes",
+                                     "req.first_audio"))
+        assert q.t1 == c.t0 == a.t0            # all from its admission
+        assert q.t0 <= q.t1 <= c.t1 <= a.t1 <= audio[i]
+        assert results[rid].t_queue_ms == pytest.approx(q.ms, abs=1e-9)
+    assert results[rids[2]].t_queue_ms > 0.0   # waited for a free slot
+    steps = [s for s in spans if s.name == "serve.step"]
+    assert steps and all(s.attrs["slots"] == 2
+                         and 0 <= s.attrs["busy"] <= 2 for s in steps)
+    assert max(s.attrs["busy"] for s in steps) == 2
+    waves = [s for s in spans if s.name == "serve.decode"]
+    assert waves and all(1 <= s.attrs["rows"] <= s.attrs["bucket"]
+                         for s in waves)
+    assert all(s.parent in {x.sid for x in steps} for s in waves)
+    admitted = [s.attrs["admitted"] for s in spans if s.name == "serve.admit"]
+    assert sum(admitted) == 3
 
 
 def test_scatter_mode_not_ported(engines, monkeypatch):
