@@ -991,6 +991,35 @@ def test_profiled_call_replays_graphs(dev, monkeypatch, tmp_path, warm):
     assert waits <= {"codes", "done", "audio"} and waits
 
 
+def test_tail_wave_replays_one_decode(dev, monkeypatch):
+    """The second of two equal synthesize_batch calls at B=16: the ragged
+    tails go through one vocoder decode inside call.tail_flush, whose
+    bucket the first call captured (no graphs.capture span), and every
+    stream has n_frames * 1920 samples."""
+    from qwen3_tts_tpu_torch.utils import trace
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    monkeypatch.delenv("QWEN3_TTS_TRACE", raising=False)
+    eng = _engine(dev, 29)
+    texts = (GRAPH_TEXTS * 4)[:16]
+    params = TTSParams(max_audio_tokens=56, temperature=0.0, seed=0)
+    eng.synthesize_batch(texts, params=params)
+    inner, stamps = eng._decode_chunk_batch, []
+
+    def decode(*a, **kw):
+        stamps.append(time.monotonic_ns())
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(eng, "_decode_chunk_batch", decode)
+    t0 = time.monotonic_ns()
+    res = eng.synthesize_batch(texts, params=params)
+    spans = trace.spans(t0)
+    (flush,) = [s for s in spans if s.name == "call.tail_flush"]
+    assert sum(flush.t0 <= t <= flush.t1 for t in stamps) == 1
+    assert not [s for s in spans if s.name == "graphs.capture"]
+    _check_results(res, eng)
+    assert all(len(r.audio) == r.n_frames * 1920 for r in res)
+
+
 def test_graph_ring_chunk_bitwise(dev, monkeypatch):
     """One ring-mode chunk (serving) from one state, three times: the
     first call (frame 0 eager, then its graph captured and replayed),

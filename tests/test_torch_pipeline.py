@@ -98,9 +98,10 @@ def test_streaming_chunks_sampled(engines):
 
 def test_call_spans_flush_and_decodes(engines, capsys):
     """One synthesize_batch: one call.tail_flush after the last dispatch,
-    a call.decode per vocoder wave and per tail decode (rows <= bucket;
-    the tail decodes one stream each, inside the flush), and the
-    ``Timing:`` report read from those spans."""
+    a call.decode per vocoder wave (rows <= bucket) and one for the
+    ragged tails, inside the flush (one row a stream with a tail, in the
+    bucket that covers them), and the ``Timing:`` report read from those
+    spans."""
     _, teng = engines
     t0 = time.monotonic_ns()
     res = teng.synthesize_batch(
@@ -118,16 +119,94 @@ def test_call_spans_flush_and_decodes(engines, capsys):
     waves = [s for s in decodes if s.parent == call.sid]
     tails = [s for s in decodes if s.parent == flush[0].sid]
     assert len(waves) + len(tails) == len(decodes)
-    # one 40-frame wave of every stream that reached 40 frames, then a
-    # tail decode of every stream with a ragged tail
+    # one 40-frame wave of every stream that reached 40 frames, then one
+    # wave of every stream with a ragged tail
     full = sum(r.n_frames >= 40 for r in res)
     assert [s.attrs["rows"] for s in waves] == ([full] if full else [])
-    assert len(tails) == sum(r.n_frames % 40 > 0 for r in res) > 0
-    assert all(s.attrs == {"rows": 1, "bucket": 1} for s in tails)
+    rows = sum(r.n_frames % 40 > 0 for r in res)
+    assert rows > 0 and [s.attrs for s in tails] == [
+        {"rows": rows, "bucket": teng.voc_bucket(rows, len(TEXTS))}]
     err = capsys.readouterr().err
     for line in ("Timing:", "Tokenization:", "Prefill:", "Vocoder decode:",
                  "Tail flush:", "Total:", "RTF="):
         assert line in err
+
+
+# frames each stream keeps, each at most what it makes greedily before
+# its EOS: fewer than one chunk, a chunk boundary, and three ragged tails
+# of other lengths
+TAIL_FRAMES = (23, 80, 57, 62, 75)
+
+
+def test_tail_wave_pairs_rows_with_callbacks(engines, monkeypatch):
+    """Streams cut at TAIL_FRAMES (their later frames marked invalid):
+    every on_chunk carries the samples of the next row of the latest
+    vocoder decode, in row order (the pairing the benchmark's code tap
+    relies on); the last decode holds each ragged tail, zero-padded, in
+    stream order, and its callbacks are the rows trimmed to the tail's
+    length; a stream ending on a chunk boundary gets no tail callback;
+    each stream's audio is its chunked decode up to 2 int16 steps."""
+    _, teng = engines
+    texts = (TEXTS * 2)[:len(TAIL_FRAMES)]
+    gen_fn, inner = teng._gen_fn, teng._decode_chunk_batch
+    steps, seen, decodes, calls = [0], {}, [], []
+
+    def cut(*a, **kw):
+        run = gen_fn(*a, **kw)
+
+        def chunk():
+            codes, valid = run()
+            f = steps[0] + torch.arange(tpipe.CHUNK_FRAMES)[:, None]
+            valid &= f < torch.tensor(TAIL_FRAMES)
+            steps[0] += tpipe.CHUNK_FRAMES
+            return codes, valid
+        return chunk
+
+    def decode(codes, *a, **kw):
+        out = inner(codes, *a, **kw)
+        decodes.append((np.array(codes, copy=True),
+                        np.array(out, copy=True), 0))
+        return out
+
+    def on_chunk(b, pcm):
+        rows, out, i = decodes[-1]
+        decodes[-1] = (rows, out, i + 1)
+        calls.append((b, len(decodes) - 1, i, pcm))
+
+    stream = teng._decode_streaming
+
+    def record(frames, *a):
+        seen["frames"] = frames
+        return stream(frames, *a)
+
+    monkeypatch.setattr(teng, "_gen_fn", cut)
+    monkeypatch.setattr(teng, "_decode_chunk_batch", decode)
+    monkeypatch.setattr(teng, "_decode_streaming", record)
+    res = teng.synthesize_batch(texts, params=tpipe.TTSParams(
+        max_audio_tokens=120, temperature=0.0, seed=0), on_chunk=on_chunk)
+    monkeypatch.undo()
+    assert [r.n_frames for r in res] == list(TAIL_FRAMES)
+    frames = [np.concatenate(f) for f in seen["frames"]]
+    for b, k, i, pcm in calls:
+        np.testing.assert_array_equal(
+            pcm, decodes[k][1][i][:len(pcm)].astype(np.float32) / 32767.0)
+    tails = [b for b, n in enumerate(TAIL_FRAMES) if n % 40]
+    last = len(decodes) - 1
+    assert [(b, i) for b, k, i, _ in calls if k == last] == [
+        (b, i) for i, b in enumerate(tails)]
+    assert len(decodes[last][0]) == teng.voc_bucket(len(tails), len(texts))
+    for i, b in enumerate(tails):
+        n = TAIL_FRAMES[b] % 40
+        want = np.zeros((40, 16), np.int32)
+        want[:n] = frames[b][-n:]
+        np.testing.assert_array_equal(decodes[last][0][i], want)
+        pcm = next(p for c, k, _, p in calls if c == b and k == last)
+        assert len(pcm) == tpipe.vocoder.vocoder_output_length(
+            teng.voc_w, teng.voc_cfg, n, trim="causal")
+    for b, r in enumerate(res):
+        assert [c for c, _, _, _ in calls].count(b) == -(-r.n_frames // 40)
+        np.testing.assert_allclose(
+            r.audio, teng.decode_codes_chunked(frames[b]), atol=2 / 32767)
 
 
 def test_decode_codes_chunked_length(engines):
