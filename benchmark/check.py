@@ -1,8 +1,9 @@
 """Whether what the timed path served is correct: a sample of the
 requests that the window finished, drawn from the seed with the longest
-among them, held against the plain reference (benchmark/reference/) in
-float32 with TF32 off, on weights the reference makes again from the seed
-once the program's state is freed.
+among them, held against the plain reference of the cell's architecture
+(benchmark/archs/<arch>.py, on benchmark/reference/) in float32 with TF32
+off, on weights the architecture makes again from the seed once the
+program's state is freed.
 
 Every mix samples its tokens (top-k with a temperature), so a served
 token is held to what the sampler may draw: the program draws only among
@@ -40,7 +41,7 @@ import sys
 import numpy as np
 import torch
 
-from .reference import model as ref
+from .reference.layers import Prec, no_tf32
 from .seeds import rng, sub_seed
 
 NAMES = ("cb0_gap", "code_gap", "pcm_err")
@@ -87,55 +88,56 @@ def _draw(scores: torch.Tensor, k: int, temperature: float,
     return torch.argmax(z - torch.log(-torch.log(u)), dim=-1)
 
 
-def compare(m, mix: dict, weights, sample: list, device, seed: int,
+def compare(arch, m, mix: dict, weights, sample: list, device, seed: int,
             control: bool = False) -> dict:
-    """The numbers of `sample` (record.Stream list) against the
-    reference; with `control`, also the control's ("control_" + name)."""
+    """The numbers of `sample` (record.Stream list) against the reference
+    of `arch` (model `m`); with `control`, also the control's ("control_"
+    + name)."""
     k, T = int(mix["top_k"]), float(mix["temperature"])
     pen = float(mix["repetition_penalty"])
     spf = m.vocoder.samples_per_frame
     w, voices = weights.talker, weights.voices
-    precs = [ref.Prec("f32")] + ([ref.Prec("fp8")] if control else [])
+    precs = [Prec("f32")] + ([Prec("fp8")] if control else [])
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "ctrl"))
     out = {n: 0.0 for n in NAMES}
     if control:
         out.update({f"control_{n}": 0.0 for n in NAMES})
     n_tok = n_chunk = 0
-    with torch.no_grad(), ref.no_tf32():
+    with torch.no_grad(), no_tf32():
         codes = [torch.as_tensor(s.codes(spf), device=device) for s in sample]
         hid = {}
         for p in precs:
-            seqs = [ref.talker_sequence(p, w, m, s.req.tokens,
-                                        voices[s.req.voice], c)
+            seqs = [arch.talker_sequence(p, w, m, s.req.tokens,
+                                         voices[s.req.voice], c)
                     for s, c in zip(sample, codes)]
             P = seqs[0][1]
-            hs = ref.talker_hidden(p, w, m, [x for x, _ in seqs])
+            hs = arch.talker_hidden(p, w, m, [x for x, _ in seqs])
             hid[p.mode] = [h[P - 1:P - 1 + c.shape[0]]
                            for h, c in zip(hs, codes)]
         for i, (s, c) in enumerate(zip(sample, codes)):
             n_tok += c.numel()
             h32 = hid["f32"][i]
-            sc = ref.cb0_scores(m, h32 @ w["codec_head"].float(), c,
-                                len(s.req.tokens), pen)
+            sc = arch.cb0_scores(precs[0], w, m, h32, c, len(s.req.tokens),
+                                 pen)
             out["cb0_gap"] = max(out["cb0_gap"],
                                  float(_gap(sc, c[:, 0], k).max()))
             if control:
                 hc = hid["fp8"][i]
-                sc8 = ref.cb0_scores(m, precs[1].mm(hc, w["codec_head"]), c,
-                                     len(s.req.tokens), pen)
+                sc8 = arch.cb0_scores(precs[1], w, m, hc, c,
+                                      len(s.req.tokens), pen)
                 tok = _draw(sc8, k, T, gen)
                 out["control_cb0_gap"] = max(out["control_cb0_gap"],
                                              float(_gap(sc, tok, k).max()))
             for f0 in range(0, c.shape[0], FRAME_BLOCK):
                 cc = c[f0:f0 + FRAME_BLOCK]
-                lg = ref.code_logits(precs[0], w, m,
-                                     h32[f0:f0 + FRAME_BLOCK], cc)
+                lg = arch.code_logits(precs[0], w, m,
+                                      h32[f0:f0 + FRAME_BLOCK], cc)
                 out["code_gap"] = max(out["code_gap"], float(
                     _gap(lg, cc[:, 1:], k).max()))
                 if control:
-                    lg8 = ref.code_logits(precs[1], w, m,
-                                          hid["fp8"][i][f0:f0 + FRAME_BLOCK],
-                                          cc)
+                    lg8 = arch.code_logits(precs[1], w, m,
+                                           hid["fp8"][i][f0:f0 + FRAME_BLOCK],
+                                           cc)
                     tok = _draw(lg8, k, T, gen)
                     out["control_code_gap"] = max(
                         out["control_code_gap"],
@@ -146,7 +148,7 @@ def compare(m, mix: dict, weights, sample: list, device, seed: int,
             part = chunks[j:j + CHUNK_BLOCK]
             cb = torch.as_tensor(np.stack([c for c, _ in part]),
                                  device=device)
-            pcms = {p.mode: ref.vocode(p, weights.vocoder, m.vocoder, cb)
+            pcms = {p.mode: arch.vocode(p, weights.vocoder, m.vocoder, cb)
                     for p in precs}
             for r, (_, pcm) in enumerate(part):
                 n = len(pcm)

@@ -14,21 +14,38 @@ import sys
 import time
 
 import torch
+from torch.autograd.profiler_util import _filter_name
 
 
-def kernel_events(prof) -> list:
+def events(prof) -> list:
+    """(device type, name, start us, end us) of the events that
+    ``prof.events()`` lists, at its times (microseconds from the trace's
+    start) and in its order, read from the profiler's kineto results
+    without building its ``FunctionEvent`` tree: that takes ~3 minutes over
+    a 1.7B slice's ~660,000 kernels, this ~6 seconds. A host event that the
+    tree folds into a parent of the same name stays in the list."""
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    out = [(e.device_type(), e.name(), (e.start_ns() - t0) / 1000,
+            (e.end_ns() - t0) / 1000)
+           for e in res.events()
+           if not _filter_name(e.name())
+           and not getattr(e, "is_hidden_event", lambda: False)()]
+    out.sort(key=lambda e: (e[2], -e[3]))
+    return out
+
+
+def kernel_events(evs) -> list:
     """(name, start us, end us) of every kernel the profiler saw."""
-    return [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "memcpy" not in e.name.lower()
-            and "memset" not in e.name.lower()]
+    return [(name, s, e) for dev, name, s, e in evs
+            if dev == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in name.lower()
+            and "memset" not in name.lower()]
 
 
-def host_ops(prof) -> list:
-    return [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CPU]
+def host_ops(evs) -> list:
+    return [(name, s, e) for dev, name, s, e in evs
+            if dev == torch.autograd.DeviceType.CPU]
 
 
 def merged(events) -> list:
@@ -126,7 +143,8 @@ class Slice:
             self._close()
         if self.prof is None:
             return None
-        r = summarize(kernel_events(self.prof), host_ops(self.prof))
+        ev = events(self.prof)
+        r = summarize(kernel_events(ev), host_ops(ev))
         if r is not None:
             print(f"trace slice: host {self.t_close - self.t_open:.4f} s, "
                   f"CUDA events {self.event_s:.4f} s, first kernel to last "

@@ -95,7 +95,7 @@ def run(run, weights) -> object:
     cell, dev = run.cell, run.device
     m, mix = cell.model, cell.mix
     tok = program.TokenTable()
-    engine = program.make_engine(m, weights, tok, dev)
+    engine = cell.arch.make_engine(m, weights, tok, dev)
     tap = program.CodeTap(engine)
     voices = weights.voices.float().cpu().numpy()
     B = int(mix["batch"])

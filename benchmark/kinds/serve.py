@@ -38,7 +38,7 @@ def setup(run, weights) -> dict:
     cell, dev = run.cell, run.device
     m, mix = cell.model, cell.mix
     tok = program.TokenTable()
-    engine = program.make_engine(m, weights, tok, dev)
+    engine = cell.arch.make_engine(m, weights, tok, dev)
     tap = program.CodeTap(engine)
     params = TTSParams(
         max_audio_tokens=int(mix["frame_cap"]),

@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from benchmark import record, spec
-from benchmark import weights as W
 from benchmark.run import T_START, set_cache_dirs
 
 
@@ -54,7 +53,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     drv = spec.kind(cell)
     base = record.Run(cell, args.seed, args.seconds, False, dev, T_START)
-    weights = W.make(cell.model, args.seed, dev)
+    weights = cell.arch.make_weights(cell.model, args.seed, dev)
     ctx = drv.setup(base, weights)
     print(f"knee: set-up {time.monotonic() - T_START:.1f} s (warm-up "
           f"{base.graph_warmup_s:.1f} s)", file=sys.stderr, flush=True)

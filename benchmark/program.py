@@ -1,8 +1,9 @@
-"""Everything the benchmark takes from the program under test
-(``qwen3_tts_tpu_torch``), in one place: its configuration classes, the
-engine (``Qwen3TTS.from_components``), and a tap on the codes that become
-audio. The traffic kinds and the layer timings import the program's entry points
-themselves; nothing else here does.
+"""What the benchmark takes from the program under test
+(``qwen3_tts_tpu_torch``) for every architecture: the tokenizer the engine
+is given, the vocoder's configuration, and a tap on the codes that become
+audio. Each architecture (benchmark/archs/) builds its own talker
+configuration and engine; the traffic kinds import the program's entry
+points themselves.
 
 The served codes are what the check compares with the reference. The
 program does not return them, so ``CodeTap`` wraps the engine's vocoder
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .model import Model
+from .model import Vocoder
 
 
 class TokenTable:
@@ -36,30 +37,8 @@ class TokenTable:
         return self.ids[text]
 
 
-def talker_config(m: Model):
-    from qwen3_tts_tpu_torch.config import TalkerConfig
-    t, c, s = m.talker, m.code_pred, m.special
-    return TalkerConfig(
-        text_vocab_size=m.text_vocab, text_embd_dim=m.text_dim,
-        hidden_size=t.hidden, n_layers=t.layers, n_attention_heads=t.heads,
-        n_key_value_heads=t.kv_heads, intermediate_size=t.intermediate,
-        head_dim=t.head_dim, rms_norm_eps=m.rms_norm_eps,
-        rope_theta=m.rope_theta, codec_vocab_size=m.codec_vocab,
-        n_codebooks=m.n_codebooks, code_pred_layers=c.layers,
-        code_pred_vocab_size=m.cp_vocab, code_pred_hidden_size=c.hidden,
-        code_pred_intermediate_size=c.intermediate,
-        code_pred_n_attention_heads=c.heads, code_pred_n_kv_heads=c.kv_heads,
-        code_pred_head_dim=c.head_dim,
-        **{k: s[k] for k in (
-            "codec_pad_id", "codec_bos_id", "codec_eos_id", "codec_think_id",
-            "codec_nothink_id", "codec_think_bos_id", "codec_think_eos_id",
-            "english_language_id", "tts_bos_token_id", "tts_eos_token_id",
-            "tts_pad_token_id")})
-
-
-def vocoder_config(m: Model):
+def vocoder_config(v: Vocoder):
     from qwen3_tts_tpu_torch.config import VocoderConfig
-    v = m.vocoder
     return VocoderConfig(
         sample_rate=v.sample_rate, n_codebooks=v.n_codebooks,
         codebook_size=v.codebook_size, codebook_dim=v.codebook_dim,
@@ -67,13 +46,6 @@ def vocoder_config(m: Model):
         n_pre_tfm_layers=v.layers, n_heads=v.heads,
         decoder_dim=v.decoder_dim, upsample_rates=tuple(v.upsample_rates),
         rms_norm_eps=v.rms_norm_eps, rope_theta=v.rope_theta)
-
-
-def make_engine(m: Model, weights, tokenizer: TokenTable, device):
-    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS
-    return Qwen3TTS.from_components(tokenizer, talker_config(m),
-                                    weights.talker, vocoder_config(m),
-                                    weights.vocoder, device)
 
 
 class CodeTap:

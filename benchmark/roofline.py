@@ -8,8 +8,10 @@ matrices, f32 vectors), the valid KV positions of the cache (not the
 bucket it is read in), the rows an embedding lookup gathers, and what a
 call reads in and writes out.
 
-Whatever implements a layer, these counts are the same, so its share is
-comparable across implementations and configurations."""
+Here are the peaks and the counts of the shared layers (a dense decoder
+stack, the vocoder); each architecture (benchmark/archs/) counts its own
+calls from them. Whatever implements a layer, these counts are the same,
+so its share is comparable across implementations and configurations."""
 
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import math
 
 import torch
 
-from .model import Model, Stack
+from .model import Stack
 
 # NVIDIA H100 SXM5 80 GB data sheet: dense bf16 tensor-core rate and HBM3
 # bandwidth, at the full 700 W power limit.
@@ -47,48 +49,12 @@ def layer_vector_params(s: Stack) -> int:
     return 2 * s.hidden + 2 * s.head_dim
 
 
-def _attn_flops(s: Stack, n_keys: int) -> int:
+def attn_flops(s: Stack, n_keys: int) -> int:
     """QK^T and PV of one query over n_keys keys, one layer."""
     return 4 * s.heads * s.head_dim * n_keys
 
 
-def talker_step(m: Model, B: int, n_past: int) -> tuple[float, float]:
-    """One decode step of B streams, each with n_past cached positions:
-    every layer, the output norm and the codec head."""
-    t = m.talker
-    flops = B * (2 * t.layers * layer_matrix_params(t)
-                 + t.layers * _attn_flops(t, n_past + 1)
-                 + 2 * t.hidden * m.codec_vocab)
-    weights = (BF16 * (t.layers * layer_matrix_params(t)
-                       + t.hidden * m.codec_vocab)
-               + F32 * (t.layers * layer_vector_params(t) + t.hidden))
-    row = t.layers * 2 * t.kv_heads * t.head_dim * BF16
-    io = B * F32 * (t.hidden + t.hidden + m.codec_vocab)
-    return flops, weights + B * row * (n_past + 1) + io
-
-
-def codepred_frame(m: Model, B: int) -> tuple[float, float]:
-    """Codebooks 1..15 of one frame for B streams: 16 positions through
-    the stack (the talker's state and 15 codes), 15 heads, the
-    small_to_mtp projection where there is one."""
-    c, H = m.code_pred, m.talker.hidden
-    n_pos, n_heads = m.n_codebooks, m.n_codebooks - 1
-    attn = sum(_attn_flops(c, k) for k in range(1, n_pos + 1))
-    flops = B * (2 * c.layers * layer_matrix_params(c) * n_pos
-                 + c.layers * attn + 2 * n_heads * c.hidden * m.cp_vocab
-                 + (2 * n_pos * H * c.hidden if m.has_mtp else 0))
-    weights = (BF16 * (c.layers * layer_matrix_params(c)
-                       + n_heads * c.hidden * m.cp_vocab
-                       + (H * c.hidden if m.has_mtp else 0))
-               + F32 * (c.layers * layer_vector_params(c) + c.hidden
-                        + (c.hidden if m.has_mtp else 0)))
-    rows = BF16 * H * (min(B * (n_pos - 2), (n_pos - 2) * m.cp_vocab)
-                       + min(B, m.codec_vocab))
-    io = B * (F32 * H + 4 + 4 * n_heads)
-    return flops, weights + rows + io
-
-
-def vocoder_flops_per_stream(m: Model, frames: int) -> float:
+def vocoder_flops_per_stream(m, frames: int) -> float:
     """Operations of decoding `frames` frames of one stream."""
     v, T = m.vocoder, frames
     w, q = v.hidden, v.latent_dim
@@ -114,14 +80,14 @@ def vocoder_flops_per_stream(m: Model, frames: int) -> float:
     return float(f)
 
 
-def vocoder_weight_bytes(m: Model) -> int:
+def vocoder_weight_bytes(m) -> int:
     from .weights import vocoder_spec
     spec = vocoder_spec(m, torch.bfloat16)
     return sum(math.prod(l.shape) * l.dtype.itemsize for l in spec.leaves
                if "codebook" not in l.path[0])
 
 
-def vocoder_chunk(m: Model, n: int, frames: int = 40) -> tuple[float, float]:
+def vocoder_chunk(m, n: int, frames: int = 40) -> tuple[float, float]:
     """One decode of n streams' `frames`-frame chunks into int16 PCM."""
     v = m.vocoder
     tables = v.n_codebooks * v.codebook_size * v.codebook_dim
@@ -129,22 +95,3 @@ def vocoder_chunk(m: Model, n: int, frames: int = 40) -> tuple[float, float]:
     nbytes = (vocoder_weight_bytes(m) + BF16 * rows
               + n * frames * (4 * v.n_codebooks + 2 * v.samples_per_frame))
     return n * vocoder_flops_per_stream(m, frames), nbytes
-
-
-def prefill_flops(m: Model, n_tokens: int, P: int) -> float:
-    """A request's prefill: the text projection of its n_tokens ids and the
-    talker over its P prefill rows, with the codec head once."""
-    t = m.talker
-    proj = 2 * (n_tokens + 3) * (m.text_dim * m.text_dim
-                                 + m.text_dim * t.hidden)
-    layers = t.layers * (2 * layer_matrix_params(t) * P
-                         + sum(_attn_flops(t, k) for k in range(1, P + 1)))
-    return float(proj + layers + 2 * t.hidden * m.codec_vocab)
-
-
-def frame_flops(m: Model, n_past: int) -> float:
-    """Model operations of one delivered frame of one stream whose talker
-    step saw n_past cached positions: the step, the code predictor and
-    the vocoder's share of its chunk."""
-    return (talker_step(m, 1, n_past)[0] + codepred_frame(m, 1)[0]
-            + vocoder_flops_per_stream(m, 40) / 40)

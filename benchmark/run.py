@@ -41,7 +41,6 @@ if __package__ in (None, ""):          # run as a file: import from the root
 import torch  # noqa: E402
 
 from benchmark import check, record, spec, timing  # noqa: E402
-from benchmark import weights as W  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "qwen3_tts_tpu")
 
@@ -111,7 +110,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device,
             t0: float, control: bool = False):
     """One run of `cell`: (run record, result dict, check numbers)."""
     run = record.Run(cell, seed, seconds, trace, device, t0)
-    weights = W.make(cell.model, seed, device)
+    weights = cell.arch.make_weights(cell.model, seed, device)
     _sync(device)
     log(f"weights from seed {seed} in {time.monotonic() - t0:.1f} s since "
         f"start")
@@ -123,8 +122,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device,
     if trace and roofs and device.type == "cuda":
         run.layer_ms = timing.layer_times(run, engine,
                                           int(cell.mix.get("batch", 0))
-                                          or int(cell.mix["slots"]),
-                                          cell.model.prefill_len)
+                                          or int(cell.mix["slots"]))
     run.memory_peak_bytes = mem
     del engine, weights
     release()
@@ -135,9 +133,9 @@ def execute(cell, seed: int, seconds: float, trace: bool, device,
                         spf)
     if sample:
         t = time.monotonic()
-        ref_w = W.make(cell.model, seed, device)
-        numbers = check.compare(cell.model, cell.mix, ref_w, sample, device,
-                                seed, control=control)
+        ref_w = cell.arch.make_weights(cell.model, seed, device)
+        numbers = check.compare(cell.arch, cell.model, cell.mix, ref_w,
+                                sample, device, seed, control=control)
         del ref_w
         release()
         log(f"check: {len(sample)} requests, {numbers['tokens']} served "

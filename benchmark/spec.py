@@ -1,17 +1,18 @@
 """A cell of ``BENCHMARK.json`` with everything it names: the
-configuration file, the traffic mix, the limits of the check and the
-metrics it reports. Every name is looked up as a file under the
-benchmark's folder, so a new configuration, mix or metric is a new file
-and a new entry, and no file here changes."""
+configuration file and the architecture it names, the traffic mix, the
+limits of the check and the metrics it reports. Every name is looked up
+as a file under the benchmark's folder, so a new configuration,
+architecture, mix or metric is a new file and a new entry, and no file
+here changes."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 
-from . import model as model_mod
 from . import traffic
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -22,7 +23,8 @@ class Cell:
     root: Path
     name: str
     chips: int
-    model: model_mod.Model
+    arch: object            # the module benchmark/archs/<arch>.py
+    model: object           # arch.load(the configuration file)
     mix: dict
     limits: dict
     end_to_end: list
@@ -47,9 +49,11 @@ def load_cell(name: str, root: Path | None = None) -> Cell:
         raise KeyError(f"no workload {name!r} in {root / 'BENCHMARK.json'}")
     conf = next(c for c in bench["configs"] if c["name"] == wl["config"])
     folder = root / "benchmark"
+    raw = json.loads((root / conf["file"]).read_text())
+    arch = load_arch(root, raw["arch"])
     return Cell(
-        root=root, name=name, chips=int(wl["chips"]),
-        model=model_mod.load(root / conf["file"]),
+        root=root, name=name, chips=int(wl["chips"]), arch=arch,
+        model=arch.load(raw),
         mix=traffic.load(folder / "traffic" / f"{wl['traffic']}.json"),
         limits=json.loads(
             (folder / "limits" / f"{conf['name']}.json").read_text()),
@@ -58,11 +62,23 @@ def load_cell(name: str, root: Path | None = None) -> Cell:
 
 
 def load_file_module(path: Path, name: str):
-    """The module in file `path` (names may hold dots, so not by import)."""
+    """The module in file `path` (names may hold dots, so not by import),
+    entered in sys.modules under `name` as it runs (dataclasses look
+    their module up there)."""
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_arch(root: Path, stem: str):
+    """The architecture module benchmark/archs/<stem>.py of checkout
+    `root` (its surface: benchmark/archs/__init__.py)."""
+    rel = f"benchmark/archs/{stem}.py"
+    if not (Path(root) / rel).is_file():
+        raise FileNotFoundError(f"no architecture file {rel} in {root}")
+    return load_file_module(Path(root) / rel, f"benchmark_arch_{stem}")
 
 
 def kind(cell: Cell):

@@ -79,3 +79,29 @@ def test_idle_share_and_missing(tmp_path):
     assert read("device_idle_share.serve") == pytest.approx(25.0)
     assert read("talker_roofline") is None                # nothing timed
     assert read("graph_warmup_s") is None
+
+
+def test_trace_events_are_the_profilers():
+    """devtrace.events reads what prof.events() lists, at the same times
+    and in the same order; it keeps a child that the profiler's tree
+    folds into a same-named parent (the inner aten::sum here)."""
+    import torch
+
+    from benchmark import devtrace
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    x = torch.randn(64, 64)
+    (x @ x).sum()
+    prof.stop()
+    got = devtrace.events(prof)
+    want = [(e.device_type, e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()]
+    extra = list(got)
+    for e in want:
+        extra.remove(e)
+    assert [e for e in got if e not in extra] == want
+    for _, name, s, e in extra:
+        assert any(n == name and a <= s and e <= b and (a, b) != (s, e)
+                   for _, n, a, b in want)
+    assert devtrace.host_ops(got)[0][0] == "aten::randn"

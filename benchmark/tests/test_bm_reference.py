@@ -7,16 +7,15 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import model, program
-from benchmark import weights as W
-from benchmark.reference import model as ref
-from benchmark.tests.tiny import tiny_config
+from benchmark import program
+from benchmark.reference.layers import Prec
+from benchmark.tests.tiny import load_model, tiny_config
 
 
 @pytest.fixture(params=[False, True], ids=["0.6b-shape", "mtp-shape"])
 def tiny(request):
-    m = model.from_dict(tiny_config(mtp=request.param))
-    return m, W.make(m, 5, "cpu")
+    arch, m = load_model(tiny_config(mtp=request.param))
+    return arch, m, arch.make_weights(m, 5, "cpu")
 
 
 def test_talker_and_code_predictor(tiny):
@@ -24,9 +23,9 @@ def test_talker_and_code_predictor(tiny):
     from qwen3_tts_tpu_torch.runtime.generate import (generate_frame,
                                                       init_state,
                                                       make_consts)
-    m, w = tiny
+    arch, m, w = tiny
     assert m.has_mtp == (w.talker["code_pred"]["mtp_w"] is not None)
-    cfg = program.talker_config(m)
+    cfg = arch.talker_config(m)
     g = np.random.default_rng(0)
     tokens = [400, 402, 403] + g.integers(0, 400, 12).tolist() + [
         401, 403, 400, 402, 403]
@@ -44,9 +43,9 @@ def test_talker_and_code_predictor(tiny):
             c, _ = generate_frame(w.talker, cfg, state, consts, 50)
             codes.append(c[0])
         codes = torch.stack(codes)
-        seq, P = ref.talker_sequence(ref.Prec(), w.talker, m, tokens, spk,
-                                     codes)
-        h_ref = ref.talker_hidden(ref.Prec(), w.talker, m, [seq])[0]
+        seq, P = arch.talker_sequence(Prec(), w.talker, m, tokens, spk,
+                                      codes)
+        h_ref = arch.talker_hidden(Prec(), w.talker, m, [seq])[0]
         h_ref = h_ref[P - 1:]
         h_prog = torch.stack(h_prog)
         err = (h_prog - h_ref).norm(dim=-1) / h_ref.norm(dim=-1)
@@ -57,8 +56,8 @@ def test_talker_and_code_predictor(tiny):
         rest = code_predictor.predict_codes(
             w.talker, cfg, h_ref, codes[:, 0], 0.9, 50, greedy=True,
             logits_out=out)
-        want = ref.code_logits(ref.Prec(), w.talker, m, h_ref,
-                               torch.cat([codes[:, :1], rest], dim=1))
+        want = arch.code_logits(Prec(), w.talker, m, h_ref,
+                                torch.cat([codes[:, :1], rest], dim=1))
     rel = ((out.transpose(0, 1) - want).abs().amax(-1)
            / want.abs().amax(-1))
     assert rel.max() < 0.03
@@ -66,13 +65,13 @@ def test_talker_and_code_predictor(tiny):
 
 def test_vocoder_chunk(tiny):
     from qwen3_tts_tpu_torch.models import vocoder
-    m, w = tiny
-    vcfg = program.vocoder_config(m)
+    arch, m, w = tiny
+    vcfg = program.vocoder_config(m.vocoder)
     codes = torch.randint(0, 2048, (2, 40, 16),
                           generator=torch.Generator().manual_seed(3))
     codes[1, 25:] = 0                      # a zero-padded tail
     with torch.no_grad():
         got = vocoder.vocoder_decode(w.vocoder, vcfg, codes, trim="causal")
-        want = ref.vocode(ref.Prec(), w.vocoder, m.vocoder, codes)
+        want = arch.vocode(Prec(), w.vocoder, m.vocoder, codes)
     assert got.shape == want.shape == (2, 40 * m.vocoder.samples_per_frame)
     assert float((got - want).norm() / want.norm()) < 1e-4

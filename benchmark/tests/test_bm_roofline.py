@@ -4,42 +4,38 @@ import json
 
 import pytest
 
-from benchmark import model, roofline
-from benchmark.tests.tiny import REPO, tiny_config
-
-
-def _m(name):
-    return model.load(REPO / f"benchmark/configs/{name}.json")
+from benchmark import roofline
+from benchmark.tests.tiny import load_model, tiny_config
 
 
 def test_talker_step_06b():
-    m = _m("qwen3-tts-12hz-0.6b")
+    arch, m = load_model("qwen3-tts-12hz-0.6b")
     # per layer: qkv 1024x4096 + wo 2048x1024 + gate|up|down 3x1024x3072
     assert roofline.layer_matrix_params(m.talker) == 15_728_640
-    assert roofline.talker_step(m, 1, 0) == (
+    assert arch.talker_step(m, 1, 0) == (
         2 * 28 * 15_728_640 + 28 * 4 * 16 * 128 + 2 * 1024 * 3072,
         2 * (28 * 15_728_640 + 1024 * 3072) + 4 * (28 * 2304 + 1024)
         + 28 * 2 * 8 * 128 * 2 + 4 * (1024 + 1024 + 3072))
-    flops, nbytes = roofline.talker_step(m, 2, 9)
+    flops, nbytes = arch.talker_step(m, 2, 9)
     assert flops == 1_778_778_112
     assert nbytes == 889_692_160
 
 
 def test_codepred_frame_17b_with_mtp():
-    m = _m("qwen3-tts-12hz-1.7b")
+    arch, m = load_model("qwen3-tts-12hz-1.7b")
     assert m.has_mtp and m.talker.hidden == 2048
-    flops, nbytes = roofline.codepred_frame(m, 1)
+    flops, nbytes = arch.codepred_frame(m, 1)
     # 16 positions x 5 layers, attention over 1..16 keys, 15 heads, and
     # the 2048 -> 1024 projection of the 16 inputs
     assert flops == (2_516_582_400 + 5_570_560 + 62_914_560
                      + 67_108_864)
     assert nbytes == 224_395_264 + 54_272 + 61_440 + 8_256
-    m06 = _m("qwen3-tts-12hz-0.6b")
-    assert roofline.codepred_frame(m06, 1)[0] == flops - 67_108_864
+    _, m06 = load_model("qwen3-tts-12hz-0.6b")
+    assert arch.codepred_frame(m06, 1)[0] == flops - 67_108_864
 
 
 def test_vocoder_tiny_by_hand():
-    m = model.from_dict(tiny_config())
+    _, m = load_model(tiny_config())
     assert roofline.vocoder_flops_per_stream(m, 2) == 717_312
     assert m.vocoder.samples_per_frame == 64
 
@@ -51,8 +47,8 @@ def test_share_and_bound():
 
 
 def test_frame_flops_linear_in_position():
-    m = _m("qwen3-tts-12hz-0.6b")
-    a, b, c = (roofline.frame_flops(m, n) for n in (0, 1, 100))
+    arch, m = load_model("qwen3-tts-12hz-0.6b")
+    a, b, c = (arch.frame_flops(m, n) for n in (0, 1, 100))
     assert c - a == pytest.approx(100 * (b - a))
     # ~8.6 GFLOP a stream frame: talker 0.89, code predictor 2.6, vocoder
     assert 8e9 < a < 9.5e9

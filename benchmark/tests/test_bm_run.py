@@ -66,10 +66,12 @@ def test_forbidden_by_whole_top_level_name():
 
 
 def test_run_imports_no_jax():
-    """The harness, the program's entry points and the reference, in a
-    fresh process, leave no JAX module loaded."""
+    """The harness, a cell with its architecture, the program's entry
+    points and the reference, in a fresh process, leave no JAX module
+    loaded."""
     code = ("import sys\n"
-            "from benchmark import run, check, timing\n"
+            "from benchmark import run, check, spec, timing\n"
+            "spec.load_cell('offline-0.6b-b192')\n"
             "from benchmark.kinds import offline, serve\n"
             "import qwen3_tts_tpu_torch.runtime.serve\n"
             "import qwen3_tts_tpu_torch.runtime.pipeline\n"

@@ -1,6 +1,7 @@
 """A scratch checkout with tiny cells, for the CPU tests: the
 benchmark's folder copied, a tiny configuration (the program's test
-widths), tiny mixes, limits, and a BENCHMARK.json naming them."""
+widths), tiny mixes, limits, and a BENCHMARK.json naming them; and a
+configuration's architecture and model."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ import copy
 import json
 import shutil
 from pathlib import Path
+
+from benchmark import spec
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -86,3 +89,24 @@ def make_root(tmp: Path, mtp: bool = False) -> Path:
                 m["workloads"] = sorted(set(m["workloads"]))
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
     return tmp
+
+
+def load_model(raw: dict | str):
+    """(architecture module, model) of a configuration: a dict, or the
+    name of a file of the repository's benchmark/configs/."""
+    if isinstance(raw, str):
+        raw = json.loads((REPO / f"benchmark/configs/{raw}.json").read_text())
+    arch = spec.load_arch(REPO, raw["arch"])
+    return arch, arch.load(raw)
+
+
+def use_arch(root: Path, stem: str, source: str | None = None) -> None:
+    """Point the tiny configuration of the scratch checkout `root` at the
+    architecture `stem`, first writing its file benchmark/archs/<stem>.py
+    from `source` where one is given."""
+    if source is not None:
+        (root / f"benchmark/archs/{stem}.py").write_text(source)
+    path = root / "benchmark/configs/tiny.json"
+    cfg = json.loads(path.read_text())
+    cfg["arch"] = stem
+    path.write_text(json.dumps(cfg))

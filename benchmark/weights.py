@@ -2,18 +2,15 @@
 in the layouts that the program's ``Qwen3TTS.from_components`` takes and
 that the reference reads (linear weights [in, out]; per-layer tensors
 stacked [L, ...]; fused ``wqkv`` [q | k | v] and ``w_gu`` [gate | up];
-convolutions in torch order).
+convolutions in torch order). An architecture (benchmark/archs/) lists
+its leaves in a ``Spec``, from the shared stack and vocoder specs here and
+its own, and makes them from the seed.
 
 The normal draws of each dtype come from one ``torch.Generator`` on the
 device in chunks of ``CHUNK`` values, and each leaf is a view of one flat
 buffer, scaled to its own standard deviation. The same seed on the same
 device gives the same bits, which is how the reference gets its weights:
 it makes them again from the seed after the program's state is freed.
-
-EOS shaping (the configuration's ``random_weights``): the codec head's EOS
-column is zero and its other columns have ``codec_head_logit_std /
-sqrt(hidden)``, so the EOS logit sits far below the best code until the
-program's own EOS ramp lifts it, and output lengths come from that ramp.
 """
 
 from __future__ import annotations
@@ -22,9 +19,6 @@ import math
 from dataclasses import dataclass
 
 import torch
-
-from .model import Model
-from .seeds import sub_seed
 
 CHUNK = 1 << 27
 
@@ -38,7 +32,7 @@ class Leaf:
     arg: float           # std, or the constant
 
 
-class _Spec:
+class Spec:
     def __init__(self):
         self.leaves: list[Leaf] = []
 
@@ -85,7 +79,9 @@ def _put(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def _stack_spec(spec: _Spec, prefix: tuple, s, std: float, norm_std: float):
+def stack_spec(spec: Spec, prefix: tuple, s, std: float, norm_std: float):
+    """A dense decoder stack's leaves under `prefix` (`s`: model.Stack):
+    the layout that reference.layers.decoder_stack reads."""
     bf, f32 = torch.bfloat16, torch.float32
     L, H, D = s.layers, s.hidden, s.head_dim
     spec.add(prefix + ("attn_norm",), (L, H), f32, "one_plus_normal", norm_std)
@@ -99,37 +95,9 @@ def _stack_spec(spec: _Spec, prefix: tuple, s, std: float, norm_std: float):
     spec.add(prefix + ("w_down",), (L, s.intermediate, H), bf, "normal", std)
 
 
-def talker_spec(m: Model) -> _Spec:
-    """Talker + code predictor leaves (the program's layout)."""
-    r = m.random
-    std, nstd = r["matrix_std"], r["norm_std"]
-    bf, f32 = torch.bfloat16, torch.float32
-    H, Hc, n_rest = m.talker.hidden, m.code_pred.hidden, m.n_codebooks - 1
-    spec = _Spec()
-    spec.add(("text_embd",), (m.text_vocab, m.text_dim), bf, "normal", std)
-    spec.add(("text_proj", "fc1_w"), (m.text_dim, m.text_dim), bf, "normal",
-             std)
-    spec.add(("text_proj", "fc1_b"), (m.text_dim,), f32, "const", 0.0)
-    spec.add(("text_proj", "fc2_w"), (m.text_dim, H), bf, "normal", std)
-    spec.add(("text_proj", "fc2_b"), (H,), f32, "const", 0.0)
-    spec.add(("codec_embd",), (m.codec_vocab, H), bf, "normal", std)
-    spec.add(("codec_head",), (H, m.codec_vocab), bf, "normal",
-             r["codec_head_logit_std"] / math.sqrt(H))
-    spec.add(("output_norm",), (H,), f32, "one_plus_normal", nstd)
-    _stack_spec(spec, ("layers",), m.talker, std, nstd)
-    _stack_spec(spec, ("code_pred", "layers"), m.code_pred, std, nstd)
-    spec.add(("code_pred", "output_norm"), (Hc,), f32, "one_plus_normal", nstd)
-    spec.add(("code_pred", "embd"), (n_rest, m.cp_vocab, H), bf, "normal", std)
-    spec.add(("code_pred", "heads"), (n_rest, Hc, m.cp_vocab), bf, "normal",
-             std)
-    if m.has_mtp:
-        spec.add(("code_pred", "mtp_w"), (H, Hc), bf, "normal", std)
-        spec.add(("code_pred", "mtp_b"), (Hc,), f32, "const", 0.0)
-    return spec
-
-
-def vocoder_spec(m: Model, matrix_dtype: torch.dtype) -> _Spec:
-    """Vocoder leaves (the program's layout): matrices and convolutions
+def vocoder_spec(m, matrix_dtype: torch.dtype) -> Spec:
+    """Vocoder leaves of model `m` (its ``vocoder`` shapes and
+    ``random`` scales; the program's layout): matrices and convolutions
     normal(0, 1/sqrt(fan_in)) in `matrix_dtype`, 1-D parameters f32. The
     decoder blocks' convT times ``decoder_convt_gain`` and their residual
     units' k7 convolutions times ``res_branch_gain`` keep the activations
@@ -138,7 +106,7 @@ def vocoder_spec(m: Model, matrix_dtype: torch.dtype) -> _Spec:
     times ``vocoder_out_gain`` sets the audio's level below tanh's knee."""
     v, f32, md = m.vocoder, torch.float32, matrix_dtype
     nstd = m.random["norm_std"]
-    spec = _Spec()
+    spec = Spec()
 
     def mat(path, shape, fan_in):
         spec.add(path, shape, md, "normal", fan_in ** -0.5)
@@ -219,10 +187,10 @@ def vocoder_spec(m: Model, matrix_dtype: torch.dtype) -> _Spec:
     return spec
 
 
-def _lists(tree):
+def as_lists(tree):
     """Dicts keyed 0..n-1 (upsample, dec_blocks, res) as lists."""
     if isinstance(tree, dict):
-        tree = {k: _lists(v) for k, v in tree.items()}
+        tree = {k: as_lists(v) for k, v in tree.items()}
         if tree and all(isinstance(k, int) for k in tree):
             return [tree[i] for i in range(len(tree))]
     return tree
@@ -233,28 +201,3 @@ class Weights:
     talker: dict
     vocoder: dict
     voices: torch.Tensor       # [n_voices, hidden] f32
-
-
-def make(m: Model, seed: int, device, vocoder_dtype=None) -> Weights:
-    """The weights of configuration `m` for `seed` on `device`. The
-    vocoder's matrices are bf16 on a card and f32 on the CPU (as the
-    program keeps them), unless `vocoder_dtype` says otherwise."""
-    device = torch.device(device)
-    if vocoder_dtype is None:
-        vocoder_dtype = (torch.bfloat16 if device.type == "cuda"
-                         else torch.float32)
-
-    def gen(k):
-        return torch.Generator(device=device).manual_seed(sub_seed(seed, k))
-
-    with torch.no_grad():
-        talker = _lists(talker_spec(m).materialize(gen("talker"), device))
-        talker["codec_head"][:, m.special["codec_eos_id"]] = 0
-        if not m.has_mtp:
-            talker["code_pred"]["mtp_w"] = talker["code_pred"]["mtp_b"] = None
-        voc = _lists(vocoder_spec(m, vocoder_dtype).materialize(
-            gen("vocoder"), device))
-        voices = torch.randn(int(m.random["voices"]), m.talker.hidden,
-                             generator=gen("voices"), device=device)
-        voices *= m.random["speaker_std"]
-    return Weights(talker, voc, voices)
