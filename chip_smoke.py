@@ -11,7 +11,13 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    modes, with empty streams, for the bf16 and the int8 cache; the
    residual chain at B 2 and 16 and the Snake + convT head at B 2, 16 and
    48, each run twice (bitwise equal); the talker megakernel at B 4 / 8 /
-   32 and 192, with its phase clock at B 4, 8 and 32; and checks the code
+   32 and 192, with its phase clock at B 4, 8 and 32; the decode-attention
+   kernel also at 8 query heads a kv head (G = 8, Qwen3-Omni's talker) in
+   every mode and cache; the MoE FFN (csrc/moe.cu) at Qwen3-Omni's widths
+   over 1, 8 and 192 decode rows, the 192 x 75 prefill rows and 192 rows
+   routed to 6 experts, with a bf16 round trip of the experts' products
+   shown to fail its tolerance, timed with its bound from the experts
+   read; and checks the code
    predictor's QWEN3_TTS_CODEPRED dispatch: an mtp_w (the 1.7B shape) and
    top_p < 1 take its XLA path on the card, not the kernel;
 3. drives ``Qwen3TTS.synthesize_batch`` at the full 0.6B widths (random
@@ -101,7 +107,15 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    (through decode attention); every record line parses, no request
    fails, ``voc_impl`` reads the kernels ("fused"), every number is
    finite, and every kernel launched (``launches_bench`` in the kernels
-   line); the phase's wall time is printed. It runs before the mesh.
+   line); the phase's wall time is printed. It runs before the mesh;
+11. omni (``omni_phase``, before the mesh): Qwen3-Omni's speech stage at
+   its widths (the 20-layer MoE talker, the code predictor, Code2Wav),
+   through ``synthesize_batch`` (B 8, 80 frames, T 0.9) and an 8-slot
+   ``ContinuousBatcher`` (12 requests, 4 mid-run): every request
+   succeeds, the MoE kernel and flash-decode at G = 8 (prefix in
+   lock-step, window in serving) launch, the megakernel does not; the
+   MoE kernel's launches in the kernels line are this phase's
+   (``launches_omni``, which every entry carries).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -170,6 +184,20 @@ ATTN_B = (8, 32)
 ATTN_S = 1152               # required_ctx_ring(1024): the serving cache
 ATTN_READ_CTX = (512, 1024, 1152)
 SPLIT_SWEEP = (1, 2, 3, 6, 18)  # tiles per split timed beside the plan
+ATTN_KV_HEADS = (8, 2)      # G = 2 (the 0.6B / 1.7B talkers), 8 (Omni's)
+# the MoE FFN (ops/moe.py) vs its twin at Qwen3-Omni's widths: relative
+# L2 over the rows both route alike. Both sum bf16 products in f32 in
+# other orders, so silu(g) * u can round to the other bf16 neighbour:
+# measured on an H100 7.6e-7 (one row) to 1.1e-4 (the prefill's 14,400);
+# rounding the experts' products to bf16 once more reads 1.65e-3, which
+# each case checks it sees. A row may route apart only at a near-tie of
+# its k-th and (k+1)-th router logits
+MOE_TOL = 3e-4
+MOE_TIE = 1e-4              # |logit gap| that counts as a near-tie
+MOE_B = (1, 8, 192)         # decode rows: one stream, a few, the cell's
+MOE_PREFILL_N = 192 * 75    # the cell's prefill: B 192 x ~75 rows
+OMNI_B = 8                  # the Omni phase's lock-step batch and slots
+OMNI_FRAMES = 80
 # serving phase: a 96-frame cap puts the ring at 256 - 16 slots, so it
 # wraps after 6 chunks; "h" (36-frame EOS ramp) reaches EOS by frame 72
 SERVE_SLOTS = 8
@@ -997,11 +1025,11 @@ def check_snake_convt(blocks, dev, gen, timed: bool = True) -> dict:
                           timed)
 
 
-def _attn_cache(B, S, dev, gen):
-    """Random bf16 K/V [B, 8, S, 128] and their int8 rows + scales as the
-    cache stores them (stack.quantize_kv_rows)."""
+def _attn_cache(B, S, dev, gen, n_kv=8):
+    """Random bf16 K/V [B, n_kv, S, 128] and their int8 rows + scales as
+    the cache stores them (stack.quantize_kv_rows)."""
     from qwen3_tts_tpu_torch.models.stack import quantize_kv_rows
-    k, v = (torch.randn(B, 8, S, 128, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, n_kv, S, 128, generator=gen, device=dev).bfloat16()
             for _ in range(2))
     (k8, ks), (v8, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
     return {"bf16": (k, v, None, None), "int8": (k8, v8, ks, vs)}
@@ -1063,38 +1091,60 @@ def _attn_call(kw, q, k, v, ks, vs, read_ctx, twin):
 
 
 def check_flash_decode(dev, gen, timed: bool = True) -> dict:
-    """The decode-attention kernel against its twin at the talker's widths
-    (16 query heads, 8 kv heads, D = 128), B = 8 and 32, S = 1,152, read_ctx
-    512 / 1,024 / 1,152: prefix (ragged, 1 and read_ctx), scattered bitmask,
-    ring window, wrapped window, each with an empty stream; bf16 and int8
+    """The decode-attention kernel against its twin at the talkers' widths
+    (16 query heads over 8 kv heads, G = 2, and over 2, G = 8, Qwen3-Omni's
+    talker; D = 128), B = 8 and 32, S = 1,152, read_ctx 512 / 1,024 /
+    1,152: prefix (ragged, 1 and read_ctx), scattered bitmask, ring
+    window, wrapped window, each with an empty stream; bf16 and int8
     caches. Times kernel and twin at the serving shape (window mode,
-    read_ctx 1,152), unless not `timed`."""
+    read_ctx 1,152), G = 8 at B = 32 in bf16 only, unless not `timed`."""
     worst, timing, dev_t, sweep, failed = 0.0, {}, {}, {}, []
+    g8 = {}
     for B in ATTN_B:
-        caches = _attn_cache(B, ATTN_S, dev, gen)
         q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
-        for read_ctx in ATTN_READ_CTX:
-            cases = _attn_cases(B, ATTN_S, read_ctx, dev, gen)
-            for kv, (k, v, ks, vs) in caches.items():
-                errs = {}
-                for mode, kw in cases.items():
-                    got = _attn_call(kw, q, k, v, ks, vs, read_ctx, False)
-                    ref = _attn_call(kw, q, k, v, ks, vs, read_ctx, True)
-                    err = (got - ref).abs().max().item()
-                    if not torch.isfinite(got).all():
-                        err = float("inf")
-                    if got[2].abs().max().item() != 0.0:
-                        err = float("inf")          # empty stream not 0
-                    errs[mode] = err
-                    if not err <= ATTN_TOL:
-                        failed.append((B, read_ctx, kv, mode))
-                log(f"flash_decode B={B} S={ATTN_S} read_ctx={read_ctx} "
-                    f"{kv}: max|err| " + ", ".join(
-                        f"{m} {e:.3e}" for m, e in errs.items())
-                    + f" (need <= {ATTN_TOL}; empty stream exactly 0)")
-                worst = max(worst, *errs.values())
-            if read_ctx == ATTN_S and timed:
+        for n_kv in ATTN_KV_HEADS:
+            caches = _attn_cache(B, ATTN_S, dev, gen, n_kv)
+            G = 16 // n_kv
+            for read_ctx in ATTN_READ_CTX:
+                cases = _attn_cases(B, ATTN_S, read_ctx, dev, gen)
+                for kv, (k, v, ks, vs) in caches.items():
+                    errs = {}
+                    for mode, kw in cases.items():
+                        got = _attn_call(kw, q, k, v, ks, vs, read_ctx, False)
+                        ref = _attn_call(kw, q, k, v, ks, vs, read_ctx, True)
+                        err = (got - ref).abs().max().item()
+                        if not torch.isfinite(got).all():
+                            err = float("inf")
+                        if got[2].abs().max().item() != 0.0:
+                            err = float("inf")          # empty stream not 0
+                        errs[mode] = err
+                        if not err <= ATTN_TOL:
+                            failed.append((B, G, read_ctx, kv, mode))
+                    log(f"flash_decode B={B} G={G} S={ATTN_S} "
+                        f"read_ctx={read_ctx} {kv}: max|err| " + ", ".join(
+                            f"{m} {e:.3e}" for m, e in errs.items())
+                        + f" (need <= {ATTN_TOL}; empty stream exactly 0)")
+                    worst = max(worst, *errs.values())
+                if read_ctx != ATTN_S or not timed:
+                    continue
                 kw = cases["window"]
+                if G == 8:
+                    if B == ATTN_B[1]:
+                        k, v = caches["bf16"][:2]
+                        g8 = {"ms": cuda_time(lambda: _attn_call(
+                                  kw, q, k, v, None, None, read_ctx, False),
+                                  iters=20),
+                              "device_ms": device_ms(lambda: _attn_call(
+                                  kw, q, k, v, None, None, read_ctx, False),
+                                  20, ("fd_",)),
+                              **_attn_bound(kw, q, None, read_ctx, n_kv)}
+                        log(f"flash_decode window mode B={B} G=8 S={ATTN_S} "
+                            f"read_ctx={ATTN_S} bf16, one layer: kernel "
+                            f"{g8['ms']:.4f} ms (device {g8['device_ms']:.4f}"
+                            f" ms, roofline share "
+                            f"{g8['bound_ms'] / g8['device_ms']:.1%}); bound "
+                            f"{g8['bound_ms']:.4f} ms ({g8['bound_by']})")
+                    continue
                 for kv, (k, v, ks, vs) in caches.items():
                     timing[(B, kv)] = [cuda_time(
                         lambda t=t: _attn_call(kw, q, k, v, ks, vs, read_ctx,
@@ -1107,8 +1157,8 @@ def check_flash_decode(dev, gen, timed: bool = True) -> dict:
                     sweep[(B, kv)] = _split_sweep(kw, q, k, v, ks, vs,
                                                   read_ctx)
                 # the yardstick: one PyTorch call, bf16, the same slots
-                timing[(B, "bf16")].append(_sdpa_ms(kw, q, *caches["bf16"][:2],
-                                                    read_ctx))
+                timing[(B, "bf16")].append(_sdpa_ms(
+                    kw, q, *caches["bf16"][:2], read_ctx))
     for (B, kv), (ms, plain, b, *lib) in timing.items():
         sdpa = f"scaled_dot_product_attention {lib[0]:.4f} ms, " if lib else ""
         log(f"flash_decode window mode B={B} S={ATTN_S} read_ctx={ATTN_S} "
@@ -1134,8 +1184,9 @@ def check_flash_decode(dev, gen, timed: bool = True) -> dict:
                     "device_ms": dev_t[(ATTN_B[1], "bf16")],
                     "bound_ms": timing[(ATTN_B[1], "bf16")][2]["bound_ms"],
                     "library_ms": timing[(ATTN_B[1], "bf16")][3]},
+            "g8_b32": g8,
             "shape": f"B={ATTN_B[0]} bf16 window mode, read_ctx={ATTN_S}, "
-                     "one layer"}
+                     "one layer, G=2 (g8_b32: B=32, 2 kv heads)"}
 
 
 def _split_sweep(kw, q, k, v, ks, vs, read_ctx) -> str:
@@ -1165,14 +1216,14 @@ def _attn_counted(kw, q, read_ctx):
     return fd._slots_read(q.shape[0], read_ctx, q.device, window_hi=hi, **kw)
 
 
-def _attn_bound(kw, q, k_scale, read_ctx) -> dict:
+def _attn_bound(kw, q, k_scale, read_ctx, n_kv=8) -> dict:
     """One layer's decode attention must read q, the mask and the K/V rows
-    (with scales) of the counted slots, and write the output; 4 flops per
-    query head, dim and counted slot."""
+    (with scales) of the counted slots over n_kv heads, and write the
+    output; 4 flops per query head, dim and counted slot."""
     slots = int(_attn_counted(kw, q, read_ctx).sum())
     B, n_heads, D = q.shape
-    row = 8 * D * (1 if k_scale is not None else 2) + (
-        8 * 4 if k_scale is not None else 0)
+    row = n_kv * D * (1 if k_scale is not None else 2) + (
+        n_kv * 4 if k_scale is not None else 0)
     moved = (nbytes(q) + B * read_ctx + 2 * slots * row + B * n_heads * D * 4)
     return bound(moved, 4 * slots * n_heads * D)
 
@@ -1186,6 +1237,125 @@ def _sdpa_ms(kw, q, k, v, read_ctx) -> float:
     qs, ks, vs = q[:, :, None, :], k[:, :, :read_ctx], v[:, :, :read_ctx]
     return cuda_time(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=20)
+
+
+def _moe_layer(dev, gen):
+    """One MoE layer at Qwen3-Omni's talker widths (config.MoEConfig's
+    defaults: H 1024, 128 experts of 384, shared 768, top-6), bf16
+    normal(0, 0.02) but the router normal(0, 0.1), whose logits of a few
+    units decide as a trained router's do."""
+    from qwen3_tts_tpu_torch.config import MoEConfig
+    moe, H = MoEConfig(), 1024
+    E, Ie, Is = moe.n_experts, moe.expert_intermediate, moe.shared_intermediate
+
+    def rn(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device=dev) * std).bfloat16()
+
+    return moe, {"w_router": rn(H, E, std=0.1), "w_gu_e": rn(E, H, 2 * Ie),
+                 "w_down_e": rn(E, Ie, H), "w_gu_s": rn(H, 2 * Is),
+                 "w_down_s": rn(Is, H), "w_sgate": rn(H)}
+
+
+def _moe_bound(lw, moe, N, experts) -> dict:
+    """One call over N rows must read the weights of the experts its rows
+    route to (`experts` distinct), the shared expert, router and gate, the
+    rows in (f32) and out (f32); its operations are the active
+    parameters' (k experts, the shared expert, router and gate a row)."""
+    H, Ie, Is = 1024, moe.expert_intermediate, moe.shared_intermediate
+    per_expert = 3 * H * Ie
+    fixed = 3 * H * Is + H * moe.n_experts + H
+    moved = 2 * (experts * per_expert + fixed) + 2 * 4 * N * H
+    return bound(moved, 2 * N * (moe.top_k * per_expert + fixed))
+
+
+def check_moe(dev, gen, timed: bool = True) -> dict:
+    """The MoE FFN (ops/moe.py: router, grouped experts, gated shared
+    expert; four launches) against its twin at Qwen3-Omni's widths, over
+    N = 1, 8 and 192 decode rows, the cell's prefill (192 x 75 rows) and
+    192 rows that all route to the same 6 experts. Rows route alike
+    unless their k-th and (k+1)-th router logits nearly tie (MOE_TIE);
+    over the rows that route alike, the relative L2 error must be at most
+    MOE_TOL, which a bf16 round trip of the experts' products must exceed.
+    Times the kernel at N = 192 and at the prefill, with its bound from
+    the experts those rows route to, unless not `timed`."""
+    from qwen3_tts_tpu_torch.ops import moe as M
+    moe, lw = _moe_layer(dev, gen)
+    cases = [(N, None) for N in MOE_B + (MOE_PREFILL_N,)]
+    cases.append((192, (5, 17, 33, 64, 99, 127)))
+    failed, worst, timing = [], 0.0, {}
+    for N, dominate in cases:
+        w = dict(lw)
+        h = torch.randn(N, 1024, generator=gen, device=dev)
+        if dominate is not None:
+            h = h.abs()
+            wr = torch.zeros(1024, moe.n_experts, device=dev)
+            for i, e in enumerate(dominate):
+                wr[:, e] = 0.01 * (i + 1)
+            w["w_router"] = wr.bfloat16()
+        s = {}
+        got = M.moe_ffn(h, w, moe, scratch=s)
+        want = M.moe_ffn_twin(h, w, moe)
+        ek = s["experts"].long().sort(-1).values
+        x, et, _, _ = M.route(h, w["w_router"], w["w_sgate"], moe.top_k,
+                              moe.norm_topk_prob)
+        et = et.sort(-1).values
+        same = (ek == et).all(-1)
+        logits = (x.float() @ w["w_router"].float()).sort(-1,
+                                                          descending=True)[0]
+        gap = logits[:, moe.top_k - 1] - logits[:, moe.top_k]
+        ties = int((~same).sum())
+        untied = int((~same & (gap > MOE_TIE)).sum())
+        inner = M.swiglu
+        M.swiglu = lambda *a: inner(*a).to(torch.bfloat16).float()
+        try:
+            rounded = M.moe_ffn_twin(h, w, moe)
+        finally:
+            M.swiglu = inner
+
+        def rel(a):
+            a, b = a[same].double(), want[same].double()
+            return ((a - b).norm() / b.norm()).item()
+        err, seen = rel(got), rel(rounded)
+        worst = max(worst, err)
+        ok = (torch.isfinite(got).all().item() and err <= MOE_TOL < seen
+              and untied == 0)
+        if dominate is not None:
+            ok = ok and set(ek.unique().tolist()) == set(dominate)
+        if not ok:
+            failed.append((N, dominate is not None))
+        n_experts = int(et.unique().numel())
+        log(f"moe N={N}{' six experts' if dominate else ''}: rel L2 "
+            f"{err:.3e} over {int(same.sum())} rows routed alike (need <= "
+            f"{MOE_TOL}; the experts' products rounded to bf16 read "
+            f"{seen:.3e}); {ties} rows routed apart, {untied} of them "
+            f"without a near-tie; {n_experts} experts read")
+        if timed and dominate is None and N in (192, MOE_PREFILL_N):
+            fn = (lambda h=h, w=w: M.moe_ffn(h, w, moe))
+            timing[N] = {"ms": cuda_time(fn, iters=20),
+                         "device_ms": device_ms(fn, 20, ("moe_",)),
+                         "plain_ms": cuda_time(
+                             lambda h=h, w=w: M.moe_ffn_twin(h, w, moe),
+                             iters=3),
+                         "experts_read": n_experts,
+                         **_moe_bound(w, moe, N, n_experts)}
+            t = timing[N]
+            log(f"moe N={N}, one layer: kernel {t['ms']:.4f} ms (device "
+                f"{t['device_ms']:.4f} ms, roofline share "
+                f"{t['bound_ms'] / t['device_ms']:.1%}), twin "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}, {n_experts} experts read)")
+        del h, got, want, rounded
+    if failed:
+        raise AssertionError(f"moe kernel disagrees with its twin: {failed}")
+    if not timed:
+        return {}
+    return {"name": "moe", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/moe.cu",
+            "replaces": "none: the JAX package has no MoE talker",
+            "max_rel_err": worst, **timing[192],
+            "prefill": timing[MOE_PREFILL_N],
+            "shape": f"N=192 decode rows, one layer (prefill: "
+                     f"N={MOE_PREFILL_N})"}
 
 
 def _tf_cache(L, B, kv, read_ctx, dev, gen, S=TF_S):
@@ -2775,6 +2945,78 @@ def bench_phase(cfg, talker_w, vcfg, voc_w, card, counters, dev) -> dict:
     return ran
 
 
+def omni_phase(tok, card, counters, dev) -> dict:
+    """Qwen3-Omni's speech stage at its widths on the normal paths (module
+    docstring, item 11): the 20-layer MoE talker (16 / 2 heads, 128
+    experts of 384, top-6, shared 768), the code predictor and Code2Wav,
+    random weights. ``synthesize_batch`` at B 8 (T 0.9, 80 frames) and an
+    8-slot ``ContinuousBatcher`` on 12 requests (4 submitted mid-run).
+    Every request succeeds with n_frames * 1920 finite samples; the MoE
+    kernel, flash-decode at G = 8 (prefix in lock-step, window in
+    serving), the code predictor and the vocoder kernels launch on both
+    paths, and the megakernel never does. Returns the launches."""
+    from qwen3_tts_tpu_torch.config import (Code2WavConfig, MoEConfig,
+                                            TalkerConfig, VocoderConfig)
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.ops import moe as M
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    os.environ["QWEN3_TTS_KV"] = "bf16"
+    t_phase = time.monotonic()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    cfg = TalkerConfig(n_key_value_heads=2, n_layers=20)
+    vcfg = VocoderConfig(codebook_dim=1024, latent_dim=1024, hidden_dim=1024)
+    engine = Qwen3TTS.from_components(
+        tok, cfg, W.init_talker_weights(cfg, gen, dev, moe=MoEConfig()),
+        vcfg, W.init_code2wav_weights(vcfg, gen, dev, Code2WavConfig()), dev)
+    counters = {**counters, "moe": M.moe_ffn}
+    total = dict.fromkeys(counters, 0)
+    texts = [SERVE_SHORT, SERVE_LONG] * 6
+    for what in ("lockstep", "serving"):
+        for fn in counters.values():
+            fn.launches = 0
+        fd.flash_decode.launches_by_mode.update(prefix=0, mask=0, window=0)
+        t0 = time.monotonic()
+        if what == "lockstep":
+            res = engine.synthesize_batch(texts[:OMNI_B], params=TTSParams(
+                max_audio_tokens=OMNI_FRAMES, temperature=0.9, seed=SEED,
+                print_timing=False))
+        else:
+            cb = ContinuousBatcher(engine, n_slots=OMNI_B, params=TTSParams(
+                temperature=0.9, seed=SEED), max_frames=OMNI_FRAMES)
+            rids = [cb.submit(t) for t in texts[:8]]
+            out, n_steps = {}, 0
+            while cb.pending():
+                out.update(cb.step())
+                n_steps += 1
+                if n_steps == 2:
+                    rids += [cb.submit(t) for t in texts[8:]]
+            res = [out[r] for r in rids]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        _check_results(res, engine)
+        ran = {k: fn.launches for k, fn in counters.items()}
+        modes = dict(fd.flash_decode.launches_by_mode)
+        mode = "prefix" if what == "lockstep" else "window"
+        if (min(ran["moe"], ran["codepred"], ran["res_chain"],
+                ran["snake_convt"], modes[mode]) <= 0
+                or ran["talker_fused"] != 0):
+            raise AssertionError(f"omni {what}: launches {ran}, "
+                                 f"flash_decode by mode {modes}")
+        total = {k: total[k] + ran[k] for k in counters}
+        frames = [r.n_frames for r in res]
+        log(f"omni {what} ({len(res)} requests, 20-layer MoE talker, "
+            f"Code2Wav): frames {frames}, {sum(frames)} frames, "
+            f"{sum(len(r.audio) for r in res) / 24000:.2f} s of audio in "
+            f"{wall:.2f} s wall; launches {ran}, flash_decode by mode "
+            f"{modes}")
+    del engine
+    torch.cuda.empty_cache()
+    log(f"omni phase: {time.monotonic() - t_phase:.1f} s")
+    return total
+
+
 def _counters() -> dict:
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
     from qwen3_tts_tpu_torch.ops import flash_decode as fd
@@ -3628,7 +3870,8 @@ def main() -> int:
                         (check_res_chain, (blocks, dev, gen)),
                         (check_snake_convt, (blocks, dev, gen)),
                         (check_flash_decode, (dev, gen)),
-                        (check_talker_fused, (talker_w, cfg, dev, gen))):
+                        (check_talker_fused, (talker_w, cfg, dev, gen)),
+                        (check_moe, (dev, gen))):
         try:
             entry = check(*args)
             if entry:
@@ -3665,19 +3908,27 @@ def main() -> int:
     piped = pipelined_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                             counters, dev)
     benched = bench_phase(cfg, talker_w, vcfg, voc_w, card, counters, dev)
+    omni = omni_phase(tok, card, counters, dev)
     meshed = mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                         counters, dev)
     for entry in report:
+        if entry["name"] == "moe":
+            # only the Omni phase runs an MoE talker
+            entry.update(launches=omni["moe"], launches_omni=omni["moe"])
+            if entry["launches"] <= 0:
+                raise AssertionError("moe never ran on the Omni phase")
+            continue
         a, b, c, d, e, f, g, h = (
             lockstep[entry["name"]], serving[entry["name"]],
             clone[entry["name"]], graphed[entry["name"]],
             meshed[entry["name"]], converted[entry["name"]],
             piped[entry["name"]], benched[entry["name"]])
-        entry.update(launches=a + b + c + d + e + f + g + h,
+        o = omni[entry["name"]]
+        entry.update(launches=a + b + c + d + e + f + g + h + o,
                      launches_lockstep=a, launches_serving=b,
                      launches_clone=c, launches_graphs=d, launches_mesh=e,
                      launches_convert=f, launches_pipelined=g,
-                     launches_bench=h)
+                     launches_bench=h, launches_omni=o)
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on a main path")
         if entry["launches_mesh"] <= 0:

@@ -130,6 +130,39 @@ class TalkerConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """A talker whose every layer has a sparse mixture-of-experts FFN in
+    place of the dense SwiGLU: Qwen3-Omni's talker
+    (``Qwen3OmniMoeTalkerTextSparseMoeBlock``). A port-only setting, not a
+    ``TalkerConfig`` field: the JAX package has no such talker. The
+    defaults are Qwen3-Omni-30B-A3B's talker (models/weights.py lays out
+    its leaves; ops/moe.py computes the block)."""
+    n_experts: int = 128
+    top_k: int = 6
+    expert_intermediate: int = 384
+    shared_intermediate: int = 768
+    norm_topk_prob: bool = True
+
+
+@dataclass(frozen=True)
+class Code2WavConfig:
+    """Qwen3-Omni's Code2Wav in place of the 12 Hz tokenizer's decoder
+    front (transformers' ``Qwen3OmniMoeCode2Wav``): the codes enter as
+    the mean of their rows of one embedding table, an 8-layer
+    pre-transformer runs at the decoder's hidden width with sliding-window
+    attention and no projections around it, the ConvNeXt upsample takes
+    the exact GELU, and the waveform is clamped to [-1, 1] instead of
+    tanh. A port-only setting, not a ``VocoderConfig`` field: the JAX
+    package has no such decoder. It rides in the vocoder's weights tree as
+    the entry "code2wav" (models/weights.init_code2wav_weights); widths
+    come from the tree's shapes and the ``VocoderConfig`` (whose
+    ``hidden_dim`` and ``latent_dim`` are both the hidden width, 1024 in
+    Qwen3-Omni-30B-A3B's ``code2wav_config``)."""
+    sliding_window: int = 72
+    intermediate_size: int = 3072     # the pre-transformer's SwiGLU width
+
+
+@dataclass(frozen=True)
 class VocoderConfig:
     """WavTokenizer-style decoder (audio_tokenizer_decoder.h:14-28)."""
     sample_rate: int = 24000

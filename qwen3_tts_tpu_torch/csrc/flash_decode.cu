@@ -30,7 +30,9 @@
 //   slots of a read phase share banks), two shuffles; one online-softmax update per tile and query
 //   head (one warp a head); P.V with one thread per (query head, dim)
 //   over the tile (G = 1: two threads, one per half of the tile, summed
-//   at the end in a fixed order; G = 4: two (head, dim) pairs a thread).
+//   at the end in a fixed order; G = 4: two (head, dim) pairs a thread;
+//   G = 8, Qwen3-Omni's 16 / 2 heads: four pairs a thread, a warp a head
+//   in the softmax step).
 //   Probabilities stay f32; int8 rows are dequantized from shared memory
 //   (the K scale on the score, the V scale on the probability);
 // - the CTA decides in the kernel which 64-slot tiles it needs, from
@@ -353,6 +355,8 @@ int q3_flash_decode(const void* q, const void* k, const void* v,
   else if (G == 2) err = launch_split<2, true>(FD_ARGS);
   else if (G == 4 && !int8) err = launch_split<4, false>(FD_ARGS);
   else if (G == 4) err = launch_split<4, true>(FD_ARGS);
+  else if (G == 8 && !int8) err = launch_split<8, false>(FD_ARGS);
+  else if (G == 8) err = launch_split<8, true>(FD_ARGS);
   else return (int)cudaErrorInvalidValue;
 #undef FD_ARGS
   if (err != cudaSuccess) return (int)err;

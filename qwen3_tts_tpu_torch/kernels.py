@@ -40,6 +40,7 @@ _SIGNATURES = {
     "q3_snake_convt": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I),
     "q3_flash_decode": (_P,) * 9 + (_I,) * 9 + (_F, _I) + (_P,) * 4,
     "q3_talker_step": (_P,) * 22 + (_I,) * 7 + (_F,) * 3,
+    "q3_moe_ffn": (_P,) * 19 + (_I,) * 8,
 }
 # C functions that take no stream: name -> (argument types, result type)
 _HOST_SIGNATURES = {

@@ -3,6 +3,10 @@
 
 Layer recipe: x -> RMSNorm -> fused QKV -> per-head q/k RMSNorm -> NEOX
 RoPE -> causal GQA -> wo -> +residual -> RMSNorm -> SwiGLU -> +residual.
+A stack whose layers hold ``w_router`` (Qwen3-Omni's talker,
+models/weights.moe_layers) has a sparse-MoE FFN in the SwiGLU's place, for
+prefill and decode alike; its non-tensor entry ``moe`` (a
+config.MoEConfig) configures it.
 
 Both weight layouts run, as in the JAX package: fused (``wqkv``,
 ``w_gu``) and unfused (``wq``/``wk``/``wv``, ``w_gate``/``w_up``, what
@@ -24,6 +28,7 @@ import torch
 
 from ..ops.attention import decode_attention, decode_attention_masked
 from ..ops.layers import dot, gqa_attention_prefill, rms_norm, rope_neox
+from ..ops.moe import moe_ffn
 from ..parallel.mesh import tp_sum
 
 CACHE_DTYPE = torch.bfloat16
@@ -88,8 +93,13 @@ def _qkv(wl, x_norm: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
 
 
 def _ffn(layers_w, wl, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """SwiGLU over [gate | up] (fused or unfused), summed over tp."""
+    """SwiGLU over [gate | up] (fused or unfused), summed over tp; or, on
+    a layer that holds ``w_router``, the sparse-MoE FFN (ops/moe.py) that
+    the stack's ``moe`` entry configures (never tp-split)."""
     h = rms_norm(x, wl["ffn_norm"], eps)
+    if "w_router" in wl:
+        return moe_ffn(h.reshape(-1, h.shape[-1]), wl,
+                       layers_w["moe"]).reshape(h.shape)
     if "w_gu" in wl:
         gate, up = dot(h, wl["w_gu"]).chunk(2, -1)
     else:

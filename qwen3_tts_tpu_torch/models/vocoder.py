@@ -30,6 +30,14 @@ The engine's vocoder graphs are keyed by the first two
 (runtime/graphs.voc_key), so a change takes a new graph.
 ``load_vocoder_weights`` reads the codec GGUF onto a device in f32, as the
 JAX loader does; the pipeline casts (``cast_weights``) and packs.
+
+A weights tree holding the entry "code2wav" (a config.Code2WavConfig;
+models/weights.init_code2wav_weights) is Qwen3-Omni's Code2Wav: the
+codes' rows of ``code_embedding`` averaged over the codebooks, then the
+pre-transformer at the hidden width with sliding-window attention and its
+final norm (no pre_conv, no projections around it), the ConvNeXt
+upsample with the exact GELU, the same decoder blocks and kernels, and
+the waveform clamped to [-1, 1] where the 12 Hz decoder takes tanh.
 """
 
 from __future__ import annotations
@@ -113,8 +121,10 @@ def snake(x: torch.Tensor, alpha_log: torch.Tensor,
 
 
 def _pre_tfm_layer(wl, x: torch.Tensor, positions: torch.Tensor,
-                   n_heads: int, eps: float, theta: float) -> torch.Tensor:
-    """Causal pre-transformer layer with layer-scale."""
+                   n_heads: int, eps: float, theta: float,
+                   window: int | None = None) -> torch.Tensor:
+    """Causal pre-transformer layer with layer-scale; a query sees the
+    `window` latest positions, itself included, where `window` is given."""
     B, T, _ = x.shape
     h = rms_norm(x, wl["attn_norm"], eps)
     q, k, v = dot(h, wl["wq"]), dot(h, wl["wk"]), dot(h, wl["wv"])
@@ -124,6 +134,8 @@ def _pre_tfm_layer(wl, x: torch.Tensor, positions: torch.Tensor,
     v = v.reshape(B, T, n_heads, head_dim)
     scores = torch.einsum("bthd,bshd->bhts", q, k) / head_dim ** 0.5
     causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    if window is not None:
+        causal = causal.triu(1 - window)
     scores = scores.masked_fill(~causal, NEG_INF)
     attn = torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1), v)
     x = x + dot(attn.reshape(B, T, n_heads * head_dim), wl["wo"]) \
@@ -133,9 +145,10 @@ def _pre_tfm_layer(wl, x: torch.Tensor, positions: torch.Tensor,
     return x + dot(act, wl["w_down"]) * wl["ffn_scale"]
 
 
-def _upsample_block(w, x: torch.Tensor) -> torch.Tensor:
+def _upsample_block(w, x: torch.Tensor, gelu: str = "tanh") -> torch.Tensor:
     """ConvNeXt 2x upsample: convT stride 2 (no trim) -> [causal dwconv k=7
-    + LayerNorm + pointwise MLP (tanh gelu) + gamma] residual."""
+    + LayerNorm + pointwise MLP (GELU, `gelu` its approximation) + gamma]
+    residual."""
     c = x.shape[-1]
     x = conv_transpose1d(x, w["conv_t_w"], 2) + w["conv_t_b"].float()
     residual = x
@@ -145,7 +158,7 @@ def _upsample_block(w, x: torch.Tensor) -> torch.Tensor:
     var = x.var(-1, keepdim=True, unbiased=False)
     x = ((x - mean) * torch.rsqrt(var + 1e-6) * w["ln_w"].float()
          + w["ln_b"].float())
-    x = F.gelu(dot(x, w["pw1_w"]) + w["pw1_b"], approximate="tanh")
+    x = F.gelu(dot(x, w["pw1_w"]) + w["pw1_b"], approximate=gelu)
     x = dot(x, w["pw2_w"]) + w["pw2_b"]
     return residual + x * w["gamma"].float()
 
@@ -198,6 +211,17 @@ def vq_dequantize(w, cfg: VocoderConfig, codes: torch.Tensor) -> torch.Tensor:
     return first + dot(rest_emb.sum(dim=-2), w["vq_rest_out_proj"])
 
 
+def code2wav_embed(w, codes: torch.Tensor) -> torch.Tensor:
+    """Code2Wav's input: each code's row of ``code_embedding`` [n *
+    codebook_size, H] (codebook j's codes offset by j * codebook_size),
+    averaged over the n codebooks. codes [B, F, n] -> [B, F, H] f32."""
+    codes = codes.long()
+    n = codes.shape[-1]
+    offset = (w["code_embedding"].shape[0] // n) * torch.arange(
+        n, device=codes.device)
+    return w["code_embedding"][codes + offset].float().mean(dim=-2)
+
+
 def vocoder_output_length(w, cfg: VocoderConfig, n_frames: int,
                           trim: str = "both") -> int:
     """Exact output sample count for n_frames (trim="causal":
@@ -214,9 +238,32 @@ def vocoder_output_length(w, cfg: VocoderConfig, n_frames: int,
     return t
 
 
+def _code2wav_front(w, cfg: VocoderConfig, codes: torch.Tensor
+                    ) -> torch.Tensor:
+    """Code2Wav's front (module docstring): codes [B, F, 16] -> latent
+    [B, 4F, decoder_dim]."""
+    B, F_, _ = codes.shape
+    x = code2wav_embed(w, codes)
+    t = w["pre_tfm"]
+    positions = torch.arange(F_, dtype=torch.int32,
+                             device=codes.device).expand(B, F_)
+    window = w["code2wav"].sliding_window
+    for l in range(t["layers"]["wq"].shape[0]):
+        wl = {name: a[l] for name, a in t["layers"].items()}
+        x = _pre_tfm_layer(wl, x, positions, cfg.n_heads, cfg.rms_norm_eps,
+                           cfg.rope_theta, window)
+    x = rms_norm(x, t["norm"], cfg.rms_norm_eps)
+    for up_w in w["upsample"]:
+        x = _upsample_block(up_w, x, gelu="none")
+    return causal_conv1d(x, w["dec0_w"], w["dec0_b"])
+
+
 def _front_impl(w, cfg: VocoderConfig, codes: torch.Tensor) -> torch.Tensor:
     """vq dequant + pre-transformer + ConvNeXt upsample + dec0:
-    codes [B, F, 16] -> latent [B, 4F(+pad), decoder_dim]."""
+    codes [B, F, 16] -> latent [B, 4F(+pad), decoder_dim]; Code2Wav's
+    front where the tree holds "code2wav"."""
+    if "code2wav" in w:
+        return _code2wav_front(w, cfg, codes)
     B, F_, _ = codes.shape
     x = vq_dequantize(w, cfg, codes)
     x = causal_conv1d(x, w["pre_conv_w"], w["pre_conv_b"])
@@ -236,13 +283,15 @@ def _front_impl(w, cfg: VocoderConfig, codes: torch.Tensor) -> torch.Tensor:
 
 def _tail_impl(w, cfg: VocoderConfig, x: torch.Tensor, trim: str,
                pcm16: bool) -> torch.Tensor:
-    """Decoder blocks + final snake/conv/tanh: [B, T, decoder_dim] ->
-    audio [B, T*480] f32, or int16 PCM when `pcm16`."""
+    """Decoder blocks + final snake/conv/tanh (Code2Wav: clamp to
+    [-1, 1]): [B, T, decoder_dim] -> audio [B, T*480] f32, or int16 PCM
+    when `pcm16`."""
     for blk_w, rate in zip(w["dec_blocks"], cfg.upsample_rates):
         x = _decoder_block(blk_w, x, rate, trim)
     x = causal_conv1d(snake(x, w["dec5_a"], w["dec5_b"]), w["dec6_w"],
                       w["dec6_b"])
-    audio = torch.tanh(x[..., 0])
+    audio = (x[..., 0].clamp(-1.0, 1.0) if "code2wav" in w
+             else torch.tanh(x[..., 0]))
     if pcm16:
         return torch.round(audio * 32767.0).clamp(-32768, 32767).to(
             torch.int16)

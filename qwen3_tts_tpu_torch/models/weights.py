@@ -22,7 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..config import TalkerConfig, VocoderConfig
+from ..config import Code2WavConfig, MoEConfig, TalkerConfig, VocoderConfig
 
 MATMUL_DTYPE = torch.bfloat16
 NORM_DTYPE = torch.float32
@@ -157,12 +157,36 @@ def _decoder_stack(rn, norm, n_layers, hidden, n_heads, n_kv, head_dim,
     }
 
 
+def moe_layers(rn, n_layers: int, hidden: int, moe: MoEConfig
+               ) -> dict[str, Any]:
+    """The sparse-MoE FFN leaves of a talker stack, in place of ``w_gu`` /
+    ``w_down``: router ``w_router`` [L, H, E]; routed experts ``w_gu_e``
+    [L, E, H, 2 Ie] ([gate | up] columns) and ``w_down_e`` [L, E, Ie, H];
+    shared expert ``w_gu_s`` [L, H, 2 Is], ``w_down_s`` [L, Is, H] and its
+    gate ``w_sgate`` [L, H]; all bf16 (ops/moe.py). ``moe`` rides along as
+    the layers tree's non-tensor entry "moe"."""
+    E, Ie, Is = (moe.n_experts, moe.expert_intermediate,
+                 moe.shared_intermediate)
+    return {
+        "w_router": rn(n_layers, hidden, E),
+        "w_gu_e": rn(n_layers, E, hidden, 2 * Ie),
+        "w_down_e": rn(n_layers, E, Ie, hidden),
+        "w_gu_s": rn(n_layers, hidden, 2 * Is),
+        "w_down_s": rn(n_layers, Is, hidden),
+        "w_sgate": rn(n_layers, hidden),
+        "moe": moe,
+    }
+
+
 def init_talker_weights(cfg: TalkerConfig, generator: torch.Generator,
-                        device, scale: float = 0.02) -> dict[str, Any]:
+                        device, scale: float = 0.02,
+                        moe: MoEConfig | None = None) -> dict[str, Any]:
     """Random talker + code-predictor weights: normal(0, scale) matmul
     weights in bf16 and zero biases, as the JAX package draws them
     (weights.py:119-170). Norm weights are 1 + normal(0, 0.1) where the JAX
-    init has ones, so that a kernel that skips one is seen."""
+    init has ones, so that a kernel that skips one is seen. With `moe`,
+    every talker layer holds ``moe_layers``' leaves in place of the dense
+    FFN (``cfg.intermediate_size`` then unused)."""
     def rn(*shape):
         t = torch.randn(shape, generator=generator, device=device)
         return (t * scale).to(MATMUL_DTYPE)
@@ -176,6 +200,17 @@ def init_talker_weights(cfg: TalkerConfig, generator: torch.Generator,
 
     n_rest = cfg.n_codebooks - 1
     has_mtp = cfg.code_pred_hidden_size != cfg.hidden_size
+
+    def talker_layers():
+        layers = _decoder_stack(
+            rn, norm, cfg.n_layers, cfg.hidden_size, cfg.n_attention_heads,
+            cfg.n_key_value_heads, cfg.head_dim,
+            0 if moe is not None else cfg.intermediate_size)
+        if moe is not None:
+            del layers["w_gu"], layers["w_down"]
+            layers.update(moe_layers(rn, cfg.n_layers, cfg.hidden_size, moe))
+        return layers
+
     return {
         "text_embd": rn(cfg.text_vocab_size, cfg.text_embd_dim),
         "text_proj": {
@@ -187,9 +222,7 @@ def init_talker_weights(cfg: TalkerConfig, generator: torch.Generator,
         "codec_embd": rn(cfg.codec_vocab_size, cfg.hidden_size),
         "codec_head": rn(cfg.hidden_size, cfg.codec_vocab_size),
         "output_norm": norm(cfg.hidden_size),
-        "layers": _decoder_stack(
-            rn, norm, cfg.n_layers, cfg.hidden_size, cfg.n_attention_heads,
-            cfg.n_key_value_heads, cfg.head_dim, cfg.intermediate_size),
+        "layers": talker_layers(),
         "code_pred": {
             "layers": _decoder_stack(
                 rn, norm, cfg.code_pred_layers, cfg.code_pred_hidden_size,
@@ -295,6 +328,81 @@ def init_vocoder_weights(cfg: VocoderConfig, generator: torch.Generator,
         "dec_blocks": dec_blocks,
         "dec5_a": rn(c, scale=0.3), "dec5_b": rn(c, scale=0.3),
         "dec6_w": rn(1, c, 7), "dec6_b": full(1, 0.0),
+    }
+    return w if dtype is None else cast_weights(w, dtype)
+
+
+def init_code2wav_weights(cfg: VocoderConfig, generator: torch.Generator,
+                          device, c2w: Code2WavConfig = Code2WavConfig(),
+                          dtype: torch.dtype | None = torch.bfloat16
+                          ) -> dict[str, Any]:
+    """Random weights of Qwen3-Omni's Code2Wav (config.Code2WavConfig,
+    models/vocoder.py), the entry "code2wav" = c2w among them:
+    ``code_embedding`` [n_codebooks * codebook_size, hidden_dim]
+    normal(0, sqrt(n_codebooks)) (a frame's mean of n rows has unit
+    variance), the pre-transformer at hidden_dim (q / k / v / o
+    hidden_dim wide, SwiGLU c2w.intermediate_size) with unit norms and
+    0.5 layer scales, ConvNeXt upsample blocks of 4 x hidden_dim, dec0,
+    the decoder blocks (init_decoder_block) and the last convolution;
+    every matrix and convolution normal(0, 1/sqrt(fan_in)), the decoder
+    blocks' convT x0.7 and their residual k7 convolutions x0.3, the last
+    convolution x0.12, so that activations stay O(1) block to block at any
+    width and the audio off the clamp. Matrices are then cast to `dtype`
+    (cast_weights; None keeps f32)."""
+    from .vocoder import cast_weights
+
+    def rn(*shape, fan_in=None, std=None):
+        std = fan_in ** -0.5 if std is None else std
+        return torch.randn(shape, generator=generator, device=device) * std
+
+    def full(n, v):
+        return torch.full((n,), v, dtype=torch.float32, device=device)
+
+    H, inter = cfg.hidden_dim, c2w.intermediate_size
+
+    def tfm_layer():
+        return {"attn_norm": full(H, 1.0), "wq": rn(H, H, fan_in=H),
+                "wk": rn(H, H, fan_in=H), "wv": rn(H, H, fan_in=H),
+                "wo": rn(H, H, fan_in=H), "attn_scale": full(H, 0.5),
+                "ffn_norm": full(H, 1.0), "w_gate": rn(H, inter, fan_in=H),
+                "w_up": rn(H, inter, fan_in=H),
+                "w_down": rn(inter, H, fan_in=inter),
+                "ffn_scale": full(H, 0.5)}
+
+    def upsample_block():
+        return {"conv_t_w": rn(H, H, 2, fan_in=H), "conv_t_b": full(H, 0.0),
+                "dw_w": rn(H, 1, 7, fan_in=7), "dw_b": full(H, 0.0),
+                "ln_w": full(H, 1.0), "ln_b": full(H, 0.0),
+                "pw1_w": rn(H, 4 * H, fan_in=H), "pw1_b": full(4 * H, 0.0),
+                "pw2_w": rn(4 * H, H, fan_in=4 * H), "pw2_b": full(H, 0.0),
+                "gamma": full(H, 0.5)}
+
+    c = cfg.decoder_dim
+    dec_blocks = []
+    for rate in cfg.upsample_rates:
+        blk = init_decoder_block(c, rate, generator, device, scale=None)
+        blk["conv_t_w"] *= 0.7
+        for res in blk["res"]:
+            res["c1_w"] *= 0.3
+        dec_blocks.append(blk)
+        c //= 2
+    layers = [tfm_layer() for _ in range(cfg.n_pre_tfm_layers)]
+    w = {
+        "code_embedding": rn(cfg.n_codebooks * cfg.codebook_size, H,
+                             std=cfg.n_codebooks ** 0.5),
+        "pre_tfm": {
+            "norm": full(H, 1.0),
+            "layers": {k: torch.stack([lay[k] for lay in layers])
+                       for k in layers[0]},
+        },
+        "upsample": [upsample_block() for _ in range(2)],
+        "dec0_w": rn(cfg.decoder_dim, H, 7, fan_in=7 * H),
+        "dec0_b": full(cfg.decoder_dim, 0.0),
+        "dec_blocks": dec_blocks,
+        "dec5_a": rn(c, std=0.3), "dec5_b": rn(c, std=0.3),
+        "dec6_w": rn(1, c, 7, std=0.12 * (7 * c) ** -0.5),
+        "dec6_b": full(1, 0.0),
+        "code2wav": c2w,
     }
     return w if dtype is None else cast_weights(w, dtype)
 

@@ -38,7 +38,7 @@ from .. import kernels
 
 BLOCK = 64            # slots per needed-block decision and kernel tile
 HEAD_DIM = 128        # the kernel's head dim
-GROUPS = (1, 2, 4)    # query heads per kv head the kernel serves
+GROUPS = (1, 2, 4, 8) # query heads per kv head the kernel serves
 CTAS_PER_SM = 3       # resident CTAs a SM (the kernel's __launch_bounds__)
 
 _SMS: dict = {}       # device -> SM count

@@ -100,8 +100,12 @@ def supported(cfg, B: int, w, kv_cache, write_idx, valid_mask,
     """The fused step's preconditions: the reference geometry, bf16
     product weights, one write slot for the batch (0-d), a bitmask of the
     cache's width, read_ctx <= S. On the card the kernel also needs head
-    dim 128 and a hidden size that its 256-row product tiles divide."""
+    dim 128 and a hidden size that its 256-row product tiles divide. A
+    sparse-MoE talker (``w_router``, ops/moe.py) is never supported: the
+    kernel's FFN is the dense SwiGLU."""
     lw = w["layers"] if "layers" in w else w
+    if "w_router" in lw:
+        return False
     vals = kv_cache.values if isinstance(kv_cache, QuantKV) else kv_cache
     S = vals.shape[4]
     rc = S if read_ctx is None else read_ctx

@@ -34,6 +34,14 @@ Audio leaves the card as int16 PCM through ``readback_submit``, another
 ``Readback``. ``PCMRef`` names one stream's row of such a copy and
 resolves it lazily.
 
+A sparse-MoE talker (Qwen3-Omni's, ``from_components(..., moe=)``) runs
+the same loop: its FFN is ops/moe.py inside the same frame graphs. Each
+chunk zeroes the talker's MoE counters before its frames and copies them
+home with its codes (``MoECounts``, one more ``Readback``), so the host
+records them per chunk as the span ``talker.moe`` (``pairs``, ``rows``,
+``max_rows``) and the counters ``moe.pairs`` / ``moe.rows`` with no sync
+inside a frame.
+
 Without a vocoder (``from_components(..., voc_w=None)``) the engine still
 generates codes; each stream then reports "Vocoder not loaded", as in the
 JAX package.
@@ -78,7 +86,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..config import SpeakerEncoderConfig, TalkerConfig, VocoderConfig
+from ..config import (MoEConfig, SpeakerEncoderConfig, TalkerConfig,
+                      VocoderConfig)
 from ..io.gguf import GGUFReader, HostStager
 from ..models import code_predictor
 from ..models import speaker_encoder as spk
@@ -130,6 +139,31 @@ class Readback:
             with trace.span("host.wait", what=self.what):
                 self.event.synchronize()
         return self.host.numpy()
+
+
+class MoECounts:
+    """One chunk's sparse-MoE counters (the talker's ``moe_counts``
+    [L, 3], each layer's pairs routed, rows the grouped product computed
+    and most rows an expert got in a layer-step, ops/moe.py) on their way
+    home, from the chunk's dispatch (``t0``, ns). ``record()`` waits for
+    them and records the span ``talker.moe`` (pairs and rows summed over
+    the layers, max_rows their max) and the counters ``moe.pairs`` /
+    ``moe.rows``."""
+
+    __slots__ = ("t0", "copy")
+
+    def __init__(self, counts: torch.Tensor, t0: int):
+        self.t0 = t0
+        self.copy = Readback(counts, "codes")
+
+    def record(self) -> None:
+        c = self.copy.result()
+        pairs, rows, most = (int(c[:, 0].sum()), int(c[:, 1].sum()),
+                             int(c[:, 2].max()))
+        trace.add("talker.moe", self.t0, time.monotonic_ns(), pairs=pairs,
+                  rows=rows, max_rows=most)
+        trace.count("moe.pairs", pairs)
+        trace.count("moe.rows", rows)
 
 
 class PCMRef:
@@ -189,11 +223,13 @@ def _log(msg: str) -> None:
 
 
 def _tree_map(fn, tree):
+    """fn over the tensors of a weights tree; other leaves (None, a
+    settings entry such as "moe" or "code2wav") as they are."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
-    return None if tree is None else fn(tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def _first_leaf(tree):
@@ -202,7 +238,7 @@ def _first_leaf(tree):
     if isinstance(tree, (list, tuple)):
         return next((x for x in map(_first_leaf, tree) if x is not None),
                     None)
-    return tree
+    return tree if isinstance(tree, torch.Tensor) else None
 
 
 def _pinned(t: torch.Tensor) -> torch.Tensor:
@@ -257,11 +293,32 @@ class Qwen3TTS:
 
     @classmethod
     def from_components(cls, tokenizer, talker_cfg, talker_w, voc_cfg, voc_w,
-                        device, spk_cfg=None, spk_w=None) -> "Qwen3TTS":
+                        device, spk_cfg=None, spk_w=None,
+                        moe: MoEConfig | None = None) -> "Qwen3TTS":
         """Assemble an engine from in-memory components whose tensors
         already live on `device`; the vocoder kernels' parameters are
         packed here, once. voc_w=None: an engine without a vocoder
-        (module docstring)."""
+        (module docstring). moe: the sparse-MoE talker's settings, when
+        its layers hold the MoE leaves (models/weights.moe_layers); they
+        ride in the layers tree as its entry "moe", which a tree from
+        ``init_talker_weights(..., moe=)`` carries already, beside the
+        engine's counters ``moe_counts`` [L, 3] int32 (module docstring)."""
+        if talker_w is not None and "w_router" in talker_w["layers"]:
+            layers = talker_w["layers"]
+            have = layers.get("moe")
+            if moe is None and have is None:
+                raise ValueError("a sparse-MoE talker needs its MoEConfig "
+                                 "(from_components(..., moe=))")
+            if moe is not None and have not in (None, moe):
+                raise ValueError(f"moe={moe} differs from the talker "
+                                 f"tree's {have}")
+            counts = torch.zeros(layers["w_router"].shape[0], 3,
+                                 dtype=torch.int32, device=device)
+            talker_w = {**talker_w, "layers": {
+                **layers, "moe": moe or have, "moe_counts": counts}}
+        elif moe is not None:
+            raise ValueError("moe given, but the talker's layers hold no "
+                             "w_router")
         if voc_w is not None:
             voc_w = vocoder.pack_kernel_weights(voc_w)
         return cls(tokenizer, talker_cfg, talker_w, voc_cfg, voc_w, device,
@@ -279,6 +336,10 @@ class Qwen3TTS:
         if torch.device(mesh.device_type).type != self.device.type:
             raise ValueError(f"a {mesh.device_type} mesh cannot shard an "
                              f"engine on {self.device}")
+        if self._moe_counts() is not None and mesh_dims(mesh)[1] > 1:
+            raise ValueError("tp > 1 on a sparse-MoE talker: its experts "
+                             "are not split (no expert parallelism); shard "
+                             "it over dp only")
         self.talker_w = shard_talker_weights(self.talker_w, mesh,
                                              self.talker_cfg)
         self.mesh = mesh
@@ -560,6 +621,7 @@ class Qwen3TTS:
                 """Enqueue one chunk and the copies of its (codes, valid,
                 done), in stream order, before any later chunk."""
                 nonlocal steps_dispatched
+                t_dispatch = time.monotonic_ns()
                 with trace.span("call.dispatch"):
                     # every stream's n_past is at most prefill + frames so
                     # far
@@ -574,17 +636,20 @@ class Qwen3TTS:
                         codes, valid, done = gather_chunk(self.mesh, codes,
                                                           valid, done)
                     return (Readback(codes, "codes"),
-                            Readback(valid, "codes"), Readback(done, "done"))
+                            Readback(valid, "codes"), Readback(done, "done"),
+                            self._moe_readback(t_dispatch))
 
             # module docstring: chunk k+1 is enqueued as soon as chunk k's
             # `done` is home, before chunk k's codes are read and decoded
             inflight, n_dispatched = dispatch(), 1
             while inflight is not None:
-                codes_r, valid_r, done_r = inflight
+                codes_r, valid_r, done_r, moe_r = inflight
                 inflight = None
                 if n_dispatched < n_chunks and not done_r.result().all():
                     inflight, n_dispatched = dispatch(), n_dispatched + 1
                 codes_h = codes_r.result()               # [chunk, B, 16]
+                if moe_r is not None:
+                    moe_r.record()
                 valid_h = valid_r.result()               # [chunk, B]
                 for b in range(B):
                     got = codes_h[valid_h[:, b], b]
@@ -738,6 +803,8 @@ class Qwen3TTS:
             dt = [str(_first_leaf(w).dtype) if w else "na"
                   for w in (self.voc_w, self.talker_w)]
             src = repr((self.talker_cfg, self.voc_cfg, dt))
+            if self.voc_w is not None and "code2wav" in self.voc_w:
+                src += repr(self.voc_w["code2wav"])
             self._model_tag = hashlib.md5(src.encode()).hexdigest()[:8]
         return self._model_tag
 
@@ -789,13 +856,30 @@ class Qwen3TTS:
                                                state.generator, buffers)
                     if graphs_allowed(self.mesh) else frame)
 
+        counts = self._moe_counts()
+
         def chunk():
             f.zero_()
+            if counts is not None:
+                counts.zero_()
             for _ in range(CHUNK_FRAMES):
                 frame_fn()
             return codes, valid
 
         return chunk
+
+    def _moe_counts(self) -> torch.Tensor | None:
+        """The sparse-MoE talker's counters [L, 3] (``from_components``),
+        else None."""
+        if self.talker_w is None:
+            return None
+        return self.talker_w["layers"].get("moe_counts")
+
+    def _moe_readback(self, t0: int) -> MoECounts | None:
+        """The chunk just enqueued's MoE counters on their way home (None
+        for a dense talker); taken right after the chunk, as its codes."""
+        counts = self._moe_counts()
+        return None if counts is None else MoECounts(counts, t0)
 
     def _dp_split(self, B: int) -> tuple[int, int, int]:
         """(rows, lo, hi): a batch of B streams padded to a multiple of dp

@@ -171,6 +171,7 @@ class ContinuousBatcher:
                 trailing_hidden=self._pad_trailing(prefill.trailing_hidden))
             self._steps_done = 0
             self._inflight = None   # (codes, valid, done) copies of a chunk
+            #                         and its MoE counts (None if dense)
             # a prefill past the reserved region would put write_slot past
             # RING_PREFILL_SLOTS and the ring wrap would overwrite live
             # prefill rows
@@ -403,6 +404,7 @@ class ContinuousBatcher:
     def _dispatch_chunk(self) -> None:
         """Enqueue one 40-frame generation chunk on the device."""
         self._busy_at_dispatch = sum(s.busy for s in self.slots)
+        t_dispatch = time.monotonic_ns()
         with trace.span("serve.dispatch"):
             # attention reads the prefill region + every ring slot written
             # so far (bucketed; the whole cache once the ring has wrapped),
@@ -420,7 +422,8 @@ class ContinuousBatcher:
             # overwrites a graph's codes and valid) before step() reads them
             self._inflight = (Readback(codes, "codes"),
                               Readback(valid, "codes"),
-                              Readback(done, "done"))
+                              Readback(done, "done"),
+                              self.engine._moe_readback(t_dispatch))
 
     def step(self) -> dict[int, TTSResult]:
         """Process one 40-frame chunk across all slots; admit queued
@@ -477,7 +480,9 @@ class ContinuousBatcher:
                 # nothing generating: only in-flight readbacks remain
                 return self._drain_finalizing(block=True)
             self._dispatch_chunk()
-        codes_h, valid_h, done_h = (r.result() for r in self._inflight)
+        codes_h, valid_h, done_h = (r.result() for r in self._inflight[:3])
+        if self._inflight[3] is not None:
+            self._inflight[3].record()
         self._inflight = None
 
         live: list[_Slot] = []

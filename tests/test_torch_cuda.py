@@ -441,6 +441,9 @@ SHAPE_CASES = {
     "g1": (4, 8, 8, 700, None),
     "g4": (4, 32, 8, 1152, [1000, 0, 64, 65]),
     "idle_splits": (1, 16, 8, 1152, [5]),
+    # G = 8: Qwen3-Omni's talker, 16 query heads over 2 kv heads
+    "g8": (8, 16, 2, 1152, [1, 1152, 0, 5, 64, 65, 700, 999]),
+    "g8_mask": (8, 16, 2, 1000, None),
 }
 
 
@@ -1402,3 +1405,252 @@ def test_res_chain_impl_traced_on_card(dev):
     assert vocoder.res_chain_impl_traced() == "untraced"
     for a, b in zip(first, again):
         assert np.array_equal(a.audio, b.audio)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["window", "wrap"])
+def test_flash_decode_g8_window(dev, mode, kv):
+    """G = 8 in ring mode (bitmask and lifetime window, plain and
+    wrapped): the kernel against its twin."""
+    from qwen3_tts_tpu_torch.models.stack import quantize_kv_rows
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    q, k, v, ks, vs, kw, rc = _attn_inputs(mode, "bf16", dev)
+    k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    rest = {n: a for n, a in kw.items() if n != "valid_mask"}
+    got = fd.flash_decode_masked(q, k, v, kw["valid_mask"], read_ctx=rc,
+                                 k_scale=ks, v_scale=vs, **rest)
+    ref = fd.flash_decode_twin(q, k, v, read_ctx=rc, k_scale=ks, v_scale=vs,
+                               **kw)
+    torch.cuda.synchronize()
+    assert got[2].abs().max().item() == 0.0          # empty stream
+    assert (got - ref).abs().max().item() <= ATTN_TOL
+
+
+def _omni_moe():
+    from qwen3_tts_tpu_torch.config import MoEConfig
+    return MoEConfig()              # Qwen3-Omni-30B-A3B's talker widths
+
+
+def _moe_layer(dev, seed):
+    """One MoE layer at the published widths (H 1024, 128 experts of 384,
+    shared 768, top-6), bf16 normal(0, 0.02) but the router normal(0,
+    0.1), and a generator for its input rows."""
+    moe = _omni_moe()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).bfloat16()
+
+    H, E, Ie, Is = 1024, moe.n_experts, 384, 768
+    lw = {"w_router": rn(H, E, std=0.1), "w_gu_e": rn(E, H, 2 * Ie),
+          "w_down_e": rn(E, Ie, H), "w_gu_s": rn(H, 2 * Is),
+          "w_down_s": rn(Is, H), "w_sgate": rn(H)}
+    return moe, lw, gen
+
+
+def _moe_rows(dev, gen, B, dominate, lw):
+    """B input rows; `dominate` (experts) routes every row to those."""
+    h = torch.randn(B, 1024, generator=gen, device=dev)
+    if dominate is not None:
+        h = h.abs()
+        wr = torch.zeros(1024, 128, device=dev)
+        for i, e in enumerate(dominate):
+            wr[:, e] = 0.01 * (i + 1)
+        lw["w_router"] = wr.bfloat16()
+    return h
+
+
+# MoE kernel vs twin, relative L2 over the output: both sum bf16 products
+# in f32, in other orders, so silu(g) * u can round to the other bf16
+# neighbour. chip_smoke.py measured 7.6e-7 (B = 1) to 1.1e-4 (14,400
+# rows) on an H100; one more bf16 rounding of the experts' products reads
+# 1.65e-3, which each case checks it sees
+MOE_TOL = 3e-4
+
+
+@pytest.mark.parametrize("B,dominate", [(1, None), (8, None), (192, None),
+                                        (192, (5, 17, 33, 64, 99, 127))],
+                         ids=["b1", "b8", "b192", "b192-six-experts"])
+def test_moe_kernel_matches_twin(dev, B, dominate):
+    from qwen3_tts_tpu_torch.ops import moe as M
+    moe, lw, gen = _moe_layer(dev, 40 + B)
+    h = _moe_rows(dev, gen, B, dominate, lw)
+    cnt = lw["moe_counts"] = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = M.moe_ffn.launches
+    s: dict = {}
+    got = M.moe_ffn(h, lw, moe, scratch=s)
+    torch.cuda.synchronize()
+    assert M.moe_ffn.launches == before + 1
+    kernel_counts = cnt.tolist()
+    _, e, _, _ = M.route(h, lw["w_router"], lw["w_sgate"], moe.top_k,
+                         moe.norm_topk_prob)
+    assert torch.equal(s["experts"].sort(-1).values, e.int().sort(-1).values)
+    want = M.moe_ffn_twin(h, lw, moe)
+
+    def rel(a):
+        return ((a - want).double().norm() / want.double().norm()).item()
+    assert rel(got) <= MOE_TOL, rel(got)
+    inner = M.swiglu
+    M.swiglu = lambda *a: inner(*a).to(torch.bfloat16).float()
+    try:
+        assert rel(M.moe_ffn_twin(h, lw, moe)) > MOE_TOL
+    finally:
+        M.swiglu = inner
+    per = torch.bincount(e.reshape(-1), minlength=moe.n_experts)
+    assert kernel_counts == [B * moe.top_k, int(((per + 15) // 16 * 16).sum()),
+                             int(per.max())]
+    if dominate is not None:
+        assert set(e.unique().tolist()) == set(dominate)
+
+
+def test_moe_graph_replay_bitwise(dev):
+    """The MoE FFN captured in a CUDA graph at B = 192 and replayed equals
+    the eager call bit for bit (routing, layout and work list on the card,
+    no host sync)."""
+    from qwen3_tts_tpu_torch.ops import moe as M
+    moe, lw, gen = _moe_layer(dev, 77)
+    h = torch.randn(192, 1024, generator=gen, device=dev)
+    eager = M.moe_ffn(h, lw, moe)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        M.moe_ffn(h, lw, moe)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = M.moe_ffn(h, lw, moe)
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    h.copy_(torch.randn(192, 1024, generator=gen, device=dev))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, M.moe_ffn(h, lw, moe))
+
+
+def test_moe_prefill_keeps_no_card_memory(dev):
+    """Prefill-sized calls of every N take their scratch from the caching
+    allocator and leave nothing allocated once their output is freed."""
+    from qwen3_tts_tpu_torch.ops import moe as M
+    moe, lw, gen = _moe_layer(dev, 78)
+    M.moe_ffn(torch.randn(8, 1024, generator=gen, device=dev), lw, moe)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    for N in (1500, 2300, 4100):
+        h = torch.randn(N, 1024, generator=gen, device=dev)
+        y = M.moe_ffn(h, lw, moe)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all()
+        del h, y
+        assert torch.cuda.memory_allocated(dev) == base
+
+
+def _code2wav(dev, seed):
+    """Code2Wav at Qwen3-Omni's widths (models/weights.
+    init_code2wav_weights) and its VocoderConfig."""
+    from qwen3_tts_tpu_torch.config import Code2WavConfig
+    vcfg = VocoderConfig(codebook_dim=1024, latent_dim=1024, hidden_dim=1024)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return vcfg, W.init_code2wav_weights(vcfg, gen, dev, Code2WavConfig())
+
+
+def test_code2wav_kernels_on_card(dev):
+    """Code2Wav at its widths on the card: the decoder blocks on the
+    kernels (4 chain and 4 head launches) against the plain path, the
+    audio off the clamp."""
+    vcfg, w = _code2wav(dev, 64)
+    w = vocoder.pack_kernel_weights(w)
+    gen = torch.Generator(device=dev).manual_seed(64)
+    codes = torch.randint(0, 2048, (2, 40, 16), generator=gen, device=dev,
+                          dtype=torch.int32)
+    out = {}
+    for impl in ("xla", "auto"):
+        vocoder.set_res_chain_impl(impl)
+        before = (vf.fused_residual_chain.launches,
+                  vf.fused_snake_convt.launches)
+        try:
+            out[impl] = vocoder.vocoder_decode(w, vcfg, codes, "causal")
+            torch.cuda.synchronize()
+        finally:
+            vocoder.set_res_chain_impl(None)
+        ran = (vf.fused_residual_chain.launches - before[0],
+               vf.fused_snake_convt.launches - before[1])
+        assert ran == ((0, 0) if impl == "xla" else (4, 4)), (impl, ran)
+    ref, got = out["xla"].float(), out["auto"].float()
+    assert got.shape == (2, 40 * 1920) and torch.isfinite(got).all()
+    assert (ref.abs() >= 1.0).float().mean() < 0.01     # off the clamp
+    # four blocks of bf16 GEMMs against the plain path's f32 sums of bf16
+    # operands: 8.5e-3 of the RMS on an H100, as test_vocoder_xla_switch_
+    # on_card bounds the 12 Hz decoder's
+    rms = ref.pow(2).mean().sqrt()
+    assert (got - ref).pow(2).mean().sqrt() / rms < VOC_MAX_TOL
+
+
+def _omni_engine(dev, seed, n_layers=2):
+    """Qwen3-Omni's talker at its widths (16 / 2 heads of 128, MoE FFN)
+    but 2 layers, the full-width code predictor, and Code2Wav."""
+    import dataclasses
+    eng = _engine(dev, seed)
+    cfg = dataclasses.replace(eng.talker_cfg, n_key_value_heads=2,
+                              n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = W.init_talker_weights(cfg, gen, dev, moe=_omni_moe())
+    vcfg, voc_w = _code2wav(dev, seed)
+    return Qwen3TTS.from_components(eng.tokenizer, cfg, w, vcfg, voc_w, dev)
+
+
+def test_code2wav_graph_bitwise(dev, monkeypatch):
+    """The Omni engine's vocoder decode bucket through Code2Wav: the
+    replayed graph gives the eager int16 PCM bit for bit."""
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    replays = _count_replays(monkeypatch)
+    eng = _omni_engine(dev, 27)
+    rng = np.random.default_rng(1)
+    codes = rng.integers(0, 2048, (4, 40, 16)).astype(np.int32)
+    first = eng._decode_chunk_batch(codes, pcm16=True).clone()
+    got = eng._decode_chunk_batch(codes, pcm16=True).clone()
+    monkeypatch.setenv("QWEN3_TTS_AOT", "0")
+    want = eng._decode_chunk_batch(codes, pcm16=True)
+    assert replays() == 1
+    assert torch.equal(first, want) and torch.equal(got, want)
+
+
+def test_moe_engine_lockstep_and_serving_on_card(dev):
+    """The MoE talker through the normal paths on the card: lock-step
+    synthesis (per-layer talker, flash-decode at G = 8, the code predictor
+    megakernel) and ContinuousBatcher (admission prefill through the MoE,
+    masked flash-decode at G = 8 in window mode), both decoding through
+    Code2Wav; every request completes and each chunk recorded its MoE
+    counts."""
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.ops import moe as M
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    from qwen3_tts_tpu_torch.utils import trace
+    eng = _omni_engine(dev, 9)
+    trace.reset()
+    before = (M.moe_ffn.launches, fd.flash_decode.launches_by_mode["prefix"],
+              fd.flash_decode.launches_by_mode["window"])
+    res = eng.synthesize_batch(["hello.", "world.", "hello world."],
+                               params=TTSParams(max_audio_tokens=48,
+                                                temperature=0.9, seed=0,
+                                                print_timing=False))
+    _check_results(res, eng)
+    cb = ContinuousBatcher(eng, n_slots=2,
+                           params=TTSParams(temperature=0.9, seed=1),
+                           max_frames=48)
+    rids = [cb.submit(t) for t in ("hello.", "world.", "he")]
+    results = cb.run_all()
+    _check_results([results[r] for r in rids], eng)
+    assert M.moe_ffn.launches > before[0]
+    assert fd.flash_decode.launches_by_mode["prefix"] > before[1]
+    assert fd.flash_decode.launches_by_mode["window"] > before[2]
+    spans = [s for s in trace.spans() if s.name == "talker.moe"]
+    assert len(spans) >= 3
+    for sp in spans:
+        a = sp.attrs
+        assert a["pairs"] > 0 and a["rows"] >= a["pairs"]
+        assert 1 <= a["max_rows"] <= a["pairs"]
