@@ -17,9 +17,13 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
    over 1, 8 and 192 decode rows, the 192 x 75 prefill rows and 192 rows
    routed to 6 experts, with a bf16 round trip of the experts' products
    shown to fail its tolerance, timed with its bound from the experts
-   read; and checks the code
-   predictor's QWEN3_TTS_CODEPRED dispatch: an mtp_w (the 1.7B shape) and
-   top_p < 1 take its XLA path on the card, not the kernel;
+   read; the code predictor at the 1.7B shape (a 2,048-wide talker: its
+   mtp rows folded as the engine folds them, the kernel's f32-row
+   instantiation) at B 8, 64 and 192 against its twin and its XLA path,
+   timed with its bound, and one launch a frame in a lock-step run; and
+   checks the code predictor's QWEN3_TTS_CODEPRED dispatch: an mtp_w
+   without its folded rows and top_p < 1 take its XLA path on the card,
+   not the kernel;
 3. drives ``Qwen3TTS.synthesize_batch`` at the full 0.6B widths (random
    weights from a fixed torch.Generator, an in-memory tokenizer): greedy
    and at temperature 0.9, with the bf16 and the int8 KV cache, and once
@@ -126,8 +130,9 @@ the kernels' twins on the CPU at the full widths over three seeds and
 prints each stage's largest error (the measurement behind
 tools/parity.BF16_TOL).
 
-``python3 chip_smoke.py --compare DIR`` instead times the code predictor,
-decode attention, the talker megakernel, the residual chain and the Snake
+``python3 chip_smoke.py --compare DIR`` instead times the code predictor
+(the kernel at the 0.6B dims; ``predict_codes`` at the 1.7B shape), decode
+attention, the talker megakernel, the residual chain and the Snake
 + convT head through their wrappers in the checkout at DIR and in this
 one, in turns DIR, this, this, DIR, and in the same turns
 ``synthesize_batch`` at B 4 and 64 (120 frames, greedy, bf16 and int8
@@ -631,15 +636,21 @@ def _codepred_bound(w, cfg, B):
     """(bound dict, bytes, flops, re-stream ms): every layer weight, head
     and norm once, the gathered embedding rows, hidden, cb0, the noise,
     codes and logits; 2 B x (16 positions x layer params + 15 heads)
-    FLOPs. The re-stream bound counts the layer weights once per position
-    (they do not fit in L2)."""
+    FLOPs. Behind an mtp projection (the 1.7B shape) the rows are the
+    folded f32 ones, and the projection of position 0's talker-wide
+    hidden adds its weights and 2 B x its params. The re-stream bound
+    counts the layer weights once per position (they do not fit in L2)."""
     cp = w["code_pred"]
     H, V = cfg.code_pred_hidden_size, cfg.code_pred_vocab_size
     layer_params = sum(t[0].numel() for t in cp["layers"].values())
+    mtp = cp.get("mtp_w") is not None
     moved = (nbytes(cp["layers"], cp["heads"], cp["output_norm"])
-             + 16 * B * H * 2 + B * H * 4 + B * 4 + 15 * B * V * 4
-             + B * 15 * (4 + V * 4))
+             + 16 * B * H * (4 if mtp else 2) + B * H * 4 + B * 4
+             + 15 * B * V * 4 + B * 15 * (4 + V * 4))
     flops = 2 * B * (16 * layer_params + 15 * H * V)
+    if mtp:
+        moved += nbytes(cp["mtp_w"], cp["mtp_b"]) + B * cfg.hidden_size * 4
+        flops += 2 * B * cp["mtp_w"].numel()
     restream = (moved + 15 * nbytes(cp["layers"])) / HBM_BYTES_PER_S * 1e3
     return bound(moved, flops), moved, flops, restream
 
@@ -698,6 +709,115 @@ def check_codepred(w, cfg, dev, gen, timed: bool = True) -> dict:
             "shape": f"B={CODEPRED_B}, one frame"}
 
 
+# the 1.7B talker's widths: a 2,048-wide talker, so an mtp_w into the
+# kernel's 1,024-wide code predictor
+TALKER_17B = dict(hidden_size=2048, intermediate_size=6144)
+LOCKSTEP_17B_TOKENS = 40
+
+
+def check_codepred_17b(dev, gen, timed: bool = True) -> dict:
+    """The kernel's f32-row instantiation at the 1.7B shape: the code
+    predictor of a 2-layer talker at the 1.7B's widths (a non-zero mtp_b),
+    its mtp rows folded as the engine folds them (``Qwen3TTS`` on a card
+    calls codepred_fused.fold_mtp). At B = 8, 64 and 192 the kernel in the
+    three modes of check_codepred, against the twin on the folded rows and
+    against the XLA path (QWEN3_TTS_CODEPRED=xla: each raw row projected
+    through mtp_w), LOGIT_TOL and near-tie margins as there; the
+    cooperative launches of these runs (one a kernel call, none from the
+    XLA path) counted from zero. Then one lock-step ``synthesize_batch``
+    (4 requests, 40 frames, T 0.9) on the engine over that tree, without
+    a vocoder: one cooperative launch a frame. Times the wrapper (CUDA
+    events, with position 0's projection; the profiler's device time is
+    the kernel's alone) at B = 8, 64 and 192 beside its bound (unless not
+    `timed`). Returns the kernels line's entry "codepred_17b"."""
+    from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.config import TalkerConfig
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.ops import codepred_fused as cf
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    cfg = TalkerConfig(n_layers=2, **TALKER_17B)
+    tw = W.init_talker_weights(cfg, gen, dev)
+    tw["code_pred"]["mtp_b"] = torch.randn(
+        cfg.code_pred_hidden_size, generator=gen, device=dev) * 0.02
+    engine = Qwen3TTS.from_components(smoke_tokenizer(), cfg, tw, None,
+                                      None, dev)
+    w = {"codec_embd": engine.talker_w["codec_embd"],
+         "code_pred": engine.talker_w["code_pred"]}
+    if not cf.supported(cfg, CODEPRED_B, w):
+        raise AssertionError("the engine did not fold the 1.7B shape's rows")
+    worst, rates, failed = 0.0, [], []
+    calls0 = cf.predict_codes_fused.launches
+    coop0 = kernels.codepred_launches()
+    for B in CODEPRED_TIME_B:
+        err, agree = _codepred_modes(
+            w, cfg, B, dev, gen, failed,
+            {"twin": cf.predict_codes_twin, "xla": _xla_path})
+        worst = max(worst, err)
+        rates += agree
+    torch.cuda.synchronize()
+    calls = cf.predict_codes_fused.launches - calls0
+    checked = kernels.codepred_launches() - coop0
+    log(f"codepred 1.7B shape: {checked} cooperative launches for {calls} "
+        f"kernel calls (3 modes x B {CODEPRED_TIME_B}), max|logit err| "
+        f"{worst:.3e}, code agreement >= {min(rates):.4f}")
+    if checked != calls or calls != 3 * len(CODEPRED_TIME_B):
+        failed.append(f"launches {checked} for {calls} calls")
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    coop0 = kernels.codepred_launches()
+    res = engine.synthesize_batch(
+        LOCKSTEP_TEXTS, params=TTSParams(
+            max_audio_tokens=LOCKSTEP_17B_TOKENS, temperature=0.9,
+            seed=SEED),
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ran = {k: fn.launches for k, fn in counters.items()}
+    lockstep = kernels.codepred_launches() - coop0
+    steps = _talker_steps(ran, cfg, "auto" if ran["talker_fused"] else "xla")
+    log(f"codepred 1.7B shape, synthesize_batch without a vocoder: frames "
+        f"{[r.n_frames for r in res]}, {lockstep} cooperative launches for "
+        f"{steps} lock-step frames; kernel launches {ran}")
+    if not (lockstep == ran["codepred"] == steps > 0 and all(
+            r.n_frames > 0 and r.error_msg == "Vocoder not loaded"
+            for r in res)):
+        failed.append("lock-step: not one launch a frame, or no codes")
+    if failed:
+        raise AssertionError(f"codepred at the 1.7B shape: {failed}")
+    timing = {}
+    for B in CODEPRED_TIME_B if timed else ():
+        hidden, cb0, noise = _codepred_inputs(cfg, B, dev, gen)
+
+        def fused():
+            cf.predict_codes_fused(w, cfg, hidden, cb0, 0.9, 50, gumbel=noise)
+        ms = cuda_time(fused, iters=10)
+        dev_ms = device_ms(fused, 5, ("codepred",))
+        b, moved, flops, _ = _codepred_bound(w, cfg, B)
+        timing[B] = (ms, dev_ms, b)
+        log(f"codepred 1.7B shape B={B} one frame: kernel {ms:.3f} ms "
+            f"(device {dev_ms:.3f} ms), bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP)")
+    del engine, tw, w, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not timed:
+        return {}
+    ms, dev_ms, b = timing[CODEPRED_B]
+    return {"name": "codepred_17b", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/codepred.cu",
+            "replaces": "qwen3_tts_tpu/models/code_predictor.py:67",
+            "max_abs_err": worst, "code_agreement": min(rates), "ms": ms,
+            "device_ms": dev_ms, "plain_ms": None, **b, "library_ms": None,
+            "ms_by_batch": {str(k): v[0] for k, v in timing.items()},
+            "device_ms_by_batch": {str(k): v[1] for k, v in timing.items()},
+            "bound_ms_by_batch": {str(k): v[2]["bound_ms"]
+                                  for k, v in timing.items()},
+            "launches": checked + lockstep, "launches_check": checked,
+            "launches_lockstep": lockstep,
+            "shape": f"B={CODEPRED_B}, one frame, talker 2048, f32 rows"}
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -709,7 +829,9 @@ def _to(tree, device):
 def check_codepred_dispatch(talker_w, cfg, dev, gen) -> None:
     """QWEN3_TTS_CODEPRED on the card at B = CODEPRED_B:
     - the 1.7B shape (a 2,048-wide talker, so an mtp_w into the 1,024-wide
-      code predictor) under auto takes the XLA-path branch: no
+      code predictor) as drawn, without the folded rows an engine adds
+      (codepred_fused.fold_mtp; check_codepred_17b holds the folded tree
+      on the kernel), under auto takes the XLA-path branch: no
       code-predictor kernel launch, one decode-attention launch a layer and
       step over the 16-slot cache. Greedy: the logits within LOGIT_TOL of
       the same call on CPU tensors up to each stream's first differing
@@ -838,12 +960,25 @@ def _codepred_phases(fused, B, dev) -> None:
             for k, v in ms.items()) + f"; sum {sum(ms.values()):.3f} ms")
 
 
-def _codepred_modes(w, cfg, B, dev, gen, failed):
-    """The three modes at batch B; returns (max logit error, the free
-    modes' code agreement rates) and appends each failing (B, mode) to
-    `failed`."""
+def _xla_path(w, cfg, hidden, cb0, **kw):
+    """predict_codes under QWEN3_TTS_CODEPRED=xla (the XLA-path port)."""
+    from qwen3_tts_tpu_torch.models import code_predictor as cp
+    cp.set_codepred_impl("xla")
+    try:
+        return cp.predict_codes(w, cfg, hidden, cb0, **kw)
+    finally:
+        cp.set_codepred_impl(None)
+
+
+def _codepred_modes(w, cfg, B, dev, gen, failed, refs=None):
+    """The three modes at batch B, the kernel against each of `refs`
+    (name -> a function called as the kernel's wrapper is; the twin by
+    default); returns (max logit error, the free modes' code agreement
+    rates) and appends each failing (B, mode, reference) to `failed`.
+    Forced mode replays the first reference's greedy codes."""
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
     V = cfg.code_pred_vocab_size
+    refs = refs or {"twin": cf.predict_codes_twin}
     hidden, cb0, noise = _codepred_inputs(cfg, B, dev, gen)
     positions = torch.arange(cf.CTX - 1, device=dev)[:, None]
 
@@ -852,7 +987,7 @@ def _codepred_modes(w, cfg, B, dev, gen, failed):
         codes = fn(w, cfg, hidden, cb0, logits_out=logits, **kw)
         return codes, logits
 
-    worst, rates = 0.0, []
+    worst, rates, ref = 0.0, [], None
     for mode in ("greedy", "sampled", "forced"):
         if mode == "greedy":
             kw = dict(temperature=0.9, top_k=50, greedy=True)
@@ -863,30 +998,33 @@ def _codepred_modes(w, cfg, B, dev, gen, failed):
             spikes.scatter_(2, ref.t()[:, :, None].long(), 1e30)
             kw = dict(temperature=1.0, top_k=0, gumbel=spikes)
         got, lk = run(cf.predict_codes_fused, **kw)
-        ref_mode, lt = run(cf.predict_codes_twin, **kw)
-        torch.cuda.synchronize()
-        if mode == "greedy":
-            ref = ref_mode                   # forced mode replays these
-        differs = got != ref_mode
-        first = torch.where(differs.any(dim=1),
-                            differs.float().argmax(dim=1), cf.CTX - 1)
-        upto = positions <= first[None, :]
-        err = float((lk - lt).abs()[upto].max())
-        gaps = _divergence_gaps(got, ref_mode, lt, 1.0 / kw["temperature"],
-                                kw["top_k"], kw.get("gumbel")
-                                if mode == "sampled" else None)
-        agree = float((~differs).float().mean())
-        log(f"codepred {mode} B={B}: code agreement {agree:.4f}, streams "
-            f"agreeing {int((~differs.any(dim=1)).sum())}/{B}, max|logit "
-            f"err| {err:.3e} up to first divergence (need <= {LOGIT_TOL}), "
-            f"divergence margins {[round(g, 4) for g in gaps]} (need each "
-            f"<= {LOGIT_TOL})")
-        if (mode == "forced" and not torch.equal(got, ref)) or not (
-                err <= LOGIT_TOL and all(g <= LOGIT_TOL for g in gaps)):
-            failed.append((B, mode))
-        worst = max(worst, err)
-        if mode != "forced":
-            rates.append(agree)
+        for name, fn in refs.items():
+            ref_mode, lt = run(fn, **kw)
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = ref_mode               # forced mode replays these
+            differs = got != ref_mode
+            first = torch.where(differs.any(dim=1),
+                                differs.float().argmax(dim=1), cf.CTX - 1)
+            upto = positions <= first[None, :]
+            err = float((lk - lt).abs()[upto].max())
+            gaps = _divergence_gaps(got, ref_mode, lt,
+                                    1.0 / kw["temperature"], kw["top_k"],
+                                    kw.get("gumbel")
+                                    if mode == "sampled" else None)
+            agree = float((~differs).float().mean())
+            log(f"codepred {mode} B={B} vs {name}: code agreement "
+                f"{agree:.4f}, streams agreeing "
+                f"{int((~differs.any(dim=1)).sum())}/{B}, max|logit err| "
+                f"{err:.3e} up to first divergence (need <= {LOGIT_TOL}), "
+                f"divergence margins {[round(g, 4) for g in gaps]} (need "
+                f"each <= {LOGIT_TOL})")
+            if (mode == "forced" and not torch.equal(got, ref)) or not (
+                    err <= LOGIT_TOL and all(g <= LOGIT_TOL for g in gaps)):
+                failed.append((B, mode, name))
+            worst = max(worst, err)
+            if mode != "forced":
+                rates.append(agree)
     return worst, rates
 
 
@@ -3660,6 +3798,22 @@ for B in cs.CODEPRED_TIME_B:
                                         gumbel=noise)
     out[f"codepred B={B}"] = [cs.cuda_time(fn, iters=10),
                               cs.device_ms(fn, 5, ("",))]
+# the 1.7B shape through predict_codes under auto, as an engine holds it:
+# its mtp rows folded where the checkout folds them (the kernel), else the
+# XLA-path branch
+from qwen3_tts_tpu_torch.models import code_predictor as cp
+big = TalkerConfig(text_vocab_size=16, n_layers=1, hidden_size=2048)
+wb = W.init_talker_weights(big, gen, dev)
+wb = {"codec_embd": wb["codec_embd"], "code_pred": wb["code_pred"]}
+if hasattr(cf, "fold_mtp"):
+    wb = cf.fold_mtp(wb, big)
+for B in cs.CODEPRED_TIME_B:
+    hidden, cb0, noise = cs._codepred_inputs(big, B, dev, gen)
+    fn = lambda: cp.predict_codes(wb, big, hidden, cb0, 0.9, 50,
+                                  gumbel=noise)
+    out[f"codepred 1.7B B={B}"] = [cs.cuda_time(fn, iters=10),
+                                   cs.device_ms(fn, 5, ("",))]
+del wb
 for B in cs.ATTN_B:
     caches = cs._attn_cache(B, cs.ATTN_S, dev, gen)
     q = torch.randn(B, 16, 128, generator=gen, device=dev).bfloat16()
@@ -3704,7 +3858,9 @@ for B in cs.VOC_TIME_B:
                                           cs.device_ms(fn, 3, ("",))]
     del xs
     torch.cuda.empty_cache()
-print("COMPARE " + json.dumps(out), flush=True)
+from qwen3_tts_tpu_torch import kernels
+ptxas = [k for k in cs.ptxas_summary(kernels.build_log()) if "codepred" in k]
+print("COMPARE " + json.dumps({"times": out, "ptxas": ptxas}), flush=True)
 """
 # (B, read_ctx) of the talker steps --compare times
 COMPARE_TALKER = ((4, 256), (8, 256), (8, 1152), (32, 256), (32, 1152))
@@ -3781,7 +3937,9 @@ def _child(code: str, tag: str, root: str, *args) -> dict:
 
 
 def compare(parent: str) -> int:
-    """Time the code predictor (B 8 / 64 / 192), decode attention
+    """Time the code predictor (B 8 / 64 / 192: the kernel at the 0.6B
+    dims, and ``predict_codes`` under auto at the 1.7B shape, its mtp
+    rows folded where the checkout folds them), decode attention
     (window mode, read_ctx 1,152, B 8 / 32), the talker megakernel (B 4 at
     read_ctx 256, B 8 / 32 x read_ctx 256 / 1,152; bf16, prefix mode;
     COMPARE_TALKER), the residual chain and the Snake + convT head
@@ -3792,7 +3950,8 @@ def compare(parent: str) -> int:
     the call ran). In the same turns, the lock-step row
     (COMPARE_LOCKSTEP): generate ms a lock-step frame and wall ms of
     synthesize_batch at B 4 and 64, bf16 and int8 KV, greedy; every run's
-    codes and int16 PCM must equal the first parent run's bitwise."""
+    codes and int16 PCM must equal the first parent run's bitwise. Each
+    child logs what ptxas said of the code-predictor kernels it built."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3804,10 +3963,11 @@ def compare(parent: str) -> int:
         for i, (name, root) in enumerate((("parent", parent),
                                           ("change", here), ("change", here),
                                           ("parent", parent))):
-            times = _child(COMPARE_CHILD, "COMPARE", root)
+            got = _child(COMPARE_CHILD, "COMPARE", root)
             log(f"{name} ({root}): " + ", ".join(
                 f"{k} {v[0]:.4f} ms (device {v[1]:.4f})"
-                for k, v in times.items()) + f" on {card}")
+                for k, v in got["times"].items()) + f" on {card}; ptxas "
+                + "; ".join(got["ptxas"]))
             npz = os.path.join(tmp, f"run{i}.npz")
             rows = _child(COMPARE_LOCKSTEP, "LOCKSTEP", root, npz)
             got = dict(np.load(npz))
@@ -3866,6 +4026,7 @@ def main() -> int:
     report, failed = [], []
     blocks = decoder_blocks(vcfg, dev, gen)
     for check, args in ((check_codepred, (talker_w, cfg, dev, gen)),
+                        (check_codepred_17b, (dev, gen)),
                         (check_codepred_dispatch, (talker_w, cfg, dev, gen)),
                         (check_res_chain, (blocks, dev, gen)),
                         (check_snake_convt, (blocks, dev, gen)),
@@ -3912,6 +4073,9 @@ def main() -> int:
     meshed = mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                         counters, dev)
     for entry in report:
+        if entry["name"] == "codepred_17b":
+            # its launches are its check's and its own lock-step run's
+            continue
         if entry["name"] == "moe":
             # only the Omni phase runs an MoE talker
             entry.update(launches=omni["moe"], launches_omni=omni["moe"])

@@ -50,6 +50,12 @@
 //   fixed order: no atomics, deterministic;
 // - every read of data written in the launch goes through L2 (__ldcg,
 //   cp.async.cg): L1 is not coherent across SMs.
+// Rows behind an mtp projection (the 1.7B shape: a 2048-wide talker before
+// the 1024-wide code predictor): the projection is linear and sits only at
+// the stack's input, so the wrapper projects position 0's hidden and hands
+// the kernel f32 tables of pre-projected rows (ops/codepred_fused.py
+// fold_mtp) in place of the bf16 embeddings. The row type of the gathers
+// (embed_norm) is the kernel's one template parameter: F32_ROWS.
 // Numerics as the twin (ops/codepred_fused.py): xn rounded to bf16 before
 // each product, f32 accumulation, head norms, RoPE and softmax in f32, the
 // attention output and silu(g) * u rounded to bf16; greedy = first
@@ -60,6 +66,7 @@
 #include <math_constants.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "attn_tile.cuh"
 
@@ -69,7 +76,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// the 0.6B code predictor
+// the code predictor of the 0.6B, the 1.7B and Qwen3-Omni's talker
 constexpr int H = 1024, NH = 16, NKV = 8, D = 128, I = 3072, V = 2048;
 constexpr int L = 5, CTX = 16;
 constexpr int NQKV = (NH + 2 * NKV) * D;            // 4096
@@ -87,7 +94,7 @@ static_assert((CTX - 1) * D / 8 <= THREADS, "earlier slots in one load");
 struct Params {
   const float* hidden;     // [B, H]
   const int* cb0;          // [B]
-  const bf16* codec_embd;  // [n_codec, H]
+  const void* codec_embd;  // [n_codec, H] rows, bf16 or f32 (F32_ROWS)
   const bf16* wqkv;        // [L, H, NQKV]
   const bf16* wo;          // [L, NH * D, H]
   const bf16* wgu;         // [L, H, 2I]
@@ -98,7 +105,7 @@ struct Params {
   const float* k_norm;     // [L, D]
   const float* out_norm;   // [H]
   const bf16* heads;       // [15, H, V]
-  const bf16* embd;        // [15, V, H]
+  const void* embd;        // [15, V, H] rows, as codec_embd
   const float* gumbel;     // [15, B, V], null when greedy
   const float* rope_c;     // [CTX, D]: [cos | cos]
   const float* rope_s;     // [CTX, D]: [-sin | sin]
@@ -222,15 +229,19 @@ __device__ void phase_norm(const Params& p, const float* base,
   }
 }
 
-// x[b] = row (a bf16 embedding row), xn[b] = bf16(RMSNorm(x[b]) *
-// attn_norm[0]): layer 0's input of the next position.
-__device__ void embed_norm(const Params& p, int b, const bf16* row,
+__device__ __forceinline__ float as_f32(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float as_f32(float v) { return v; }
+
+// x[b] = row (an embedding row, bf16, or f32 when pre-projected), xn[b] =
+// bf16(RMSNorm(x[b]) * attn_norm[0]): layer 0's input of the next position.
+template <typename Row>
+__device__ void embed_norm(const Params& p, int b, const Row* row,
                            float* red) {
   float xv[H / THREADS], ss = 0.f;
 #pragma unroll
   for (int j = 0; j < H / THREADS; ++j) {
     const int i = threadIdx.x + j * THREADS;
-    xv[j] = bf2f(row[i]);
+    xv[j] = as_f32(row[i]);
     p.x[(size_t)b * H + i] = xv[j];
     ss += xv[j] * xv[j];
   }
@@ -248,6 +259,7 @@ __device__ void embed_norm(const Params& p, int b, const bf16* row,
 // the bf16 K/V row goes to slot pos of layer l; then both query heads
 // attend slots 0..pos in f32 -> attn (bf16). With embed, B more items
 // gather codec_embd[cb0[b]] for position 1.
+template <typename Row>
 __device__ void phase_attn(const Params& p, int l, int pos, bool embed,
                            char* smem) {
   __shared__ float buf[THREADS];
@@ -266,7 +278,9 @@ __device__ void phase_attn(const Params& p, int l, int pos, bool embed,
     if (it >= n_attn) {
       const int b = it - n_attn;
       const int code = min(max(__ldg(p.cb0 + b), 0), p.n_codec - 1);
-      embed_norm(p, b, p.codec_embd + (size_t)code * H, red);
+      embed_norm(p, b,
+                 static_cast<const Row*>(p.codec_embd) + (size_t)code * H,
+                 red);
       continue;
     }
     const int b = it / NKV, h = it % NKV;
@@ -366,6 +380,7 @@ constexpr int SPT = V / THREADS;  // logits per thread
 // logits * tinv, keep z >= its k-th largest (ties kept), first argmax of
 // z + noise. Writes codes[b][pos - 1]; before the last position, gathers
 // embd[pos - 1][code] as the next position's x and normalizes it.
+template <typename Row>
 __device__ void phase_sample(const Params& p, int pos) {
   __shared__ float red[WARPS];
   const int tid = threadIdx.x;
@@ -416,11 +431,14 @@ __device__ void phase_sample(const Params& p, int pos) {
     code = (code >= 0 && code < V) ? code : 0;
     if (tid == 0) p.codes[b * (CTX - 1) + pos - 1] = code;
     if (pos < CTX - 1)
-      embed_norm(p, b, p.embd + ((size_t)(pos - 1) * V + code) * H, red);
+      embed_norm(p, b, static_cast<const Row*>(p.embd) +
+                           ((size_t)(pos - 1) * V + code) * H, red);
   }
 }
 
+template <bool F32_ROWS>
 __global__ void __launch_bounds__(THREADS, 2) codepred_frame_kernel(Params p) {
+  using Row = std::conditional_t<F32_ROWS, float, bf16>;
   extern __shared__ __align__(16) char smem[];
   cg::grid_group grid = cg::this_grid();
   const Prod qkv{p.xn, H, p.wqkv, NQKV, H};
@@ -450,7 +468,7 @@ __global__ void __launch_bounds__(THREADS, 2) codepred_frame_kernel(Params p) {
       phase_product(p, at(qkv, (size_t)l * H * NQKV), smem);
       sync(PH_QKV);
       const bool last0 = pos == 0 && l == L - 1;
-      phase_attn(p, l, pos, last0, smem);
+      phase_attn<Row>(p, l, pos, last0, smem);
       sync(PH_ATTN);
       if (last0) break;                 // position 0's output is never read
       phase_product(p, at(wo, (size_t)l * NH * D * H), smem);
@@ -469,7 +487,7 @@ __global__ void __launch_bounds__(THREADS, 2) codepred_frame_kernel(Params p) {
     sync(PH_NORM);
     phase_product(p, at(head, (size_t)(pos - 1) * H * V), smem);
     sync(PH_HEAD);
-    phase_sample(p, pos);
+    phase_sample<Row>(p, pos);
     if (pos < CTX - 1) sync(PH_SAMPLE);
   }
   if (p.phase_ns) sync(PH_SAMPLE);     // the last sampler's end
@@ -477,9 +495,10 @@ __global__ void __launch_bounds__(THREADS, 2) codepred_frame_kernel(Params p) {
 
 int g_launches = 0;               // cooperative launches made
 
-// The CTAs of one cooperative launch: occupancy x SMs, at most 2 a SM
-// (every CTA must be resident for the grid barrier). Sets the kernel's
-// shared-memory size on first use.
+// The CTAs of one cooperative launch of an instantiation: occupancy x
+// SMs, at most 2 a SM (every CTA must be resident for the grid barrier).
+// Sets the kernel's shared-memory size on first use.
+template <bool F32_ROWS>
 cudaError_t grid_size(int* blocks) {
   static int cached = 0;
   if (cached == 0) {
@@ -488,12 +507,12 @@ cudaError_t grid_size(int* blocks) {
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(codepred_frame_kernel,
+      e = cudaFuncSetAttribute(codepred_frame_kernel<F32_ROWS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_BYTES);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ, codepred_frame_kernel, THREADS, SMEM_BYTES);
+          &occ, codepred_frame_kernel<F32_ROWS>, THREADS, SMEM_BYTES);
     if (e != cudaSuccess) return e;
     if (occ < 1) return cudaErrorInvalidConfiguration;
     cached = sms * std::min(occ, 2);
@@ -502,14 +521,26 @@ cudaError_t grid_size(int* blocks) {
   return cudaSuccess;
 }
 
+template <bool F32_ROWS>
+cudaError_t launch(Params& p, cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t e = grid_size<F32_ROWS>(&blocks);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&p};
+  return cudaLaunchCooperativeKernel(
+      (const void*)codepred_frame_kernel<F32_ROWS>, dim3(blocks),
+      dim3(THREADS), args, SMEM_BYTES, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Codes [B, 15] of one frame (Params above; scratch x, xn, attn, act, part
 // [24576 * B] f32, kc / vc [5, B, 8, 16, 128] bf16; phase_ns, when
-// given, [9] u64 that gains the ns of each phase kind). One cooperative
-// launch on `stream`; returns its error.
+// given, [9] u64 that gains the ns of each phase kind). codec_embd and
+// embd hold bf16 rows, or f32 rows when f32_rows. One cooperative launch
+// on `stream`; returns its error.
 int q3_codepred_frame(const float* hidden, const int* cb0,
                       const void* codec_embd, const void* wqkv,
                       const void* wo, const void* wgu, const void* wdown,
@@ -521,23 +552,18 @@ int q3_codepred_frame(const float* hidden, const int* cb0,
                       int* codes, float* x, void* xn, void* attn, void* act,
                       float* part, void* kc, void* vc,
                       unsigned long long* phase_ns, int n_codec, int B,
-                      int top_k, int greedy, float eps, float tinv,
-                      void* stream) {
+                      int top_k, int greedy, int f32_rows, float eps,
+                      float tinv, void* stream) {
   const auto b16 = [](const void* q) { return static_cast<const bf16*>(q); };
-  Params p{hidden, cb0, b16(codec_embd), b16(wqkv), b16(wo), b16(wgu),
+  Params p{hidden, cb0, codec_embd, b16(wqkv), b16(wo), b16(wgu),
            b16(wdown), attn_norm, ffn_norm, q_norm, k_norm, out_norm,
-           b16(heads), b16(embd), gumbel, rope_c, rope_s, logits, codes, x,
+           b16(heads), embd, gumbel, rope_c, rope_s, logits, codes, x,
            static_cast<bf16*>(xn), static_cast<bf16*>(attn),
            static_cast<bf16*>(act), part, static_cast<bf16*>(kc),
            static_cast<bf16*>(vc), phase_ns, n_codec, B, top_k, greedy, eps,
            tinv};
-  int blocks = 0;
-  cudaError_t e = grid_size(&blocks);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)codepred_frame_kernel,
-                                  dim3(blocks), dim3(THREADS), args,
-                                  SMEM_BYTES, (cudaStream_t)stream);
+  const cudaError_t e = f32_rows ? launch<true>(p, (cudaStream_t)stream)
+                                 : launch<false>(p, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   ++g_launches;
   return (int)cudaGetLastError();

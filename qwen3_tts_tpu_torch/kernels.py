@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures (every function also takes the stream last, returns int)
 _SIGNATURES = {
-    "q3_codepred_frame": (_P,) * 27 + (_I,) * 4 + (_F,) * 2,
+    "q3_codepred_frame": (_P,) * 27 + (_I,) * 5 + (_F,) * 2,
     "q3_snake_bf16": (_P, _P, _I, _I, _I, _P, _P, _I),
     "q3_res_conv7": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I),
     "q3_res_conv1": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I),

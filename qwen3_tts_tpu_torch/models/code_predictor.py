@@ -7,7 +7,9 @@ semantics:
 - ``fused``: ops/codepred_fused.py, the whole frame in one CUDA kernel on
   a CUDA tensor, its torch twin on a CPU tensor; raises unless
   ``codepred_fused.supported`` holds and top_p >= 1 (the kernel samples in
-  the kernel, with no nucleus filter and no mtp projection);
+  the kernel, with no nucleus filter; an mtp projection it serves only
+  through the f32 rows that ``codepred_fused.fold_mtp`` folds at engine
+  set-up);
 - ``xla``: this port of the JAX package's XLA path, on either device: a
   2-token prefill, then 14 single-token steps over a 16-slot bf16 cache
   (on the card its attention is the decode-attention kernel);
@@ -36,16 +38,6 @@ from .stack import stack_prefill, stack_step, write_prefill_to_cache
 _SWITCH = ImplSwitch("QWEN3_TTS_CODEPRED")
 set_codepred_impl = _SWITCH.set
 _resolve_impl = _SWITCH.resolve
-
-
-def _mtp(cp, x: torch.Tensor) -> torch.Tensor:
-    """Talker-space -> code-predictor-space projection (1.7B only)."""
-    if cp.get("mtp_w") is None:
-        return x
-    y = dot(x, cp["mtp_w"])
-    if cp.get("mtp_b") is not None:
-        y = y + cp["mtp_b"]
-    return y
 
 
 def predict_codes(w, cfg: TalkerConfig, hidden: torch.Tensor,
@@ -86,7 +78,7 @@ def predict_codes(w, cfg: TalkerConfig, hidden: torch.Tensor,
     B, dev = hidden.shape[0], hidden.device
     x0 = hidden.float()
     x1 = w["codec_embd"][cb0.long()].float()
-    xs = _mtp(cp, torch.stack([x0, x1], dim=1))
+    xs = codepred_fused.project_mtp(cp, torch.stack([x0, x1], dim=1))
     positions = torch.arange(2, dtype=torch.int32, device=dev).expand(B, 2)
     kw = dict(n_heads=cfg.code_pred_n_attention_heads,
               n_kv=cfg.code_pred_n_kv_heads, head_dim=cfg.code_pred_head_dim,
@@ -110,7 +102,8 @@ def predict_codes(w, cfg: TalkerConfig, hidden: torch.Tensor,
 
     codes = [head(y[:, -1], 0)]
     for s in range(n_steps - 1):
-        x = _mtp(cp, cp["embd"][s][codes[-1].long()].float())
+        x = codepred_fused.project_mtp(
+            cp, cp["embd"][s][codes[-1].long()].float())
         n_past = s + 2
         y, kv_cache = stack_step(
             cp["layers"], x,

@@ -8,6 +8,12 @@ predict_codes_fused. Semantics, shared by the kernels and the twin:
 - 16 uniform single-token positions: position 0 is the talker hidden,
   position 1 codec_embd[cb0], position p >= 2 code_pred.embd[p-2][code of
   p-1] (a row gather). The XLA path's 2-token prefill is the same math.
+- Behind an mtp projection (the 1.7B shape: a 2048-wide talker before the
+  1024-wide code predictor) every position's input is projected,
+  ``dot(x, mtp_w) + mtp_b``. The projection is linear and every row after
+  position 0 is one of a fixed table's, so ``fold_mtp`` projects both
+  tables once, at engine set-up, into f32 rows; a frame projects only
+  position 0's hidden and gathers the folded rows (``input_rows``).
 - Per layer: RMSNorm -> bf16 -> fused QKV (f32) -> q/k head RMSNorm ->
   NEOX RoPE -> K/V rows into a 16-slot bf16 cache -> attention with f32
   probabilities -> bf16 -> wo -> residual; RMSNorm -> bf16 -> [gate|up]
@@ -38,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .layers import rope_freqs
+from .layers import dot, rope_freqs
 from .sampling import apply_top_k, gumbel_noise
 
 CTX = 16                               # positions per frame
@@ -47,6 +53,9 @@ H, NH, NKV, D, I, V, L = 1024, 16, 8, 128, 3072, 2048, 5
 K_SPLIT = 256                          # K rows per split (csrc/codepred.cu)
 
 _SCRATCH: dict = {}                    # (device, B, theta) -> scratch
+# what fold_mtp adds to the code_pred tree: codec_embd and code_pred.embd
+# projected through the mtp projection, f32
+FOLDED = ("codec_embd_mtp", "embd_mtp")
 
 
 def rope_tables(theta: float, head_dim: int, device):
@@ -65,23 +74,78 @@ def _noise(gumbel, generator, B, vocab, device):
     return gumbel
 
 
-def supported(cfg, B: int, w) -> bool:
-    """The kernel's preconditions: the 0.6B code predictor's dims (H, heads,
-    D, I, V, L and 16 positions), bf16 weights, heads and embeddings, no
-    mtp projection (the 1.7B shape has one), B >= 1. The TPU kernel's
-    conditions on B (a multiple of 8, halves that fit in VMEM) are not
-    carried over: the CUDA kernel serves any B >= 1."""
-    cp = w["code_pred"]
-    lw = cp["layers"]
-    dims = (cfg.code_pred_hidden_size, cfg.code_pred_n_attention_heads,
+def project_mtp(cp, x: torch.Tensor) -> torch.Tensor:
+    """Talker space -> code-predictor space, ``dot(x, mtp_w) + mtp_b`` in
+    f32 (the 1.7B shape); x as it is where the tree has no mtp_w."""
+    if cp.get("mtp_w") is None:
+        return x
+    y = dot(x, cp["mtp_w"])
+    if cp.get("mtp_b") is not None:
+        y = y + cp["mtp_b"]
+    return y
+
+
+def kernel_dims(cfg) -> bool:
+    """Whether the code predictor has the dims the kernel is written for
+    (H, heads, D, I, V, L and 16 positions: the 0.6B's, the 1.7B's,
+    Omni's)."""
+    return (cfg.code_pred_hidden_size, cfg.code_pred_n_attention_heads,
             cfg.code_pred_n_kv_heads, cfg.code_pred_head_dim,
             cfg.code_pred_intermediate_size, cfg.code_pred_vocab_size,
-            cfg.code_pred_layers, cfg.n_codebooks)
-    bf16 = [lw[n] for n in ("wqkv", "wo", "w_gu", "w_down")] + [
-        cp["heads"], cp["embd"], w["codec_embd"]]
-    return (dims == (H, NH, NKV, D, I, V, L, CTX)
-            and cp.get("mtp_w") is None and B >= 1
-            and all(t.dtype == torch.bfloat16 for t in bf16))
+            cfg.code_pred_layers, cfg.n_codebooks) == (H, NH, NKV, D, I, V,
+                                                       L, CTX)
+
+
+def fold_mtp(w, cfg):
+    """The talker tree `w` with, behind an mtp projection, the FOLDED
+    tables added to its code_pred: codec_embd_mtp [n_codec, H] and
+    embd_mtp [15, V, H], f32, each row ``project_mtp`` of its raw row,
+    computed as the XLA path computes it for a gathered row (bf16 operand,
+    f32 sums, plus the bias). The raw tables stay: frame_step_embedding
+    reads them. A tree without an mtp_w, or whose code predictor the
+    kernel cannot serve (``kernel_dims``), comes back as it is. Once per
+    weight set, when an engine on a card is made (``Qwen3TTS``), never
+    inside a CUDA-graph capture (a captured fold would replay every
+    frame)."""
+    cp = w["code_pred"]
+    if cp.get("mtp_w") is None or not kernel_dims(cfg):
+        return w
+    embd = torch.stack([project_mtp(cp, e) for e in cp["embd"]])
+    codec = project_mtp(cp, w["codec_embd"])
+    return {**w, "code_pred": {**cp, **dict(zip(FOLDED, (codec, embd)))}}
+
+
+def drop_folded(cp):
+    """The code_pred tree `cp` without the FOLDED tables: for a code
+    predictor that never runs the kernel (a tp-split one)."""
+    return {k: v for k, v in cp.items() if k not in FOLDED}
+
+
+def input_rows(w):
+    """(codec rows, code rows): the tables that position 1 and positions
+    2.. gather from. codec_embd and code_pred.embd, or behind an mtp
+    projection their FOLDED tables (None where the tree lacks them)."""
+    cp = w["code_pred"]
+    if cp.get("mtp_w") is None:
+        return w["codec_embd"], cp["embd"]
+    return tuple(cp.get(k) for k in FOLDED)
+
+
+def supported(cfg, B: int, w) -> bool:
+    """The kernel's preconditions: ``kernel_dims``, bf16 weights and
+    heads, B >= 1, and the rows it gathers: the bf16 embeddings, or behind
+    an mtp projection its FOLDED f32 tables (an mtp tree without them is
+    refused). The TPU kernel's conditions on B (a multiple of 8, halves
+    that fit in VMEM) are not carried over: the CUDA kernel serves any
+    B >= 1."""
+    cp = w["code_pred"]
+    lw = cp["layers"]
+    bf16 = [lw[n] for n in ("wqkv", "wo", "w_gu", "w_down")] + [cp["heads"]]
+    rows = torch.bfloat16 if cp.get("mtp_w") is None else torch.float32
+    return (kernel_dims(cfg) and B >= 1
+            and all(t.dtype == torch.bfloat16 for t in bf16)
+            and all(t is not None and t.dtype == rows
+                    for t in input_rows(w)))
 
 
 def predict_codes_twin(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
@@ -101,6 +165,10 @@ def predict_codes_twin(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
                   cfg.code_pred_head_dim)
     nq, nk = nh * d, nkv * d
     B, dev = hidden.shape[0], hidden.device
+    codec_rows, rows = input_rows(w)
+    if rows is None:
+        raise ValueError("an mtp projection without its folded rows: "
+                         "fold_mtp(w, cfg) first")
     greedy = greedy or temperature <= 0.0
     if not greedy:
         gumbel = _noise(gumbel, generator, B, cp["heads"].shape[-1], dev)
@@ -122,11 +190,11 @@ def predict_codes_twin(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
     code = None
     for p in range(CTX):
         if p == 0:
-            x = hidden.float()
+            x = project_mtp(cp, hidden.float())
         elif p == 1:
-            x = w["codec_embd"][cb0.long()].float()
+            x = codec_rows[cb0.long()].float()
         else:
-            x = cp["embd"][p - 2][code.long()].float()
+            x = rows[p - 2][code.long()].float()
         for l in range(n_layers):
             qkv = mm(rms(x, lw["attn_norm"][l]), lw["wqkv"][l])
             q = rope(rms(qkv[:, :nq].reshape(B, nh, d), lw["q_norm"][l]), p)
@@ -164,7 +232,8 @@ def predict_codes_fused(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
                         gumbel: torch.Tensor | None = None,
                         logits_out: torch.Tensor | None = None
                         ) -> torch.Tensor:
-    """Codes [B, 15] int32 for one frame. hidden: [B, H] f32; cb0: [B];
+    """Codes [B, 15] int32 for one frame. hidden: [B, H] f32 (the talker's
+    width: behind an mtp projection it is projected here); cb0: [B];
     gumbel: optional [15, B, V] noise; logits_out: optional [15, B, V] f32
     that receives each sampled position's logits.
     A CPU tensor runs the twin; a CUDA tensor launches the kernel or
@@ -180,12 +249,15 @@ def predict_codes_fused(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
     if not supported(cfg, B, w):
         raise ValueError(f"the code-predictor kernel serves H={H} heads="
                          f"{NH}/{NKV} D={D} I={I} V={V} L={L}, bf16 weights, "
-                         f"no mtp projection and B >= 1; got H="
+                         f"an mtp projection only with its folded f32 rows "
+                         f"(fold_mtp) and B >= 1; got H="
                          f"{cfg.code_pred_hidden_size}, L={cfg.code_pred_layers}"
-                         f", mtp {cp.get('mtp_w') is not None}, B={B}")
+                         f", mtp {cp.get('mtp_w') is not None}, folded rows "
+                         f"{all(k in cp for k in FOLDED)}, B={B}")
     bf, f32 = torch.bfloat16, torch.float32
     req = kernels.require
-    req(hidden, "hidden", f32, (B, H))
+    x0 = project_mtp(cp, hidden)
+    req(x0, "hidden", f32, (B, H))
     for name, shape in (("wqkv", (L, H, (NH + 2 * NKV) * D)),
                         ("wo", (L, NH * D, H)), ("w_gu", (L, H, 2 * I)),
                         ("w_down", (L, I, H))):
@@ -196,11 +268,12 @@ def predict_codes_fused(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
         req(lw[name], name, f32, (L, D))
     req(cp["output_norm"], "output_norm", f32, (H,))
     req(cp["heads"], "heads", bf, (CTX - 1, H, V))
-    req(cp["embd"], "embd", bf, (CTX - 1, V, H))
-    req(w["codec_embd"], "codec_embd", bf)
-    if w["codec_embd"].dim() != 2 or w["codec_embd"].shape[1] != H:
-        raise ValueError(f"codec_embd: expected [n, {H}], got "
-                         f"{tuple(w['codec_embd'].shape)}")
+    codec_rows, rows = input_rows(w)
+    req(rows, "embd rows", rows.dtype, (CTX - 1, V, H))
+    req(codec_rows, "codec_embd rows", rows.dtype)
+    if codec_rows.dim() != 2 or codec_rows.shape[1] != H:
+        raise ValueError(f"codec_embd rows: expected [n, {H}], got "
+                         f"{tuple(codec_rows.shape)}")
     sample_greedy = greedy or temperature <= 0.0
     noise = None
     if not sample_greedy:
@@ -217,17 +290,18 @@ def predict_codes_fused(w, cfg, hidden: torch.Tensor, cb0: torch.Tensor,
         return None if t is None else t.data_ptr()
 
     kernels.check(kernels.lib().q3_codepred_frame(
-        hidden.data_ptr(), cb0_i.data_ptr(), w["codec_embd"].data_ptr(),
+        x0.data_ptr(), cb0_i.data_ptr(), codec_rows.data_ptr(),
         *(lw[n].data_ptr() for n in ("wqkv", "wo", "w_gu", "w_down",
                                      "attn_norm", "ffn_norm", "q_norm",
                                      "k_norm")),
         cp["output_norm"].data_ptr(), cp["heads"].data_ptr(),
-        cp["embd"].data_ptr(), ptr(noise), sc["rope_c"].data_ptr(),
+        rows.data_ptr(), ptr(noise), sc["rope_c"].data_ptr(),
         sc["rope_s"].data_ptr(), ptr(logits_out), codes.data_ptr(),
         *(sc[n].data_ptr() for n in ("x", "xn", "attn", "act", "part", "kc",
                                      "vc")),
-        ptr(predict_codes_fused.phase_ns), w["codec_embd"].shape[0], B,
-        int(top_k), int(sample_greedy), float(cfg.rms_norm_eps),
+        ptr(predict_codes_fused.phase_ns), codec_rows.shape[0], B,
+        int(top_k), int(sample_greedy), int(rows.dtype == f32),
+        float(cfg.rms_norm_eps),
         1.0 / max(temperature, 1e-6), kernels.stream(dev)),
         "q3_codepred_frame")
     predict_codes_fused.launches += 1

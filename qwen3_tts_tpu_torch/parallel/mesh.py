@@ -37,6 +37,8 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
+from ..ops.codepred_fused import drop_folded
+
 TP_KEY = "tp_group"
 
 
@@ -200,7 +202,9 @@ def shard_talker_weights(w, mesh, cfg=None):
     At tp > 1 pass the TalkerConfig: the fused wqkv/w_gu of the talker and
     code-predictor stacks are unfused, every projection split Megatron
     style (``talker_shardings``), and each dict holding a split tensor
-    records the tp group under ``TP_KEY``."""
+    records the tp group under ``TP_KEY``. The code predictor's folded
+    mtp rows (``codepred_fused.fold_mtp``) are dropped there: they serve
+    only the kernel, which a tp-split code predictor never runs."""
     _, n_tp = mesh_dims(mesh)
     if n_tp == 1:
         return w
@@ -214,7 +218,7 @@ def shard_talker_weights(w, mesh, cfg=None):
     w["layers"] = unfuse_stack_layers(
         w["layers"], cfg.n_attention_heads, cfg.n_key_value_heads,
         cfg.head_dim)
-    w["code_pred"] = dict(w["code_pred"])
+    w["code_pred"] = drop_folded(w["code_pred"])
     w["code_pred"]["layers"] = unfuse_stack_layers(
         w["code_pred"]["layers"], cfg.code_pred_n_attention_heads,
         cfg.code_pred_n_kv_heads, cfg.code_pred_head_dim)

@@ -94,6 +94,7 @@ from ..models import speaker_encoder as spk
 from ..models import talker, vocoder
 from ..models import weights as W
 from ..models.stack import QuantKV
+from ..ops import codepred_fused
 from ..ops.attention import get_decode_attention_impl
 from ..parallel.mesh import (dp_rows, gather_chunk, gather_objects,
                              graphs_allowed, mesh_dims, rank_seed,
@@ -269,10 +270,15 @@ class Qwen3TTS:
                  spk_w=None) -> None:
         self.tokenizer = tokenizer
         self.talker_cfg = talker_cfg
+        self.device = None if device is None else torch.device(device)
+        if talker_w is not None and self.device is not None \
+                and self.device.type == "cuda":
+            # behind an mtp projection, the code predictor kernel's input
+            # rows; the CPU runs the XLA path and needs none
+            talker_w = codepred_fused.fold_mtp(talker_w, talker_cfg)
         self.talker_w = talker_w
         self.voc_cfg = voc_cfg
         self.voc_w = voc_w
-        self.device = None if device is None else torch.device(device)
         self.spk_cfg = spk_cfg
         self.spk_w = spk_w
         self.low_mem = False
@@ -411,13 +417,10 @@ class Qwen3TTS:
         except (OSError, ValueError, KeyError) as e:
             self.error_msg = f"Failed to load models: {e}"
             return False
-        self.tokenizer, self.talker_cfg, self.talker_w = (
-            tokenizer, talker_cfg, talker_w)
-        self.voc_cfg, self.voc_w = voc_cfg, voc_w
-        self.spk_cfg = self.spk_w = None
-        self.device, self.low_mem = dev, low_mem
-        self.mesh = None
-        self._drop_graphs()    # they hold the old weights' addresses
+        # a fresh engine over the loaded models (the old graphs hold the
+        # old weights' addresses)
+        self.__init__(tokenizer, talker_cfg, talker_w, voc_cfg, voc_w, dev)
+        self.low_mem = low_mem
         self._tts_model_path = tts_path
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

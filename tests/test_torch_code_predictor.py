@@ -7,6 +7,9 @@
   interpret mode at the real dims (B=8, greedy).
 - the QWEN3_TTS_CODEPRED switch, top_p < 1, and the mtp projection of the
   1.7B shape, against the JAX XLA path.
+- the 1.7B shape on the twin: the mtp projection folded into f32 rows
+  (codepred_fused.fold_mtp) against the JAX XLA path on the raw weights,
+  and against the XLA-path port's projection.
 """
 
 import dataclasses
@@ -146,7 +149,7 @@ def test_switch_fused_interpret_raises(tiny, impl, monkeypatch):
 @pytest.fixture(scope="module")
 def real():
     """Code-predictor weights at the 0.6B dims (the kernel's), drawn by the
-    port, and a 1.7B-shaped copy (talker width 2,048, so an mtp_w)."""
+    port (``real_17b`` makes the 1.7B-shaped copy)."""
     gen = torch.Generator().manual_seed(3)
     cfg = TCFG.__class__(text_vocab_size=16, n_layers=1)
     w = W.init_talker_weights(cfg, gen, "cpu")
@@ -156,6 +159,146 @@ def real():
         np.float32)
     cb0 = rng.integers(0, cfg.code_pred_vocab_size, 2).astype(np.int32)
     return cfg, w, torch.from_numpy(hidden), torch.from_numpy(cb0)
+
+
+@pytest.fixture(scope="module")
+def real_17b(real):
+    """The 1.7B-shaped copy of ``real``: the same code predictor behind a
+    2,048-wide talker, so codec_embd and code_pred.embd are 2,048 wide and
+    an mtp_w (and a non-zero mtp_b) projects them into the code
+    predictor; folded (``fold_mtp``) and not."""
+    cfg, w, _, cb0 = real
+    cfg = dataclasses.replace(cfg, hidden_size=2048)
+    gen = torch.Generator().manual_seed(17)
+
+    def rn(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen) * std).to(torch.bfloat16)
+
+    cp = dict(w["code_pred"], embd=rn(15, cfg.code_pred_vocab_size, 2048),
+              mtp_w=rn(2048, cfg.code_pred_hidden_size),
+              mtp_b=torch.randn(cfg.code_pred_hidden_size, generator=gen)
+              * 0.02)
+    raw = {"codec_embd": rn(cfg.codec_vocab_size, 2048), "code_pred": cp}
+    hidden = torch.randn(2, 2048, generator=gen) * 0.5
+    return cfg, raw, tcf.fold_mtp(raw, cfg), hidden, cb0
+
+
+def test_fold_mtp_rows_equal_the_xla_paths_projection(real, real_17b):
+    """The folded f32 rows are the XLA path's projection of the raw rows
+    it gathers (project_mtp of bf16 rows, the bias added), up to f32
+    summation order; the raw tables stay, the kernel takes the folded tree
+    and refuses the raw one; a tree without an mtp_w, or at other dims,
+    comes back as it is."""
+    cfg, raw, folded, _, _ = real_17b
+    cp, fcp = raw["code_pred"], folded["code_pred"]
+    assert set(fcp) - set(cp) == set(tcf.FOLDED)
+    assert fcp["embd"] is cp["embd"] and folded["codec_embd"] is raw[
+        "codec_embd"]
+    rows = torch.tensor([0, 5, 1023, 2047])
+    tol = dict(rtol=1e-5, atol=1e-6)
+    for s in (0, 7, 14):
+        want = tcf.project_mtp(cp, cp["embd"][s][rows].float())
+        got = fcp["embd_mtp"][s][rows]
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **tol)
+    codes = torch.tensor([0, 17, cfg.codec_vocab_size - 1])
+    torch.testing.assert_close(
+        fcp["codec_embd_mtp"][codes],
+        tcf.project_mtp(cp, raw["codec_embd"][codes].float()), **tol)
+    assert fcp["embd_mtp"].shape == (15, cfg.code_pred_vocab_size,
+                                     cfg.code_pred_hidden_size)
+    assert tcf.supported(cfg, 2, folded) and not tcf.supported(cfg, 2, raw)
+    _, w, _, _ = real
+    assert tcf.fold_mtp(w, cfg) is w
+    narrow = dataclasses.replace(cfg, code_pred_layers=4)
+    assert tcf.fold_mtp(raw, narrow) is raw
+
+
+def _scores(logits, temperature, noise):
+    """What each position's code is the first argmax of: the logits
+    (greedy), or logits / T + the Gumbel draws (sampled, top-k 50)."""
+    if noise is None:
+        return logits
+    keep = logits >= torch.topk(logits, 50).values[..., -1:]
+    return torch.where(keep, logits / temperature, -1e30) + noise
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_twin_with_mtp_matches_xla_path(real_17b, impl, greedy):
+    """At the 1.7B shape the twin (folded rows, position 0 projected)
+    against the XLA-path port (the projection of each gathered row), fed
+    the same Gumbel draws: codes agree, and a stream that parts does so
+    first at a bf16 near-tie of the XLA path's scores."""
+    cfg, raw, folded, hidden, cb0 = real_17b
+    V = cfg.code_pred_vocab_size
+    noise = None if greedy else torch.from_numpy(
+        np.random.default_rng(9).gumbel(size=(15, 2, V)).astype(np.float32))
+    lt, lx = torch.empty(15, 2, V), torch.empty(15, 2, V)
+    got = tcf.predict_codes_twin(folded, cfg, hidden, cb0, 0.8, 50,
+                                 greedy=greedy, gumbel=noise, logits_out=lt)
+    impl("xla")
+    ref = tcp.predict_codes(raw, cfg, hidden, cb0, 0.8, 50, greedy=greedy,
+                            gumbel=noise, logits_out=lx)
+    margins = _near_tie_divergences(got.numpy(), ref.numpy(),
+                                    _scores(lx, 0.8, noise).numpy())
+    assert (got == ref).all(dim=1).float().mean() >= 0.5, margins
+    assert all(m <= NEAR_TIE for m in margins), margins
+
+
+def _to_jax(tree):
+    """A port weight tree as the JAX package holds it: the same keys,
+    bf16 and f32 arrays of the same values."""
+    if isinstance(tree, dict):
+        return {k: _to_jax(v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    if tree.dtype == torch.bfloat16:
+        return jnp.asarray(tree.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(tree.numpy())
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_twin_with_mtp_matches_jax_xla_path(real_17b, greedy):
+    """At the 1.7B shape the twin on the folded f32 rows against the JAX
+    package's XLA path on the raw weights (each gathered row projected
+    through mtp_w), the twin fed JAX's Gumbel draws: codes agree, and a
+    stream that parts does so first at a bf16 near-tie of the twin's
+    scores."""
+    cfg, raw, folded, hidden, cb0 = real_17b
+    key = jax.random.PRNGKey(19)
+    jcfg = TalkerConfig(**dataclasses.asdict(cfg))
+    want = np.asarray(jcp.predict_codes(
+        _to_jax(raw), jcfg, jnp.asarray(hidden.numpy()),
+        jnp.asarray(cb0.numpy()), jnp.float32(0.8), 50, key, greedy=greedy))
+    noise = None if greedy else torch.from_numpy(_xla_path_noise(
+        key, cfg.n_codebooks - 1, (2, cfg.code_pred_vocab_size)))
+    lt = torch.empty(15, 2, cfg.code_pred_vocab_size)
+    got = tcf.predict_codes_twin(folded, cfg, hidden, cb0, 0.8, 50,
+                                 greedy=greedy, gumbel=noise, logits_out=lt)
+    margins = _near_tie_divergences(want, got.numpy(),
+                                    _scores(lt, 0.8, noise).numpy())
+    assert (got.numpy() == want).all(axis=1).mean() >= 0.5, margins
+    assert all(m <= NEAR_TIE for m in margins), margins
+
+
+def test_switch_fused_on_cpu_runs_the_twin_with_mtp(real_17b, impl,
+                                                    monkeypatch):
+    """fused on an mtp tree with its folded rows runs the twin on CPU
+    tensors; auto there keeps the XLA path."""
+    cfg, _, folded, hidden, cb0 = real_17b
+    ran = []
+    twin = tcf.predict_codes_twin
+    monkeypatch.setattr(tcf, "predict_codes_twin",
+                        lambda *a, **k: ran.append(1) or twin(*a, **k))
+    impl("fused")
+    got = tcp.predict_codes(folded, cfg, hidden, cb0, 0.8, 20, greedy=True)
+    assert ran == [1]
+    np.testing.assert_array_equal(
+        got.numpy(),
+        twin(folded, cfg, hidden, cb0, 0.8, 20, greedy=True).numpy())
+    impl("auto")
+    tcp.predict_codes(folded, cfg, hidden, cb0, 0.8, 20, greedy=True)
+    assert ran == [1]
 
 
 def test_switch_fused_on_cpu_runs_the_twin(real, impl, monkeypatch):
@@ -176,7 +319,8 @@ def test_switch_fused_on_cpu_runs_the_twin(real, impl, monkeypatch):
 def test_switch_fused_refuses_what_the_kernel_does_not_serve(real, impl,
                                                              case):
     """fused raises, on either device, where auto would take the XLA path:
-    top_p < 1, an mtp projection, weights not in bf16, other dims."""
+    top_p < 1, an mtp projection without its folded rows (fold_mtp),
+    weights not in bf16, other dims."""
     cfg, w, hidden, cb0 = real
     top_p = 0.9 if case == "top_p" else 1.0
     if case == "mtp":

@@ -88,6 +88,81 @@ def test_codepred_forced_frame(dev, cp_weights, B):
     assert (lk - lt).abs().max().item() <= LOGIT_TOL
 
 
+# the 1.7B talker's widths: a 2,048-wide talker, so an mtp_w into the
+# kernel's 1,024-wide code predictor
+TALKER_17B = dict(hidden_size=2048, intermediate_size=6144)
+
+
+@pytest.fixture(scope="module")
+def cp17_weights(dev):
+    """The 1.7B shape's code-predictor tree (a non-zero mtp_b), its rows
+    folded as an engine folds them (fold_mtp), and the raw tree."""
+    cfg = TalkerConfig(text_vocab_size=16, n_layers=1, **TALKER_17B)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    w = W.init_talker_weights(cfg, gen, dev)
+    cp = dict(w["code_pred"], mtp_b=torch.randn(
+        cfg.code_pred_hidden_size, generator=gen, device=dev) * 0.02)
+    raw = {"codec_embd": w["codec_embd"], "code_pred": cp}
+    return cfg, cf.fold_mtp(raw, cfg), raw
+
+
+# B = 192: the offline cells' batch
+@pytest.mark.parametrize("B", [1, 8, 17, 64, 192])
+def test_codepred_forced_frame_17b(dev, cp17_weights, B):
+    """The 1.7B shape on the kernel's f32-row instantiation (position 0's
+    hidden projected by the wrapper, the folded rows gathered): a
+    teacher-forced frame returns the forced codes, every position's logits
+    within LOGIT_TOL of the twin's, one cooperative launch."""
+    from qwen3_tts_tpu_torch import kernels
+    cfg, w, _ = cp17_weights
+    gen = torch.Generator(device=dev).manual_seed(100 + B)
+    V = cfg.code_pred_vocab_size
+    hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev) * 0.5
+    cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    forced = torch.randint(0, V, (15, B, 1), generator=gen, device=dev)
+    spikes = torch.zeros(15, B, V, device=dev).scatter_(2, forced, 1e30)
+    lk, lt = (torch.empty(15, B, V, device=dev) for _ in range(2))
+    before = kernels.codepred_launches()
+    got = cf.predict_codes_fused(w, cfg, hidden, cb0, 1.0, 0, gumbel=spikes,
+                                 logits_out=lk)
+    ref = cf.predict_codes_twin(w, cfg, hidden, cb0, 1.0, 0, gumbel=spikes,
+                                logits_out=lt)
+    assert kernels.codepred_launches() == before + 1
+    assert torch.equal(got, forced[:, :, 0].t().int())
+    assert torch.equal(ref, got)
+    assert (lk - lt).abs().max().item() <= LOGIT_TOL
+
+
+def test_codepred_xla_switch_on_a_folded_17b_tree(dev, cp17_weights):
+    """QWEN3_TTS_CODEPRED=xla on the folded 1.7B tree takes the XLA-path
+    branch (no code-predictor kernel), whose greedy codes agree with the
+    kernel's up to bf16 near-ties of the XLA path's logits."""
+    from qwen3_tts_tpu_torch import kernels
+    from qwen3_tts_tpu_torch.models import code_predictor as cp
+    cfg, w, _ = cp17_weights
+    gen = torch.Generator(device=dev).manual_seed(18)
+    B, V = 8, cfg.code_pred_vocab_size
+    hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev) * 0.5
+    cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    lk, lx = (torch.empty(15, B, V, device=dev) for _ in range(2))
+    got = cp.predict_codes(w, cfg, hidden, cb0, 0.9, 50, greedy=True,
+                           logits_out=lk)
+    before = kernels.codepred_launches(), cf.predict_codes_fused.launches
+    cp.set_codepred_impl("xla")
+    try:
+        ref = cp.predict_codes(w, cfg, hidden, cb0, 0.9, 50, greedy=True,
+                               logits_out=lx)
+    finally:
+        cp.set_codepred_impl(None)
+    torch.cuda.synchronize()
+    assert (kernels.codepred_launches(),
+            cf.predict_codes_fused.launches) == before
+    assert not _near_tie_divergences(got.cpu(), ref.cpu(), lk.cpu(),
+                                     lx.cpu())
+
+
 def _profiled_kernels(fn) -> list:
     """Names of the kernels (copies and fills left out) that a
     torch.profiler session saw while fn ran once and the card finished.
@@ -179,10 +254,12 @@ MTP_CFG = dict(text_vocab_size=16, n_layers=1, hidden_size=512,
 
 
 def test_codepred_auto_mtp_takes_xla_path(dev):
-    """QWEN3_TTS_CODEPRED=auto with an mtp_w on CUDA tensors: the XLA-path
-    branch, whose attention is the decode-attention kernel over the
-    16-slot cache (a launch per layer and step), and no code-predictor
-    kernel. Greedy codes equal those of
+    """QWEN3_TTS_CODEPRED=auto with an mtp_w on CUDA tensors, at a code
+    predictor 256 wide: the kernel serves only its own width (the 1.7B's
+    projection it serves through folded rows, which fold_mtp makes only
+    at that width), so the XLA-path branch, whose attention is the
+    decode-attention kernel over the 16-slot cache (a launch per layer and
+    step), and no code-predictor kernel. Greedy codes equal those of
     the same call on CPU tensors; the two devices round bf16 in other
     places, so a stream may part only at a near-tie of the CPU logits."""
     from qwen3_tts_tpu_torch import kernels
@@ -194,6 +271,7 @@ def test_codepred_auto_mtp_takes_xla_path(dev):
     w = {"codec_embd": w["codec_embd"], "code_pred": w["code_pred"]}
     B, V = 4, cfg.code_pred_vocab_size
     assert w["code_pred"]["mtp_w"] is not None and not cf.supported(cfg, B, w)
+    assert cf.fold_mtp(w, cfg) is w
     hidden = torch.randn(B, cfg.hidden_size, generator=gen, device=dev)
     cb0 = torch.randint(0, V, (B,), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -240,16 +318,25 @@ def test_codepred_auto_top_p_takes_xla_path(dev, cp_weights):
     assert torch.equal(tiny, greedy)
 
 
-def test_codepred_fused_refuses_mtp(dev, monkeypatch):
+def test_codepred_fused_refuses_mtp(dev, cp17_weights, monkeypatch):
+    """An mtp tree at the 1.7B shape without its folded rows: fused
+    raises, through the switch and at the kernel's wrapper; auto takes
+    the XLA path."""
+    from qwen3_tts_tpu_torch import kernels
     from qwen3_tts_tpu_torch.models import code_predictor as cp
-    cfg = TalkerConfig(**MTP_CFG)
-    gen = torch.Generator(device=dev).manual_seed(23)
-    w = W.init_talker_weights(cfg, gen, dev)
+    cfg, _, raw = cp17_weights
+    args = (raw, cfg, torch.zeros(2, cfg.hidden_size, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev), 0.9, 50)
+    assert not cf.supported(cfg, 2, raw)
+    with pytest.raises(ValueError, match="folded"):
+        cf.predict_codes_fused(*args, greedy=True)
+    before = kernels.codepred_launches()
+    cp.predict_codes(*args, greedy=True)
+    torch.cuda.synchronize()
+    assert kernels.codepred_launches() == before
     monkeypatch.setenv("QWEN3_TTS_CODEPRED", "fused")
     with pytest.raises(ValueError, match="QWEN3_TTS_CODEPRED=fused"):
-        cp.predict_codes(w, cfg, torch.zeros(2, 512, device=dev),
-                         torch.zeros(2, dtype=torch.int32, device=dev), 0.9,
-                         50, greedy=True)
+        cp.predict_codes(*args, greedy=True)
 
 
 def _blocks(seed, dev):
@@ -549,15 +636,16 @@ def test_continuous_batcher_on_card(dev):
     assert fd.flash_decode.launches_by_mode["window"] > before
 
 
-def _engine(dev, seed):
+def _engine(dev, seed, **talker):
     """Full-width code predictor and vocoder (their kernels need the real
-    widths), a 2-layer talker, an in-memory vocabulary."""
+    widths), a 2-layer talker (the 0.6B's widths, or `talker`'s), an
+    in-memory vocabulary."""
     tokens = ["<|im_start|>", "<|im_end|>", "assistant", "Ċ", "h", "e", "l",
               "o", "Ġ", "w", "r", "d", "."]
     tok = TextTokenizer(tokens, [], TokenizerSpecialTokens(
         bos_token_id=0, eos_token_id=1, pad_token_id=1))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    cfg, vcfg = TalkerConfig(n_layers=2), VocoderConfig()
+    cfg, vcfg = TalkerConfig(n_layers=2, **talker), VocoderConfig()
     return Qwen3TTS.from_components(
         tok, cfg, W.init_talker_weights(cfg, gen, dev), vcfg,
         W.init_vocoder_weights(vcfg, gen, dev), dev)
@@ -947,6 +1035,31 @@ def test_graph_replay_counts_launches(dev, monkeypatch):
     assert [a - b for a, b in zip(after[:3], before[:3])] == [40, 40, 40]
     assert sum("codepred_frame_kernel" in n for n in names) == 40
     assert sum("talker_step_kernel" in n for n in names) == 40
+
+
+def test_graph_replay_17b_one_codepred_launch_per_frame(dev, monkeypatch):
+    """An engine at the 1.7B shape folds its mtp rows at set-up, and under
+    auto a replayed 40-frame chunk launches the code-predictor kernel once
+    a frame (wrapper, C side and profiler alike)."""
+    from qwen3_tts_tpu_torch import kernels
+    monkeypatch.delenv("QWEN3_TTS_AOT", raising=False)
+    replays = _count_replays(monkeypatch)
+    eng = _engine(dev, 26, **TALKER_17B)
+    assert cf.supported(eng.talker_cfg, len(GRAPH_TEXTS), eng.talker_w)
+    params = TTSParams(max_audio_tokens=40, temperature=0.0, seed=0)
+    eng.synthesize_batch(GRAPH_TEXTS, params=params)           # capture
+    torch.cuda.synchronize()
+    before = (cf.predict_codes_fused.launches, kernels.codepred_launches(),
+              replays())
+    results = []
+    names = _profiled_kernels(lambda: results.extend(
+        eng.synthesize_batch(GRAPH_TEXTS, params=params)))
+    after = (cf.predict_codes_fused.launches, kernels.codepred_launches(),
+             replays())
+    _check_results(results, eng)
+    assert after[2] > before[2]
+    assert [a - b for a, b in zip(after[:2], before[:2])] == [40, 40]
+    assert sum("codepred_frame_kernel" in n for n in names) == 40
 
 
 @pytest.mark.parametrize("warm", [True, False])

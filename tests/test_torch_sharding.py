@@ -34,6 +34,7 @@ from qwen3_tts_tpu.models.weights import (init_talker_weights,  # noqa: E402
 from qwen3_tts_tpu.parallel import mesh as jmesh  # noqa: E402
 from qwen3_tts_tpu.runtime import generate as jgen  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
+from qwen3_tts_tpu_torch.ops import codepred_fused as tcf  # noqa: E402
 from qwen3_tts_tpu_torch.parallel import dryrun_multichip  # noqa: E402
 from qwen3_tts_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import graphs  # noqa: E402
@@ -245,6 +246,18 @@ def test_tp_projections_actually_split(mesh_run, name):
     assert facts["heads"] == ((CFG.hidden_size, CFG.codec_vocab_size // 2),
                               (CFG.n_codebooks - 1, CFG.code_pred_hidden_size,
                                CFG.code_pred_vocab_size // 2))
+
+
+@pytest.mark.parametrize("name", ["dp2", "tp2", "dp2xtp2"])
+def test_folded_mtp_rows_pass_dp_and_drop_at_tp(mesh_run, name):
+    """The code predictor's folded mtp rows (codepred_fused.fold_mtp)
+    stay on a dp-only mesh, where the kernel runs, and are dropped at
+    tp > 1, which never runs it; the rest of code_pred is sharded."""
+    _, n_tp = MESHES[name]
+    for facts in _ranks(mesh_run, name, "facts"):
+        kept = set(facts["folded"]) & set(tcf.FOLDED)
+        assert kept == (set() if n_tp > 1 else set(tcf.FOLDED))
+        assert {"layers", "heads", "embd"} <= set(facts["folded"])
 
 
 # -- generation --------------------------------------------------------------

@@ -201,6 +201,15 @@ def _raises(fn) -> str:
     return ""
 
 
+def _with_folded_rows(w):
+    """w with stand-ins for the code predictor's folded mtp rows
+    (codepred_fused.FOLDED), which fold_mtp makes only at the kernel's
+    dims."""
+    from qwen3_tts_tpu_torch.ops.codepred_fused import FOLDED
+    return dict(w, code_pred=dict(
+        w["code_pred"], **{k: torch.zeros(2, 2) for k in FOLDED}))
+
+
 def job_mesh_facts(inp: Inputs, mesh) -> dict:
     """The mesh and the split weights as plain facts, and the errors a
     sharded run must raise."""
@@ -225,7 +234,9 @@ def job_mesh_facts(inp: Inputs, mesh) -> dict:
                 for name, stack in (("talker", ws["layers"]),
                                     ("code_pred", ws["code_pred"]["layers"]))},
         heads=(tuple(ws["codec_head"].shape),
-               tuple(ws["code_pred"]["heads"].shape)))
+               tuple(ws["code_pred"]["heads"].shape)),
+        folded=sorted(M.shard_talker_weights(
+            _with_folded_rows(w), mesh, inp.cfg)["code_pred"]))
     if tp > 1:
         for name, switch in (("talker", talker.set_talker_step_impl),
                              ("codepred", code_predictor.set_codepred_impl)):
