@@ -3891,11 +3891,23 @@ eng = Qwen3TTS.from_components(
     cs.smoke_tokenizer(), cfg, W.init_talker_weights(cfg, gen, dev), vcfg,
     W.init_vocoder_weights(vcfg, gen, dev), dev)
 seen = {}
-decode = eng._decode_streaming
-def record(frames, *a):
-    seen["frames"] = frames
-    return decode(frames, *a)
-eng._decode_streaming = record
+try:  # the chunk loop's core (runtime/stream.py): each call's StreamCodes
+    from qwen3_tts_tpu_torch.runtime.stream import StreamCodes
+    alloc = StreamCodes.alloc
+    def record(*a):
+        seen["streams"] = alloc(*a)
+        return seen["streams"]
+    StreamCodes.alloc = record
+    def stream_codes():
+        return [s.buf[:s.n_frames] for s in seen["streams"]]
+except ImportError:  # a checkout whose loop keeps each stream's chunks
+    decode = eng._decode_streaming
+    def record(frames, *a):
+        seen["frames"] = frames
+        return decode(frames, *a)
+    eng._decode_streaming = record
+    def stream_codes():
+        return [np.concatenate(f) for f in seen["frames"]]
 out, arrays = {}, {}
 for B in cs.COMPARE_LOCKSTEP_B:
     texts = (cs.LOCKSTEP_TEXTS * B)[:B]
@@ -3913,8 +3925,7 @@ for B in cs.COMPARE_LOCKSTEP_B:
         steps = tf.talker_step_fused.launches - steps
         name = f"B={B} {kv}"
         out[name] = [cs.call_split(res)[0] / steps, wall, steps]
-        arrays[name + " codes"] = np.concatenate(
-            [np.concatenate(f) for f in seen["frames"]])
+        arrays[name + " codes"] = np.concatenate(stream_codes())
         arrays[name + " pcm"] = np.concatenate(
             [np.round(r.audio * 32767.0).astype(np.int16) for r in res])
         arrays[name + " frames"] = np.array([r.n_frames for r in res])

@@ -19,7 +19,7 @@ whose memory comes from one pool that every graph of the cache shares, so
 that the buckets do not each hold their own intermediates. Every later
 call replays the graph and returns the captured outputs: static buffers
 that the next replay overwrites, so a caller copies them out (``.cpu()``,
-``pipeline.Readback``) before it enqueues the next replay on the stream.
+``stream.Readback``) before it enqueues the next replay on the stream.
 A failed capture raises; nothing gives way to the eager path.
 
 What a graph keeps from its capture:

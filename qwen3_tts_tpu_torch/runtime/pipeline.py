@@ -18,43 +18,24 @@ as the JAX package keeps them there. ``QWEN3_TTS_LOW_MEM=1`` keeps the
 vocoder's weights, its kernels' packed copies included, in pinned host
 memory and stages them to the card for each decode.
 
-Dispatch is pipelined, as in the JAX loop: chunk k+1 is enqueued before
-the host reads chunk k's codes and runs its vocoder decode, so the card's
-queue holds the next chunk while the host does its per-stream
-bookkeeping. The read window comes from the frames dispatched so far,
-counted on the host, so no readback lands between two dispatches; a
-chunk's codes, valid mask and ``done`` leave the card through ``Readback``
-(a non-blocking copy into pinned host memory whose end a CUDA event
-marks), taken in stream order right after the chunk, before the next
-chunk overwrites them, and the host waits only for chunk k's copies. The
-vocoder's codes go up from pinned memory without blocking, so that its
-decode queues behind chunk k+1 instead of waiting for it.
-
-Audio leaves the card as int16 PCM through ``readback_submit``, another
-``Readback``. ``PCMRef`` names one stream's row of such a copy and
-resolves it lazily.
-
-A sparse-MoE talker (Qwen3-Omni's, ``from_components(..., moe=)``) runs
-the same loop: its FFN is ops/moe.py inside the same frame graphs. Each
-chunk zeroes the talker's MoE counters before its frames and copies them
-home with its codes (``MoECounts``, one more ``Readback``), so the host
-records them per chunk as the span ``talker.moe`` (``pairs``, ``rows``,
-``max_rows``) and the counters ``moe.pairs`` / ``moe.rows`` with no sync
-inside a frame.
+The chunk loop runs on the core that the serving batcher shares
+(runtime/stream.py: ``enqueue_chunk``, ``StreamCodes``, ``decode_wave``),
+its read window counted on the host from the frames dispatched, so that
+no readback lands between two dispatches. A sparse-MoE talker
+(Qwen3-Omni's, ``from_components(..., moe=)``) runs the same loop, its FFN
+ops/moe.py inside the same frame graphs: each chunk zeroes the talker's
+counters, which come home with its codes (``ChunkCopies``).
 
 Without a vocoder (``from_components(..., voc_w=None)``) the engine still
 generates codes; each stream then reports "Vocoder not loaded", as in the
 JAX package.
 
-Compiled executables (runtime/graphs.py, the port of the JAX package's
-AOT cache): on the card each frame of a 40-frame lock-step chunk replays
-the CUDA graph of its bucket (``_gen_fn``) over static state buffers,
-prefilled in place and kept for the last batch shape, and each vocoder
-decode replays the graph of its (n, frames, sub, pcm16) bucket
-(``_voc_fn``); both are captured on first use into ``Qwen3TTS.graphs``.
-A replay overwrites the buffers the last one wrote, which is why the
-chunk's copies are taken in stream order before the next replay.
-``QWEN3_TTS_AOT=0`` runs them eagerly, as the CPU does.
+Compiled executables (runtime/graphs.py): on the card each frame of a
+chunk replays its bucket's CUDA graph (``_gen_fn``) over static state
+buffers, prefilled in place and kept for the last batch shape, and each
+vocoder decode its (n, frames, sub, pcm16) bucket's (``_voc_fn``), both
+captured on first use into ``Qwen3TTS.graphs``; ``QWEN3_TTS_AOT=0`` runs
+them eagerly, as the CPU does.
 
 A mesh (``Qwen3TTS.shard``, parallel/mesh.py): one process per device,
 each calling the same entry points with the same arguments. The talker is
@@ -106,82 +87,10 @@ from . import audio_io
 from .generate import (ctx_bucket, generate_frame, init_state,
                        kv_quant_enabled, make_consts, required_ctx)
 from .graphs import GraphCache, aot_enabled, gen_key, new_buffer_id, voc_key
+from .stream import CHUNK_FRAMES, ChunkCopies, StreamCodes, decode_wave
 
 TTS_FILE = "qwen3-tts-0.6b-f16.gguf"
 CODEC_FILE = "qwen3-tts-tokenizer-f16.gguf"
-CHUNK_FRAMES = 40  # streaming vocoder interval
-
-
-class Readback:
-    """A device -> host copy in flight. A CUDA tensor is copied
-    non-blocking into pinned host memory and an event marks the copy's
-    end: done() polls the event, result() waits on it, inside a
-    ``host.wait`` span (``what``: codes, done or audio) when the copy has
-    not landed yet. A CPU tensor is copied at once."""
-
-    __slots__ = ("host", "event", "what")
-
-    def __init__(self, t: torch.Tensor, what: str = "codes"):
-        self.what = what
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = t.clone()
-            self.event = None
-
-    def done(self) -> bool:
-        return self.event is None or self.event.query()
-
-    def result(self) -> np.ndarray:
-        if self.event is not None and not self.event.query():
-            with trace.span("host.wait", what=self.what):
-                self.event.synchronize()
-        return self.host.numpy()
-
-
-class MoECounts:
-    """One chunk's sparse-MoE counters (the talker's ``moe_counts``
-    [L, 3], each layer's pairs routed, rows the grouped product computed
-    and most rows an expert got in a layer-step, ops/moe.py) on their way
-    home, from the chunk's dispatch (``t0``, ns). ``record()`` waits for
-    them and records the span ``talker.moe`` (pairs and rows summed over
-    the layers, max_rows their max) and the counters ``moe.pairs`` /
-    ``moe.rows``."""
-
-    __slots__ = ("t0", "copy")
-
-    def __init__(self, counts: torch.Tensor, t0: int):
-        self.t0 = t0
-        self.copy = Readback(counts, "codes")
-
-    def record(self) -> None:
-        c = self.copy.result()
-        pairs, rows, most = (int(c[:, 0].sum()), int(c[:, 1].sum()),
-                             int(c[:, 2].max()))
-        trace.add("talker.moe", self.t0, time.monotonic_ns(), pairs=pairs,
-                  rows=rows, max_rows=most)
-        trace.count("moe.pairs", pairs)
-        trace.count("moe.rows", rows)
-
-
-class PCMRef:
-    """One stream's row of a batch audio readback still in flight: the
-    whole [nb, T] int16 copy, this stream's row and its valid sample
-    count. One copy serves every stream of the batch."""
-
-    __slots__ = ("fut", "row", "valid")
-
-    def __init__(self, fut: Readback, row: int, valid: int | None = None):
-        self.fut = fut
-        self.row = row
-        self.valid = valid
-
-    def resolve(self) -> np.ndarray:
-        arr = self.fut.result()[self.row]
-        return arr[:self.valid] if self.valid is not None else arr
 
 
 @dataclass
@@ -195,7 +104,6 @@ class TTSParams:
     language_id: int = 2050     # English
     seed: int | None = None
     print_timing: bool = True   # a stage report on stderr per batch
-    streaming_vocoder: bool = True   # 40-frame chunked decode
 
 
 @dataclass
@@ -546,10 +454,9 @@ class Qwen3TTS:
         is seeded from params.seed (or at random). on_chunk(stream, samples)
         fires per decoded 40-frame chunk. QWEN3_TTS_PROFILE=<dir> writes a
         torch.profiler trace of the call (utils/trace.py). The call is a
-        ``call`` span; inside it ``call.tokenize``, ``call.prefill``, a
+        ``call`` span holding ``call.tokenize``, ``call.prefill``, a
         ``call.dispatch`` a chunk, a ``call.decode`` a vocoder wave
-        (``rows``, ``bucket``), and ``call.tail_flush``, which holds the
-        ragged tails' one bucketed wave, a ``call.decode`` too."""
+        (``rows``, ``bucket``) and ``call.tail_flush`` (the tails' wave)."""
         with profile_trace("synthesize_batch"), \
                 trace.span("call", streams=len(texts)):
             return self._synthesize_batch_impl(texts, embeddings, params,
@@ -614,62 +521,44 @@ class Qwen3TTS:
                 state, consts, bufs = self._lockstep_state(
                     prefill, max_ctx, p, generator, active)
 
-            frames: list[list[np.ndarray]] = [[] for _ in range(B)]
-            audio_parts: list[list[np.ndarray]] = [[] for _ in range(B)]
+            streams = StreamCodes.alloc(B, p.max_audio_tokens, cfg.n_codebooks)
             n_chunks = -(-p.max_audio_tokens // CHUNK_FRAMES)
-            greedy = p.temperature <= 0.0
-            steps_dispatched = 0
 
-            def dispatch():
-                """Enqueue one chunk and the copies of its (codes, valid,
-                done), in stream order, before any later chunk."""
-                nonlocal steps_dispatched
-                t_dispatch = time.monotonic_ns()
+            def dispatch(k: int) -> ChunkCopies:
                 with trace.span("call.dispatch"):
-                    # every stream's n_past is at most prefill + frames so
-                    # far
-                    read_ctx = ctx_bucket(prefill_len + steps_dispatched,
-                                          CHUNK_FRAMES, max_ctx)
-                    steps_dispatched += CHUNK_FRAMES
-                    codes, valid = self._gen_fn(state, consts, bufs,
-                                                read_ctx, p.top_k, greedy,
-                                                p.top_p)()
-                    done = state.done
-                    if self.mesh is not None:   # the whole batch, every rank
-                        codes, valid, done = gather_chunk(self.mesh, codes,
-                                                          valid, done)
-                    return (Readback(codes, "codes"),
-                            Readback(valid, "codes"), Readback(done, "done"),
-                            self._moe_readback(t_dispatch))
+                    # every stream's n_past is at most prefill + k chunks
+                    return self.enqueue_chunk(state, consts, bufs, ctx_bucket(
+                        prefill_len + k * CHUNK_FRAMES, CHUNK_FRAMES,
+                        max_ctx), p)
 
-            # module docstring: chunk k+1 is enqueued as soon as chunk k's
+            def deliver(i: int, ref) -> None:
+                b = ready[i][0]      # the stream of the wave's row i
+                streams[b].audio.append(ref)
+                if on_chunk:
+                    on_chunk(b, ref.to_f32())
+
+            # runtime/stream.py: chunk k+1 is enqueued as soon as chunk k's
             # `done` is home, before chunk k's codes are read and decoded
-            inflight, n_dispatched = dispatch(), 1
+            inflight, k = dispatch(0), 1
             while inflight is not None:
-                codes_r, valid_r, done_r, moe_r = inflight
-                inflight = None
-                if n_dispatched < n_chunks and not done_r.result().all():
-                    inflight, n_dispatched = dispatch(), n_dispatched + 1
-                codes_h = codes_r.result()               # [chunk, B, 16]
-                if moe_r is not None:
-                    moe_r.record()
-                valid_h = valid_r.result()               # [chunk, B]
-                for b in range(B):
-                    got = codes_h[valid_h[:, b], b]
-                    have = sum(len(f) for f in frames[b])
-                    got = got[:p.max_audio_tokens - have]
-                    if len(got):
-                        frames[b].append(got)
-                if p.streaming_vocoder and self.voc_w is not None:
-                    self._decode_streaming(frames, audio_parts, on_chunk,
-                                           rows)
+                chunk, inflight = inflight, None
+                if k < n_chunks and not chunk.done.result().all():
+                    inflight, k = dispatch(k), k + 1
+                codes_h, valid_h, _ = chunk.take()
+                for b, s in enumerate(streams):
+                    s.take(codes_h, valid_h, b)
+                while self.voc_w is not None and (ready := [
+                        (b, c) for b in rows
+                        if (c := streams[b].next_chunk())]):
+                    decode_wave(self, [c for _, c in ready], len(rows),
+                                "call.decode", deliver=deliver)
             if state.generator is not generator:
                 generator.set_state(state.generator.get_state())
             with trace.span("call.tail_flush"):
                 for b in range(B):
                     if b in bad:
                         continue
-                    n = sum(len(f) for f in frames[b])
+                    n = streams[b].n_frames
                     results[b].n_frames = n
                     if n == 0:
                         results[b].error_msg = "No speech codes generated"
@@ -680,14 +569,9 @@ class Qwen3TTS:
                     results[b].sample_rate = self.voc_cfg.sample_rate
                     results[b].success = True
                 # this rank's streams with audio to make
-                mine = [b for b in rows if results[b].success]
-                if p.streaming_vocoder:
-                    self._flush_streaming(mine, frames, audio_parts,
-                                          on_chunk, len(rows), results)
-                else:
-                    for b in mine:
-                        results[b].audio = self.decode_codes(
-                            np.concatenate(frames[b]))
+                self._flush_tails(streams, [b for b in rows
+                                            if results[b].success],
+                                  on_chunk, len(rows), results)
                 if self.mesh is not None:
                     for part in gather_objects(self.mesh, {
                             b: results[b].audio for b in rows}):
@@ -726,16 +610,6 @@ class Qwen3TTS:
                 if any(s.name == name for s in spans)}
 
     # -- vocoder paths -------------------------------------------------------
-    def decode_codes(self, frames: np.ndarray,
-                     trim: str = "both") -> np.ndarray:
-        """Full-sequence decode of [F, 16] codes."""
-        codes = torch.as_tensor(frames[None], dtype=torch.int32,
-                                device=self.device)
-        with torch.inference_mode():
-            audio = vocoder.vocoder_decode(self._vocoder_weights(),
-                                           self.voc_cfg, codes, trim)
-        return audio[0].cpu().numpy()
-
     def decode_codes_chunked(self, frames: np.ndarray,
                              chunk: int = CHUNK_FRAMES) -> np.ndarray:
         """Independent fixed-size chunk decode: each chunk zero-padded to
@@ -773,8 +647,8 @@ class Qwen3TTS:
         """[n, CHUNK, 16] -> [n, CHUNK*1920] audio (causal trim), the tail
         in sub-batches of at most max_batch (default VOC_MAX_BATCH; the
         continuous batcher passes its own cap per call). pcm16: return
-        int16 PCM as a tensor on the engine's device, for readback_submit;
-        otherwise host f32."""
+        int16 PCM as a tensor on the engine's device, for a ``Readback``
+        (runtime/stream.py); otherwise host f32."""
         n = len(codes)
         sub = self.voc_sub(n, max_batch)
         with torch.inference_mode():
@@ -782,13 +656,47 @@ class Qwen3TTS:
             host = torch.from_numpy(np.ascontiguousarray(codes, np.int32))
             if buf.is_cuda:
                 # from pageable memory the copy would wait for every chunk
-                # queued ahead (module docstring); a pinned block from the
+                # queued ahead (runtime/stream.py); a pinned block from the
                 # caching host allocator stays alive until the copy is done
                 buf.copy_(host.pin_memory(), non_blocking=True)
             else:
                 buf.copy_(host)
             audio = decode()
             return audio if pcm16 else audio.cpu().numpy()
+
+    def _flush_tails(self, streams: list[StreamCodes], mine: list[int],
+                     on_chunk, n_rows: int, results) -> None:
+        """Decode the ragged tails (< 40 frames) of the streams `mine` as
+        one vocoder wave, in the bucket of a batch of `n_rows` streams
+        that covers them (never above n_rows, so one wave holds every
+        tail). While the card decodes it, the host writes each stream's
+        ``results[b].audio`` up to its tail; then, stream by stream (so in
+        row order), the tail's samples go to on_chunk and end the
+        waveform."""
+        tails = [(b, c) for b in mine
+                 if (c := streams[b].next_chunk(final=True))]
+        refs = {}
+        if tails:
+            refs = dict(zip((b for b, _ in tails), decode_wave(
+                self, [c for _, c in tails], n_rows, "call.decode")))
+        # A stream's tail samples get their array just before its
+        # waveform: allocated after all the waveforms, they would leave
+        # the waveforms together at the top of the heap, which malloc
+        # gives back to the system once the caller frees them, and the
+        # next call's chunk samples would fault fresh pages in (~0.5 s a
+        # call of 192 streams, measured on an H100 host).
+        samples = {}
+        for b in mine:
+            n = refs[b].valid if b in refs else 0
+            if n and on_chunk:
+                samples[b] = np.empty(n, np.float32)
+            results[b].audio = streams[b].waveform(n)
+        for b, ref in refs.items():
+            tail = results[b].audio[len(results[b].audio) - ref.valid:]
+            ref.to_f32(tail)
+            if b in samples:
+                samples[b][:] = tail
+                on_chunk(b, samples[b])
 
     # -- compiled executables (runtime/graphs.py) --------------------------
     @property
@@ -815,10 +723,9 @@ class Qwen3TTS:
                 top_k: int, greedy: bool, top_p: float, ring: bool = False):
         """The generation chunk over `state` and `consts` (static
         buffers, owner id `buffers`) at one read_ctx bucket: a callable
-        returning (codes [chunk, B, 16], valid [chunk, B]), buffers of
-        this key that the next chunk overwrites, so a caller takes their
-        copies (``Readback``) in stream order before it enqueues another.
-        A chunk is CHUNK_FRAMES calls of the frame's graph on the card
+        returning (codes [chunk, B, 16], valid [chunk, B]), buffers that
+        the next chunk overwrites (``enqueue_chunk`` copies them home
+        first). A chunk is CHUNK_FRAMES calls of the frame's graph on the card
         (captured on the first), which writes its codes at a frame index
         kept on the card: a 40-frame graph replays no faster, and
         instantiating one takes longer than the eager chunk under
@@ -871,18 +778,27 @@ class Qwen3TTS:
 
         return chunk
 
+    def enqueue_chunk(self, state, consts, buffers: int, read_ctx: int,
+                      p: TTSParams, ring: bool = False) -> ChunkCopies:
+        """Enqueue one generation chunk (``_gen_fn`` at read_ctx, sampling
+        as `p` says) and, before any later chunk, the copies home of its
+        (codes, valid, done), on a mesh gathered over dp so that every
+        rank holds the whole batch, and of an MoE talker's counters."""
+        t0 = time.monotonic_ns()
+        codes, valid = self._gen_fn(state, consts, buffers, read_ctx,
+                                    p.top_k, p.temperature <= 0.0, p.top_p,
+                                    ring)()
+        done = state.done
+        if self.mesh is not None:
+            codes, valid, done = gather_chunk(self.mesh, codes, valid, done)
+        return ChunkCopies(codes, valid, done, self._moe_counts(), t0)
+
     def _moe_counts(self) -> torch.Tensor | None:
         """The sparse-MoE talker's counters [L, 3] (``from_components``),
         else None."""
         if self.talker_w is None:
             return None
         return self.talker_w["layers"].get("moe_counts")
-
-    def _moe_readback(self, t0: int) -> MoECounts | None:
-        """The chunk just enqueued's MoE counters on their way home (None
-        for a dense talker); taken right after the chunk, as its codes."""
-        counts = self._moe_counts()
-        return None if counts is None else MoECounts(counts, t0)
 
     def _dp_split(self, B: int) -> tuple[int, int, int]:
         """(rows, lo, hi): a batch of B streams padded to a multiple of dp
@@ -971,120 +887,3 @@ class Qwen3TTS:
             return self.voc_w
         return _tree_map(lambda t: t.to(self.device, non_blocking=True),
                          self.voc_w)
-
-    def readback_submit(self, dev_audio: torch.Tensor) -> Readback:
-        """Start ONE whole-batch [nb, T] copy to the host; returns it."""
-        return Readback(dev_audio, "audio")
-
-    @staticmethod
-    def _pcm_parts_to_f32(parts, room: int = 0) -> np.ndarray:
-        """Resolve deferred chunk readbacks -> one host f32 waveform,
-        followed by `room` samples left for the caller to write."""
-        rows = [p.resolve() if isinstance(p, PCMRef) else np.asarray(p)
-                for p in parts]
-        out = np.empty(sum(len(r) for r in rows) + room, np.float32)
-        at = 0
-        for r in rows:
-            Qwen3TTS._pcm_to_f32(r, out[at:at + len(r)])
-            at += len(r)
-        return out
-
-    @staticmethod
-    def _pcm_to_f32(part, out: np.ndarray | None = None) -> np.ndarray:
-        """int16 PCM (a PCMRef is resolved) -> f32, value = i / 32767,
-        inverting the vocoder's pcm16; written into `out` when given."""
-        part = part.resolve() if isinstance(part, PCMRef) else np.asarray(part)
-        return np.divide(part, 32767.0, out=out, dtype=np.float32)
-
-    @staticmethod
-    def _slice_pieces(pieces, start: int, count: int) -> np.ndarray:
-        """Rows [start, start + count) of the concatenation of `pieces`,
-        without concatenating a stream's whole history every wave."""
-        out, seen, end = [], 0, start + count
-        for arr in pieces:
-            a0, a1 = seen, seen + len(arr)
-            seen = a1
-            if a1 <= start:
-                continue
-            if a0 >= end:
-                break
-            out.append(arr[max(0, start - a0):end - a0])
-        return out[0] if len(out) == 1 else np.concatenate(out)
-
-    def _decode_streaming(self, frames, audio_parts, on_chunk,
-                          rows: range) -> None:
-        """Decode every stream of `rows` holding a full undecoded 40-frame
-        chunk, as one [n, 40] vocoder batch per wave; the audio stays on
-        the device until a consumer resolves it."""
-        n_cb = self.talker_cfg.n_codebooks
-        while True:
-            ready = []
-            for b in rows:
-                total = sum(len(f) for f in frames[b])
-                done = len(audio_parts[b]) * CHUNK_FRAMES
-                if total - done >= CHUNK_FRAMES:
-                    ready.append((b, self._slice_pieces(frames[b], done,
-                                                        CHUNK_FRAMES)))
-            if not ready:
-                return
-            nb = self.voc_bucket(len(ready), len(rows))
-            with trace.span("call.decode", rows=len(ready), bucket=nb):
-                batch = np.zeros((nb, CHUNK_FRAMES, n_cb), np.int32)
-                for i, (_, part) in enumerate(ready):
-                    batch[i] = part
-                fut = self.readback_submit(
-                    self._decode_chunk_batch(batch, pcm16=True))
-                for i, (b, _) in enumerate(ready):
-                    ref = PCMRef(fut, i)
-                    audio_parts[b].append(ref)
-                    if on_chunk:
-                        on_chunk(b, self._pcm_to_f32(ref))
-
-    def _flush_streaming(self, streams, frames, audio_parts, on_chunk,
-                         n_rows: int, results) -> None:
-        """Decode the ragged tails (< 40 frames) of `streams` as one
-        vocoder wave: each zero-padded to the fixed chunk, in the
-        smallest bucket covering them of a batch of `n_rows` streams
-        (never above n_rows, so one wave holds every tail). While the
-        card decodes it, the host writes each stream's
-        ``results[b].audio`` up to its tail; then, stream by stream (so
-        in row order), the tail's samples go to on_chunk and end the
-        waveform."""
-        tails = []
-        for b in streams:
-            total = sum(len(f) for f in frames[b])
-            done = len(audio_parts[b]) * CHUNK_FRAMES
-            if done < total:
-                tails.append((b, self._slice_pieces(frames[b], done,
-                                                    total - done)))
-        refs = {}
-        if tails:
-            nb = self.voc_bucket(len(tails), n_rows)
-            with trace.span("call.decode", rows=len(tails), bucket=nb):
-                batch = np.zeros(
-                    (nb, CHUNK_FRAMES, self.talker_cfg.n_codebooks), np.int32)
-                for i, (_, part) in enumerate(tails):
-                    batch[i, :len(part)] = part
-                fut = self.readback_submit(
-                    self._decode_chunk_batch(batch, pcm16=True))
-            for i, (b, part) in enumerate(tails):
-                refs[b] = PCMRef(fut, i, vocoder.vocoder_output_length(
-                    self.voc_w, self.voc_cfg, len(part), trim="causal"))
-        # A stream's tail samples get their array just before its
-        # waveform: allocated after all the waveforms, they would leave
-        # the waveforms together at the top of the heap, which malloc
-        # gives back to the system once the caller frees them, and the
-        # next call's chunk samples would fault fresh pages in (~0.5 s a
-        # call of 192 streams, measured on an H100 host).
-        samples = {}
-        for b in streams:
-            n = refs[b].valid if b in refs else 0
-            if n and on_chunk:
-                samples[b] = np.empty(n, np.float32)
-            results[b].audio = self._pcm_parts_to_f32(audio_parts[b], n)
-        for b, ref in refs.items():
-            tail = results[b].audio[len(results[b].audio) - ref.valid:]
-            self._pcm_to_f32(ref, tail)
-            if b in samples:
-                samples[b][:] = tail
-                on_chunk(b, samples[b])

@@ -8,11 +8,11 @@ shared ring slot of the KV cache (runtime/generate.py, ring mode), and
 decode attention reads each stream's bitmask inside its lifetime window
 (ops/flash_decode.py on the card).
 
-Dispatch is pipelined: the next chunk is enqueued before this chunk's
-codes are decoded, and chunk codes and audio come back through
-non-blocking copies into pinned memory (pipeline.Readback), so the host
-waits on the card only where it needs a value. On an engine without a
-vocoder the slots generate codes and return no audio.
+The chunk loop runs on the core that the lock-step call shares
+(runtime/stream.py): the next chunk is enqueued before this chunk's codes
+are decoded, so the host waits on the card only where it needs a value.
+On an engine without a vocoder the slots generate codes and return no
+audio.
 
 Failure isolation covers host-side failures: a poisoned text or
 embedding, or a raising on_audio callback, fails its request only; any
@@ -22,27 +22,24 @@ illegal address, a trapped kernel) poisons the CUDA context of the
 process: the rebuild then fails too, and only a new process recovers.
 
 Compiled executables (runtime/graphs.py): on the card each chunk replays
-the CUDA graph of its read_ctx bucket (``_gen_fn``), which reads and
-writes the batcher's state in place; ``_reset_state`` and
-``_fail_inflight`` rebuild that state into the same buffers, so the
-graphs stay valid. ``warmup()`` captures every bucket the serving loop can
-reach before traffic arrives. Admission and park run once per request,
-not once per frame, and stay eager.
+its read_ctx bucket's CUDA graph over the batcher's state, which
+``_reset_state`` and ``_fail_inflight`` rebuild in place; ``warmup()``
+captures every bucket before traffic arrives. Admission and park run once
+per request and stay eager.
 
 On a sharded engine (``Qwen3TTS.shard``) n_slots must be a multiple of dp
 (ValueError otherwise; the JAX package's fallback to GSPMD propagation
 has no counterpart). Each rank holds the device state of its n_slots / dp
 slots; the host scheduler (queue, free slots, admissions, park, retire,
 finalize) runs the same on every rank over the global slot table, fed by
-one ``all_gather`` over dp of each chunk's (codes, valid, done), whose
-copy to the host stays non-blocking on NCCL. A slot is admitted, parked
-and decoded by the rank that owns it; at each step with retirements the
-ranks exchange the finished results over dp (the retired slots' audio
-copies are waited for there), so that ``run_all`` returns the same
-results on every rank, and ``on_audio`` fires on the owning ranks. A
-failure inside a step on some ranks only is not coordinated: the
-isolation above holds where every rank sees the failure alike (a bad
-request).
+each chunk's copies gathered over dp (``Qwen3TTS.enqueue_chunk``). A slot
+is admitted, parked and decoded by the rank that owns it; at each step
+with retirements the ranks exchange the finished results over dp (the
+retired slots' audio copies are waited for there), so that ``run_all``
+returns the same results on every rank, and ``on_audio`` fires on the
+owning ranks. A failure inside a step on some ranks only is not
+coordinated: the isolation above holds where every rank sees the failure
+alike (a bad request).
 
 Spans (utils/trace.py): a ``serve.step`` a step (``busy`` slots at its
 dispatch, ``slots``), inside it ``serve.admit`` (``admitted``),
@@ -63,35 +60,28 @@ import os
 import sys
 import time
 import traceback
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..models import talker, vocoder
-from ..parallel.mesh import (dp_rows, gather_chunk, gather_objects,
-                             mesh_dims, rank_seed)
+from ..models import talker
+from ..parallel.mesh import dp_rows, gather_objects, mesh_dims, rank_seed
 from ..utils import trace
 from .generate import (RING_PREFILL_SLOTS, admit_slots, ctx_bucket,
                        init_state, kv_quant_enabled, make_consts, park_slot,
                        required_ctx_ring)
 from .graphs import new_buffer_id
-from .pipeline import (CHUNK_FRAMES, PCMRef, Qwen3TTS, Readback, TTSParams,
-                       TTSResult)
+from .pipeline import Qwen3TTS, TTSParams, TTSResult
+from .stream import CHUNK_FRAMES, PCMRef, StreamCodes, decode_wave
 
 
 @dataclass
 class _Slot:
     busy: bool = False
     request_id: int = -1
-    # preallocated [max_frames, n_codebooks] frame buffer: appends and chunk
-    # reads are O(1) slices
-    buf: np.ndarray | None = None
-    n_frames: int = 0      # frames generated into buf
-    n_decoded: int = 0     # frames already sent to the vocoder
-    audio: list = field(default_factory=list)
-    max_frames: int = 0
+    codes: StreamCodes | None = None   # its codes and the audio made of them
     t_start: int = 0           # admission, ns (time.monotonic_ns)
     t_queue_ms: float = 0.0    # submit -> admission wall time
     on_audio: Callable[[np.ndarray, bool], None] | None = None
@@ -170,8 +160,7 @@ class ContinuousBatcher:
             prefill = prefill._replace(
                 trailing_hidden=self._pad_trailing(prefill.trailing_hidden))
             self._steps_done = 0
-            self._inflight = None   # (codes, valid, done) copies of a chunk
-            #                         and its MoE counts (None if dense)
+            self._inflight = None   # a dispatched chunk's ChunkCopies
             # a prefill past the reserved region would put write_slot past
             # RING_PREFILL_SLOTS and the ring wrap would overwrite live
             # prefill rows
@@ -198,7 +187,7 @@ class ContinuousBatcher:
         counts round up to 16-multiples), through the trailing-buffer
         growth of the live path; park; the generation chunk at every
         read_ctx bucket the ring can reach; the vocoder at every decode
-        bucket, int16 PCM as ``_decode_slots`` calls it. On the card the
+        bucket, int16 PCM as ``decode_wave`` calls it. On the card the
         chunks and the decodes are captured as CUDA graphs
         (runtime/graphs.py); admission and park stay eager. Then the
         state is rebuilt pristine, in place."""
@@ -393,8 +382,8 @@ class ContinuousBatcher:
         for j in range(take):
             rid, _, _, on_audio, t_submit = batch[j]
             self.slots[slot_ids[j]] = _Slot(
-                busy=True, request_id=rid, max_frames=self.max_frames,
-                buf=np.empty((self.max_frames, cfg.n_codebooks), np.int32),
+                busy=True, request_id=rid, codes=StreamCodes.alloc(
+                    1, self.max_frames, cfg.n_codebooks)[0],
                 t_start=t_admit, on_audio=on_audio,
                 t_queue_ms=(t_admit - t_submit) / 1e6)
             trace.add("req.queue", t_submit, t_admit, rid=rid)
@@ -402,37 +391,25 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------------
     def _dispatch_chunk(self) -> None:
-        """Enqueue one 40-frame generation chunk on the device."""
+        """Enqueue one 40-frame generation chunk and its copies home
+        (``Qwen3TTS.enqueue_chunk``)."""
         self._busy_at_dispatch = sum(s.busy for s in self.slots)
-        t_dispatch = time.monotonic_ns()
         with trace.span("serve.dispatch"):
             # attention reads the prefill region + every ring slot written
             # so far (bucketed; the whole cache once the ring has wrapped),
             # known on the host without reading the device
             covered = RING_PREFILL_SLOTS + self._steps_done + CHUNK_FRAMES
             read_ctx = ctx_bucket(min(covered, self.ctx), 0, self.ctx)
-            codes, valid = self._gen_fn(read_ctx)()
+            self._inflight = self.engine.enqueue_chunk(
+                self.state, self.consts, self._buffers, read_ctx,
+                self.params, ring=True)
             self._steps_done += CHUNK_FRAMES
-            done = self.state.done
-            if self.mesh is not None:     # every slot's, on every rank
-                codes, valid, done = gather_chunk(self.mesh, codes, valid,
-                                                  done)
-            # start the host copies now, with `done` as of this chunk: the
-            # live state moves on (admissions, parks, the next chunk, which
-            # overwrites a graph's codes and valid) before step() reads them
-            self._inflight = (Readback(codes, "codes"),
-                              Readback(valid, "codes"),
-                              Readback(done, "done"),
-                              self.engine._moe_readback(t_dispatch))
 
     def step(self) -> dict[int, TTSResult]:
         """Process one 40-frame chunk across all slots; admit queued
-        requests into freed slots; return results of finished requests.
-
-        The next chunk is enqueued before this chunk's vocoder decode runs,
-        so the card always has queued work; requests admitted into slots
-        freed this step join that next chunk. Failure isolation as in the
-        module docstring."""
+        requests into freed slots, which join the next chunk; return
+        results of finished requests. Failure isolation as in the module
+        docstring."""
         self._busy_at_dispatch = 0
         with torch.inference_mode(), trace.span(
                 "serve.step", slots=self.n_slots) as sp:
@@ -480,13 +457,10 @@ class ContinuousBatcher:
                 # nothing generating: only in-flight readbacks remain
                 return self._drain_finalizing(block=True)
             self._dispatch_chunk()
-        codes_h, valid_h, done_h = (r.result() for r in self._inflight[:3])
-        if self._inflight[3] is not None:
-            self._inflight[3].record()
+        codes_h, valid_h, done_h = self._inflight.take()
         self._inflight = None
 
-        live: list[_Slot] = []
-        retired: list[_Slot] = []
+        live, retired = [], []
         self._retiring = retired  # visible to _fail_inflight: slots freed
         #                           below must still fail loudly if the
         #                           decode or finalize raises
@@ -494,16 +468,13 @@ class ContinuousBatcher:
         for b, slot in enumerate(self.slots):
             if not slot.busy:
                 continue
-            got = codes_h[valid_h[:, b], b]
-            got = got[:slot.max_frames - slot.n_frames]
-            if len(got) and not slot.n_frames:
+            sc = slot.codes
+            got = sc.take(codes_h, valid_h, b)
+            if got and sc.n_frames == got:
                 trace.add("req.first_codes", slot.t_start,
                           time.monotonic_ns(), rid=slot.request_id)
-            if len(got):
-                slot.buf[slot.n_frames:slot.n_frames + len(got)] = got
-                slot.n_frames += len(got)
             mine = self._owns(b)    # another rank's slot: bookkeeping only
-            if bool(done_h[b]) or slot.n_frames >= slot.max_frames:
+            if bool(done_h[b]) or sc.n_frames >= sc.cap:
                 if not bool(done_h[b]) and mine:
                     # retired by the frame cap, not EOS: stop the device
                     # stream so its cache position freezes
@@ -520,7 +491,7 @@ class ContinuousBatcher:
         self._admit_pending()
         if any(s.busy for s in self.slots):
             self._dispatch_chunk()
-        self._decode_slots(live, retired)
+        self._decode_ready(live, retired)
         # retired slots wait for their audio copies; emit those (earlier
         # or current) whose copies have landed. Block only when no device
         # work is left to overlap with.
@@ -546,7 +517,7 @@ class ContinuousBatcher:
         still: list[_Slot] = []
         with trace.span("serve.finalize") as sp:
             for slot in self._finalizing:
-                if block or all(p.fut.done() for p in slot.audio):
+                if block or all(r.fut.done() for r in slot.codes.audio):
                     out[slot.request_id] = self._finalize(slot)
                 else:
                     still.append(slot)
@@ -554,85 +525,52 @@ class ContinuousBatcher:
         self._finalizing = still
         return out
 
-    def _decode_slots(self, live: list[_Slot], retired: list[_Slot]) -> None:
-        """Vocoder-decode every slot's ready 40-frame chunks, batched
-        across slots (one [n, 40] call per wave), plus the ragged final
-        tail of retired slots. Nothing without a vocoder."""
+    def _decode_ready(self, live: list[_Slot], retired: list[_Slot]) -> None:
+        """Waves (``decode_wave``) of every slot's ready 40-frame chunks
+        and of retired slots' ragged tails. Nothing without a vocoder."""
         if self.engine.voc_w is None:
             return
-        n_cb = self.cfg.n_codebooks
-        eng = self.engine
         targets = [(s, False) for s in live] + [(s, True) for s in retired]
-        while True:
-            work: list[tuple[_Slot, np.ndarray, int, bool]] = []
-            for slot, is_retired in targets:
-                remaining = slot.n_frames - slot.n_decoded
-                if remaining >= CHUNK_FRAMES:
-                    # a retired stream's last FULL chunk is its final audio
-                    # too: streaming consumers close on final=True
-                    work.append((slot, slot.buf[slot.n_decoded:
-                                                slot.n_decoded + CHUNK_FRAMES],
-                                 CHUNK_FRAMES,
-                                 is_retired and remaining == CHUNK_FRAMES))
-                elif remaining > 0 and is_retired:
-                    part = np.zeros((CHUNK_FRAMES, n_cb), np.int32)
-                    part[:remaining] = slot.buf[slot.n_decoded:slot.n_frames]
-                    work.append((slot, part, remaining, True))
-            if not work:
-                return
-            nb = eng.voc_bucket(len(work), self.n_local)
-            with trace.span("serve.decode", rows=len(work), bucket=nb):
-                self._decode_wave(work, nb)
+        while work := [(s, ret, c) for s, ret in targets
+                       if (c := s.codes.next_chunk(final=ret))]:
+            decode_wave(self.engine, [c for _, _, c in work], self.n_local,
+                        "serve.decode", self.voc_max_batch,
+                        lambda i, ref: self._send(*work[i][:2], ref))
 
-    def _decode_wave(self, work: list, nb: int) -> None:
-        """One vocoder wave of `work` (slot, [40, n_cb] codes, frames,
-        final) in a decode bucket of `nb` rows; each slot's audio goes to
-        its on_audio at once."""
-        eng = self.engine
-        batch = np.zeros((nb, CHUNK_FRAMES, self.cfg.n_codebooks), np.int32)
-        for i, (_, chunk, _, _) in enumerate(work):
-            batch[i] = chunk
-        # int16 PCM on the device; ONE whole-batch copy per decode
-        fut = eng.readback_submit(eng._decode_chunk_batch(
-            batch, pcm16=True, max_batch=self.voc_max_batch))
-        for i, (slot, _, k, is_tail) in enumerate(work):
-            slot.n_decoded += k
-            valid = None
-            if k < CHUNK_FRAMES:
-                valid = vocoder.vocoder_output_length(
-                    eng.voc_w, eng.voc_cfg, k, trim="causal")
-            ref = PCMRef(fut, i, valid)
-            slot.audio.append(ref)
-            if slot.on_audio:
-                try:
-                    pcm = Qwen3TTS._pcm_to_f32(ref)
-                    if len(pcm) and not slot.first_audio_sent:
-                        trace.add("req.first_audio", slot.t_start,
-                                  time.monotonic_ns(), rid=slot.request_id)
-                        slot.first_audio_sent = True
-                    slot.on_audio(pcm, is_tail)
-                    slot.final_sent = slot.final_sent or is_tail
-                except Exception as e:
-                    # a raising sink fails ITS request, not the batch
-                    slot.error = (f"on_audio callback failed: "
-                                  f"{type(e).__name__}: {e}")
-                    slot.on_audio = None
+    @staticmethod
+    def _send(slot: _Slot, retired: bool, ref: PCMRef | None) -> None:
+        """One decoded chunk to the slot's on_audio, final on a retired
+        stream's last chunk, a full one too (streaming consumers close on
+        final=True); ref None: an empty final one. A raising sink fails
+        ITS request, not the batch."""
+        if ref is not None:
+            slot.codes.audio.append(ref)
+        if not slot.on_audio:
+            return
+        final = ref is None or (retired and
+                                slot.codes.n_decoded == slot.codes.n_frames)
+        try:
+            pcm = np.zeros(0, np.float32) if ref is None else ref.to_f32()
+            if len(pcm) and not slot.first_audio_sent:
+                trace.add("req.first_audio", slot.t_start,
+                          time.monotonic_ns(), rid=slot.request_id)
+                slot.first_audio_sent = True
+            slot.on_audio(pcm, final)
+        except Exception as e:
+            slot.error = f"on_audio callback failed: {type(e).__name__}: {e}"
+            slot.on_audio = None
+        slot.final_sent = slot.final_sent or final
 
     def _finalize(self, slot: _Slot) -> TTSResult:
-        if slot.on_audio and not slot.final_sent and not slot.error:
+        if not slot.final_sent and not slot.error:
             # the stream's audio all went out while it was live (it retired
             # at a decoded chunk boundary): close it with an empty chunk
-            try:
-                slot.on_audio(np.zeros(0, np.float32), True)
-            except Exception as e:
-                slot.error = (f"on_audio callback failed: "
-                              f"{type(e).__name__}: {e}")
-            slot.final_sent = True
+            self._send(slot, True, None)
         voc_cfg = self.engine.voc_cfg
-        r = TTSResult(n_frames=slot.n_frames,
+        r = TTSResult(n_frames=slot.codes.n_frames,
                       sample_rate=voc_cfg.sample_rate if voc_cfg else 24000)
         try:
-            r.audio = Qwen3TTS._pcm_parts_to_f32(slot.audio)
+            r.audio = slot.codes.waveform()
         except Exception as e:  # a readback failure is per request too
             slot.error = slot.error or (f"audio readback failed: "
                                         f"{type(e).__name__}: {e}")

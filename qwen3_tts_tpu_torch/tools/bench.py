@@ -23,7 +23,7 @@ CUDA graphs that ``synthesize_batch`` and serving replay:
 ``Qwen3TTS._gen_fn`` over the engine's static lock-step state
 (``Qwen3TTS._lockstep_state``), ``Qwen3TTS._decode_chunk_batch`` (the
 pinned upload and ``_voc_fn``'s graph), and chunk codes leave through
-``pipeline.Readback``. The read window is tracked on the host, as the
+``stream.Readback``. The read window is tracked on the host, as the
 pipeline does. Each timed section starts from a fresh prefill into the
 same buffers, so no section writes past the cache (which holds
 --max-frames frames, or a section's chunks if they are more); with the
@@ -54,7 +54,8 @@ import torch
 from ..models import talker, vocoder
 from ..ops import vocoder_fused as vf
 from ..runtime.generate import ctx_bucket, required_ctx
-from ..runtime.pipeline import Qwen3TTS, Readback, TTSParams
+from ..runtime.pipeline import Qwen3TTS, TTSParams
+from ..runtime.stream import Readback
 from .bench_common import (FRAME_BUDGET_MS, NoDevice, add_common_args,
                            card_line, env, launch_counts, launches_since, log,
                            random_weights, resolve_device, sync)

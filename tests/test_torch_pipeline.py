@@ -25,6 +25,7 @@ from qwen3_tts_tpu.models.weights import (init_talker_weights,  # noqa: E402
 from qwen3_tts_tpu.runtime import pipeline as jpipe  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.runtime import pipeline as tpipe  # noqa: E402
+from qwen3_tts_tpu_torch.runtime import stream as tstream  # noqa: E402
 from qwen3_tts_tpu_torch.utils import trace  # noqa: E402
 
 from .test_tokenizer import make_tiny_tokenizer  # noqa: E402
@@ -132,6 +133,22 @@ def test_call_spans_flush_and_decodes(engines, capsys):
         assert line in err
 
 
+def _record_streams(monkeypatch, seen):
+    """seen["streams"]: the StreamCodes of each later synthesize_batch
+    call, the codes the loop hands to the vocoder."""
+    alloc = tstream.StreamCodes.alloc
+
+    def record(*a, **kw):
+        seen["streams"] = alloc(*a, **kw)
+        return seen["streams"]
+
+    monkeypatch.setattr(tstream.StreamCodes, "alloc", record)
+
+
+def _stream_codes(seen):
+    return [s.buf[:s.n_frames] for s in seen["streams"]]
+
+
 # frames each stream keeps, each at most what it makes greedily before
 # its EOS: fewer than one chunk, a chunk boundary, and three ragged tails
 # of other lengths
@@ -173,20 +190,14 @@ def test_tail_wave_pairs_rows_with_callbacks(engines, monkeypatch):
         decodes[-1] = (rows, out, i + 1)
         calls.append((b, len(decodes) - 1, i, pcm))
 
-    stream = teng._decode_streaming
-
-    def record(frames, *a):
-        seen["frames"] = frames
-        return stream(frames, *a)
-
     monkeypatch.setattr(teng, "_gen_fn", cut)
     monkeypatch.setattr(teng, "_decode_chunk_batch", decode)
-    monkeypatch.setattr(teng, "_decode_streaming", record)
+    _record_streams(monkeypatch, seen)
     res = teng.synthesize_batch(texts, params=tpipe.TTSParams(
         max_audio_tokens=120, temperature=0.0, seed=0), on_chunk=on_chunk)
     monkeypatch.undo()
     assert [r.n_frames for r in res] == list(TAIL_FRAMES)
-    frames = [np.concatenate(f) for f in seen["frames"]]
+    frames = _stream_codes(seen)
     for b, k, i, pcm in calls:
         np.testing.assert_array_equal(
             pcm, decodes[k][1][i][:len(pcm)].astype(np.float32) / 32767.0)
@@ -276,14 +287,14 @@ def _recorded_run(mod, eng, params, monkeypatch, keys=None):
     frames (port)."""
     seen = {"chunks": 0, "frames": None}
     calls = [0] * len(TEXTS)
-    decode = eng._decode_streaming
-
-    def record_frames(frames, *a):
-        seen["frames"] = frames
-        return decode(frames, *a)
-
-    monkeypatch.setattr(eng, "_decode_streaming", record_frames)
     if mod is jpipe:
+        decode = eng._decode_streaming
+
+        def record_frames(frames, *a):
+            seen["frames"] = frames
+            return decode(frames, *a)
+
+        monkeypatch.setattr(eng, "_decode_streaming", record_frames)
         chunk = jpipe.generate_chunk
 
         def counted(w, cfg, state, *a, **kw):
@@ -305,6 +316,7 @@ def _recorded_run(mod, eng, params, monkeypatch, keys=None):
             return chunk
 
         monkeypatch.setattr(eng, "_gen_fn", counted_gen_fn)
+        _record_streams(monkeypatch, seen)
         if keys is not None:
             frame = tpipe.generate_frame
             draws, n = {}, [0]
@@ -323,8 +335,9 @@ def _recorded_run(mod, eng, params, monkeypatch, keys=None):
         calls[b] += 1
 
     res = eng.synthesize_batch(TEXTS, params=params, on_chunk=on_chunk)
-    codes = [np.concatenate(f) if f else np.zeros((0, 16), np.int32)
-             for f in seen["frames"]]
+    codes = ([np.concatenate(f) if f else np.zeros((0, 16), np.int32)
+              for f in seen["frames"]] if mod is jpipe else
+             _stream_codes(seen))
     monkeypatch.undo()
     return res, codes, seen["chunks"], calls
 
@@ -376,12 +389,15 @@ def test_pipelined_loop_matches_jax(engines, monkeypatch, case):
 
 
 def test_loop_enqueues_next_chunk_before_decoding(engines, monkeypatch):
-    """Chunk k+1 is dispatched before chunk k's codes are decoded: the
-    order of chunk dispatches ("gen") and streaming decodes ("decode") is
-    gen, then (gen, decode) per later chunk, then the last decode."""
+    """Chunk k+1 is dispatched before chunk k's codes are read and
+    decoded: the order of chunk dispatches ("gen"), reads of a chunk's
+    copies ("read") and vocoder waves ("decode") is gen, then (gen, read)
+    per later chunk, then the last read, with every wave after a read
+    (the first chunk's right after its read) and the tails' wave last."""
     _, teng = engines
     events = []
-    gen_fn, decode = teng._gen_fn, teng._decode_streaming
+    gen_fn, take, wave = (teng._gen_fn, tstream.ChunkCopies.take,
+                          tpipe.decode_wave)
 
     def gen(*a, **kw):
         run = gen_fn(*a, **kw)
@@ -391,17 +407,27 @@ def test_loop_enqueues_next_chunk_before_decoding(engines, monkeypatch):
             return run()
         return chunk
 
-    def dec(*a):
+    def read(copies):
+        events.append("read")
+        return take(copies)
+
+    def dec(*a, **kw):
         events.append("decode")
-        return decode(*a)
+        return wave(*a, **kw)
 
     monkeypatch.setattr(teng, "_gen_fn", gen)
-    monkeypatch.setattr(teng, "_decode_streaming", dec)
+    monkeypatch.setattr(tstream.ChunkCopies, "take", read)
+    monkeypatch.setattr(tpipe, "decode_wave", dec)
     res = teng.synthesize_batch(TEXTS, params=tpipe.TTSParams(
         max_audio_tokens=400, temperature=0.0, seed=0))
     n = events.count("gen")
     assert n >= 2 and all(r.success for r in res)
-    assert events == ["gen"] + ["gen", "decode"] * (n - 1) + ["decode"]
+    assert [e for e in events if e != "decode"] == (
+        ["gen"] + ["gen", "read"] * (n - 1) + ["read"])
+    assert events[:4] == ["gen", "gen", "read", "decode"]
+    assert all(prev != "gen" for prev, e in zip(events, events[1:])
+               if e == "decode")
+    assert events[-1] == "decode"
 
 
 def test_port_imports_no_jax():

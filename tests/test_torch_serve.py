@@ -202,14 +202,13 @@ def test_step_failure_fails_inflight_not_process(engines, monkeypatch):
     cb = tserve.ContinuousBatcher(teng, n_slots=2, params=_params(tpipe),
                                   max_frames=6)
     r1, r2 = cb.submit("hello world."), cb.submit("hello.")
-    real = cb._decode_slots
     calls = {"n": 0}
 
     def boom(*a, **k):
         calls["n"] += 1
         raise RuntimeError("device fell over")
 
-    monkeypatch.setattr(cb, "_decode_slots", boom)
+    monkeypatch.setattr(tserve, "decode_wave", boom)
     out = {}
     for _ in range(4):
         out.update(cb.step())
@@ -220,7 +219,7 @@ def test_step_failure_fails_inflight_not_process(engines, monkeypatch):
                for r in out.values())
     assert not cb.pending()
 
-    monkeypatch.setattr(cb, "_decode_slots", real)
+    monkeypatch.undo()
     base = teng.synthesize("hello world.",
                            _params(tpipe, max_audio_tokens=6))
     r3 = cb.submit("hello world.")
