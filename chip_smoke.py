@@ -7,6 +7,8 @@ port's CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc, sm_90a), then:
 1. prints the device and ``nvidia-smi --query-gpu=name,power.limit``;
 2. holds each kernel against its plain torch twin at the main path's
    shapes, with the tolerance stated on each line, and times both; the
+   code predictor at B 8, 64 and 192 against its twin and its XLA path,
+   timed with its phase clock at B 8, 16, 64, 128 and 192; the
    decode-attention kernel in prefix, bitmask, window and wrapped-window
    modes, with empty streams, for the bf16 and the int8 cache; the
    residual chain at B 2 and 16 and the Snake + convT head at B 2, 16 and
@@ -131,13 +133,16 @@ prints each stage's largest error (the measurement behind
 tools/parity.BF16_TOL).
 
 ``python3 chip_smoke.py --compare DIR`` instead times the code predictor
-(the kernel at the 0.6B dims; ``predict_codes`` at the 1.7B shape), decode
-attention, the talker megakernel, the residual chain and the Snake
-+ convT head through their wrappers in the checkout at DIR and in this
-one, in turns DIR, this, this, DIR, and in the same turns
+(the kernel at the 0.6B dims, with its phase clock; ``predict_codes`` at
+the 1.7B shape), decode attention, the talker megakernel, the residual
+chain and the Snake + convT head through their wrappers in the checkout
+at DIR and in this one, in turns DIR, this, this, DIR, each turn logging
+what ptxas said of every kernel it built, and in the same turns
 ``synthesize_batch`` at B 4 and 64 (120 frames, greedy, bf16 and int8
 KV): generate ms a lock-step frame and wall ms, with every run's codes
-and int16 PCM bitwise the first DIR run's.
+and int16 PCM bitwise its own side's first run's, and this checkout's
+codes DIR's up to each stream's first divergence, a near-tie of DIR's
+scores (margin <= LOGIT_TOL).
 """
 
 from __future__ import annotations
@@ -158,8 +163,10 @@ import torch
 
 SEED = 1234
 CODEPRED_B = 8                 # the lock-step smoke's slots, rounded up
-CODEPRED_CHECK_B = (8, 64)     # kernel vs twin
-CODEPRED_TIME_B = (8, 64, 192)  # timed; 192 is the TPU bench's batch
+CODEPRED_CHECK_B = (8, 64, 192)  # kernel vs twin and XLA path
+# timed, with the phase clock: the benchmark cells' batches (16, 128, 192)
+# and the smoke's
+CODEPRED_TIME_B = (8, 16, 64, 128, 192)
 # (C, T per 40-frame chunk) of the four decoder blocks' residual chains,
 # and (C, C2, rate, T) of their Snake + convT heads (vocoder.py widths)
 CHAIN_SHAPES = ((768, 1280), (384, 6400), (192, 25600), (96, 76800))
@@ -656,24 +663,28 @@ def _codepred_bound(w, cfg, B):
 
 
 def check_codepred(w, cfg, dev, gen, timed: bool = True) -> dict:
-    """Kernel vs twin at the real widths, B = 8 and 64, three ways:
+    """Kernel vs twin and vs the XLA path (QWEN3_TTS_CODEPRED=xla) at the
+    real widths, B = 8, 64 and 192 (CODEPRED_CHECK_B), three ways:
     forced (every position's code fed by spiked noise, top_k off): the
     codes must be the forced ones and all logits within LOGIT_TOL;
     greedy and sampled (fixed noise, T=0.9, top_k=50) run free: the codes'
     agreement rate is reported, logits up to each stream's first
     divergence must be within LOGIT_TOL, and each divergence must be a
-    near-tie of the twin's scores (margin <= LOGIT_TOL). Times the kernel
-    at B = 8, 64 and 192 (CUDA events, and the profiler's device time)
-    beside its bound, and the twin at B = 8 (unless not `timed`)."""
+    near-tie of the reference's scores (margin <= LOGIT_TOL). Times the
+    kernel at CODEPRED_TIME_B (CUDA events, and the profiler's device
+    time) beside its bound, with its phase clock, and the twin at B = 8
+    (unless not `timed`)."""
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
     worst, rates, failed = 0.0, [], []
     for B in CODEPRED_CHECK_B:
-        err, agree = _codepred_modes(w, cfg, B, dev, gen, failed)
+        err, agree = _codepred_modes(
+            w, cfg, B, dev, gen, failed,
+            {"twin": cf.predict_codes_twin, "xla": _xla_path})
         worst = max(worst, err)
         rates += agree
     if failed:
-        raise AssertionError(f"codepred kernel disagrees with its twin: "
-                             f"{failed}")
+        raise AssertionError(f"codepred kernel disagrees with its twin or "
+                             f"its XLA path: {failed}")
     timing = {}
     for B in CODEPRED_TIME_B if timed else ():
         hidden, cb0, noise = _codepred_inputs(cfg, B, dev, gen)
@@ -719,7 +730,7 @@ def check_codepred_17b(dev, gen, timed: bool = True) -> dict:
     """The kernel's f32-row instantiation at the 1.7B shape: the code
     predictor of a 2-layer talker at the 1.7B's widths (a non-zero mtp_b),
     its mtp rows folded as the engine folds them (``Qwen3TTS`` on a card
-    calls codepred_fused.fold_mtp). At B = 8, 64 and 192 the kernel in the
+    calls codepred_fused.fold_mtp). At CODEPRED_CHECK_B the kernel in the
     three modes of check_codepred, against the twin on the folded rows and
     against the XLA path (QWEN3_TTS_CODEPRED=xla: each raw row projected
     through mtp_w), LOGIT_TOL and near-tie margins as there; the
@@ -728,7 +739,7 @@ def check_codepred_17b(dev, gen, timed: bool = True) -> dict:
     (4 requests, 40 frames, T 0.9) on the engine over that tree, without
     a vocoder: one cooperative launch a frame. Times the wrapper (CUDA
     events, with position 0's projection; the profiler's device time is
-    the kernel's alone) at B = 8, 64 and 192 beside its bound (unless not
+    the kernel's alone) at CODEPRED_TIME_B beside its bound (unless not
     `timed`). Returns the kernels line's entry "codepred_17b"."""
     from qwen3_tts_tpu_torch import kernels
     from qwen3_tts_tpu_torch.config import TalkerConfig
@@ -748,7 +759,7 @@ def check_codepred_17b(dev, gen, timed: bool = True) -> dict:
     worst, rates, failed = 0.0, [], []
     calls0 = cf.predict_codes_fused.launches
     coop0 = kernels.codepred_launches()
-    for B in CODEPRED_TIME_B:
+    for B in CODEPRED_CHECK_B:
         err, agree = _codepred_modes(
             w, cfg, B, dev, gen, failed,
             {"twin": cf.predict_codes_twin, "xla": _xla_path})
@@ -758,9 +769,9 @@ def check_codepred_17b(dev, gen, timed: bool = True) -> dict:
     calls = cf.predict_codes_fused.launches - calls0
     checked = kernels.codepred_launches() - coop0
     log(f"codepred 1.7B shape: {checked} cooperative launches for {calls} "
-        f"kernel calls (3 modes x B {CODEPRED_TIME_B}), max|logit err| "
+        f"kernel calls (3 modes x B {CODEPRED_CHECK_B}), max|logit err| "
         f"{worst:.3e}, code agreement >= {min(rates):.4f}")
-    if checked != calls or calls != 3 * len(CODEPRED_TIME_B):
+    if checked != calls or calls != 3 * len(CODEPRED_CHECK_B):
         failed.append(f"launches {checked} for {calls} calls")
     counters = _counters()
     for fn in counters.values():
@@ -942,9 +953,9 @@ CODEPRED_PHASES = {"norm": 159, "qkv": 80, "attention": 80, "wo": 79,
                    "sample": 15}
 
 
-def _codepred_phases(fused, B, dev) -> None:
-    """One frame with the kernel's phase clock on: ms per frame and us per
-    phase (with its grid barrier) by phase kind."""
+def codepred_phase_ms(fused, dev) -> dict:
+    """One frame of `fused` (a call of the code predictor's wrapper) with
+    the kernel's phase clock on: ms per frame by phase kind."""
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
     ns = torch.zeros(len(cf.PHASES), dtype=torch.int64, device=dev)
     cf.predict_codes_fused.phase_ns = ns
@@ -953,11 +964,21 @@ def _codepred_phases(fused, B, dev) -> None:
         torch.cuda.synchronize()
     finally:
         cf.predict_codes_fused.phase_ns = None
-    ms = dict(zip(cf.PHASES, (ns.double() / 1e6).tolist()))
+    return dict(zip(cf.PHASES, (ns.double() / 1e6).tolist()))
+
+
+def phase_line(ms: dict) -> str:
+    """ms per frame and us per phase (with its grid barrier) by kind; the
+    five products' sum."""
+    prod = sum(ms[k] for k in ("qkv", "wo", "gate/up", "down", "head"))
+    return (", ".join(f"{k} {v:.3f} ({v * 1e3 / CODEPRED_PHASES[k]:.1f})"
+                      for k, v in ms.items())
+            + f"; sum {sum(ms.values()):.3f} ms, products {prod:.3f} ms")
+
+
+def _codepred_phases(fused, B, dev) -> None:
     log(f"codepred B={B} phase clock (CTA 0, globaltimer), ms per frame and "
-        f"us per phase: " + ", ".join(
-            f"{k} {v:.3f} ({v * 1e3 / CODEPRED_PHASES[k]:.1f})"
-            for k, v in ms.items()) + f"; sum {sum(ms.values()):.3f} ms")
+        f"us per phase: " + phase_line(codepred_phase_ms(fused, dev)))
 
 
 def _xla_path(w, cfg, hidden, cb0, **kw):
@@ -2640,7 +2661,7 @@ def _near_tie_gaps(got, ref, ref_frames, n_frames):
     earlier code agreed (``_divergence_gaps`` at the frame level)."""
     gaps = []
     for b in range(got.shape[1]):
-        upto = min(n_frames[b] + 1, got.shape[0])
+        upto = min(n_frames[b] + 1, got.shape[0], ref.shape[0])
         diff = torch.nonzero(got[:upto, b] != ref[:upto, b])
         if not len(diff):
             continue
@@ -2820,31 +2841,43 @@ def attention_switch_runs(engine, card, counters, dev) -> dict:
     QWEN3_TTS_TALKER=xla (whose per-layer step reaches decode attention):
     one lock-step synthesize_batch (40 frames) and one ContinuousBatcher
     run (8 slots, 8 requests) for each of auto, xla and flash. xla makes
-    no decode-attention launch, flash as many as auto; the frames agree.
-    Returns the launches of the three."""
+    no decode-attention launch, flash as many as auto; auto's frames are
+    flash's (the same kernels). Then xla and flash again, eagerly, each
+    frame recorded (xla's with the scores its greedy argmax read): each
+    run's frames are its graph run's, and flash's codes xla's up to each
+    stream's first divergence, which must be a near-tie of xla's scores
+    (margin <= LOGIT_TOL): attention that rounds otherwise may part there
+    and end a stream at another frame. Returns the launches of the
+    three."""
     from qwen3_tts_tpu_torch.models import talker
     from qwen3_tts_tpu_torch.ops import attention
     from qwen3_tts_tpu_torch.runtime.pipeline import TTSParams
     from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
     os.environ["QWEN3_TTS_KV"] = "bf16"
     total = dict.fromkeys(counters, 0)
-    attn, frames = {}, {}
+    attn, frames, rec = {}, {}, {}
+
+    def lockstep():
+        return engine.synthesize_batch(LOCKSTEP_TEXTS, params=TTSParams(
+            max_audio_tokens=CHUNK, temperature=0.0, seed=SEED))
+
+    def serving():
+        cb = ContinuousBatcher(engine, n_slots=SERVE_SLOTS,
+                               params=TTSParams(temperature=0.0, seed=SEED),
+                               max_frames=48)
+        rids = [cb.submit(t) for t in [SERVE_SHORT, SERVE_LONG] * 4]
+        out = cb.run_all()
+        return [out[r] for r in rids]  # request j in slot j
+
     talker.set_talker_step_impl("xla")
     try:
         for impl in ("auto", "xla", "flash"):
             attention.set_decode_attention_impl(impl)
             for fn in counters.values():
                 fn.launches = 0
-            res = engine.synthesize_batch(LOCKSTEP_TEXTS, params=TTSParams(
-                max_audio_tokens=CHUNK, temperature=0.0, seed=SEED))
-            cb = ContinuousBatcher(engine, n_slots=SERVE_SLOTS,
-                                   params=TTSParams(temperature=0.0,
-                                                    seed=SEED),
-                                   max_frames=48)
-            rids = [cb.submit(t) for t in [SERVE_SHORT, SERVE_LONG] * 4]
-            out = cb.run_all()
+            res = lockstep()
+            served = serving()
             torch.cuda.synchronize()
-            served = [out[r] for r in rids]
             _check_results(res + served, engine)
             ran = {k: fn.launches for k, fn in counters.items()}
             total = {k: total[k] + ran[k] for k in counters}
@@ -2853,13 +2886,43 @@ def attention_switch_runs(engine, card, counters, dev) -> dict:
             log(f"decode-attention switch {impl}: lock-step (talker xla, B=4,"
                 f" {CHUNK} frames) and serving (8 requests): kernel launches "
                 f"{ran}")
+        os.environ["QWEN3_TTS_AOT"] = "0"
+        for impl in ("xla", "flash"):
+            attention.set_decode_attention_impl(impl)
+            rec[impl] = []
+            for run in (lockstep, serving):
+                got = []
+                undo = _record_frames(got, logits=impl == "xla")
+                try:
+                    res = run()
+                    torch.cuda.synchronize()
+                finally:
+                    undo()
+                rec[impl].append((torch.stack([f[0] for f in got]), got,
+                                  [r.n_frames for r in res]))
     finally:
+        os.environ.pop("QWEN3_TTS_AOT", None)
         talker.set_talker_step_impl(None)
         attention.set_decode_attention_impl(None)
     if not (attn["xla"] == 0 and attn["flash"] == attn["auto"] > 0):
         raise AssertionError(f"decode-attention launches by switch: {attn}")
-    if not frames["xla"] == frames["auto"] == frames["flash"]:
+    if frames["auto"] != frames["flash"]:
         raise AssertionError(f"frames by switch: {frames}")
+    eager = {k: [n for *_, fr in v for n in fr] for k, v in rec.items()}
+    gaps = [g for (got, _, n_got), (ref, ref_frames, n_ref) in
+            zip(rec["flash"], rec["xla"])
+            for g in _near_tie_gaps(got, ref, ref_frames,
+                                    [max(a, b) for a, b in zip(n_got, n_ref)])]
+    log(f"decode-attention switch frames: {frames}; eager recorded runs "
+        f"{eager}; flash's first divergences from xla (stream of the "
+        f"lock-step run, then of the batcher; frame, codebook, xla's margin) "
+        f"{[(b, f, p, round(g, 4)) for b, f, p, g in gaps]} (need each <= "
+        f"{LOGIT_TOL})")
+    if (any(eager[k] != frames[k] for k in eager)
+            or any(g > LOGIT_TOL for *_, g in gaps)):
+        raise AssertionError("decode attention xla against flash: frames "
+                             "unlike the graph runs' or a divergence beyond "
+                             "a near-tie")
     return total
 
 
@@ -3791,13 +3854,14 @@ dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(cs.SEED)
 cfg = TalkerConfig(text_vocab_size=16, n_layers=1)
 w = W.init_talker_weights(cfg, gen, dev)
-out = {}
+out, phases = {}, {}
 for B in cs.CODEPRED_TIME_B:
     hidden, cb0, noise = cs._codepred_inputs(cfg, B, dev, gen)
     fn = lambda: cf.predict_codes_fused(w, cfg, hidden, cb0, 0.9, 50,
                                         gumbel=noise)
     out[f"codepred B={B}"] = [cs.cuda_time(fn, iters=10),
                               cs.device_ms(fn, 5, ("",))]
+    phases[f"B={B}"] = cs.codepred_phase_ms(fn, dev)
 # the 1.7B shape through predict_codes under auto, as an engine holds it:
 # its mtp rows folded where the checkout folds them (the kernel), else the
 # XLA-path branch
@@ -3859,8 +3923,9 @@ for B in cs.VOC_TIME_B:
     del xs
     torch.cuda.empty_cache()
 from qwen3_tts_tpu_torch import kernels
-ptxas = [k for k in cs.ptxas_summary(kernels.build_log()) if "codepred" in k]
-print("COMPARE " + json.dumps({"times": out, "ptxas": ptxas}), flush=True)
+print("COMPARE " + json.dumps({
+    "times": out, "phases": phases,
+    "ptxas": cs.ptxas_summary(kernels.build_log())}), flush=True)
 """
 # (B, read_ctx) of the talker steps --compare times
 COMPARE_TALKER = ((4, 256), (8, 256), (8, 1152), (32, 256), (32, 1152))
@@ -3869,8 +3934,14 @@ COMPARE_LOCKSTEP_B = (4, 64)  # the lock-step row's batches (PIPE_B)
 # The lock-step row of --compare: synthesize_batch at the full widths
 # (random weights from SEED), B 4 and 64, LOCKSTEP_TOKENS frames, greedy,
 # bf16 and int8 KV, through the checkout in the working directory; a warm
-# call, then a timed one. Writes each run's codes (the frames the loop
-# handed to the vocoder) and int16 PCM to an .npz at argv[2].
+# call, then a timed one, then an eager one whose every frame is recorded
+# (with the scores its greedy argmax read where argv[3], another run's
+# .npz, is given) and whose streams must be the timed run's. Writes each
+# run's codes (the frames the loop handed to the vocoder), int16 PCM,
+# frame counts and the eager run's frames [F, B, 16] to an .npz at
+# argv[2]; with argv[3], also the first divergences of that run's
+# recorded frames from these (_near_tie_gaps: stream, frame, codebook,
+# this run's score margin).
 COMPARE_LOCKSTEP = r"""
 import importlib.util, json, os, sys, time
 import numpy as np
@@ -3929,6 +4000,32 @@ for B in cs.COMPARE_LOCKSTEP_B:
         arrays[name + " pcm"] = np.concatenate(
             [np.round(r.audio * 32767.0).astype(np.int16) for r in res])
         arrays[name + " frames"] = np.array([r.n_frames for r in res])
+        os.environ["QWEN3_TTS_AOT"] = "0"
+        frames = []
+        undo = cs._record_frames(frames, logits=len(sys.argv) > 3)
+        try:
+            eager = eng.synthesize_batch(texts, params=p)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+            os.environ.pop("QWEN3_TTS_AOT")
+        codes = torch.stack([f[0] for f in frames])
+        n = [r.n_frames for r in eager]
+        if n != [r.n_frames for r in res] or not np.array_equal(
+                np.concatenate([codes[:k, b].cpu().numpy()
+                                for b, k in enumerate(n)]),
+                arrays[name + " codes"]):
+            raise SystemExit(f"{name}: the eager run's streams are not the "
+                             f"timed run's")
+        arrays[name + " recorded"] = codes.cpu().numpy()
+        if len(sys.argv) > 3:
+            other = np.load(sys.argv[3])
+            arrays[name + " gaps"] = np.array(cs._near_tie_gaps(
+                torch.as_tensor(other[name + " recorded"], device=dev),
+                codes, frames, [max(a, int(b)) for a, b in
+                                zip(n, other[name + " frames"])]),
+                np.float64).reshape(-1, 4)
+        del frames
 np.savez(sys.argv[2], **arrays)
 print("LOCKSTEP " + json.dumps(out), flush=True)
 """
@@ -3948,7 +4045,7 @@ def _child(code: str, tag: str, root: str, *args) -> dict:
 
 
 def compare(parent: str) -> int:
-    """Time the code predictor (B 8 / 64 / 192: the kernel at the 0.6B
+    """Time the code predictor (CODEPRED_TIME_B: the kernel at the 0.6B
     dims, and ``predict_codes`` under auto at the 1.7B shape, its mtp
     rows folded where the checkout folds them), decode attention
     (window mode, read_ctx 1,152, B 8 / 32), the talker megakernel (B 4 at
@@ -3958,18 +4055,23 @@ def compare(parent: str) -> int:
     in the checkout at `parent` and in this one, in turns parent, this,
     this, parent, each in a child process of its own on this card: CUDA
     events per call and the profiler's device ms per call (every kernel
-    the call ran). In the same turns, the lock-step row
+    the call ran), and the code predictor's phase clock at each of its B.
+    In the same turns, the lock-step row
     (COMPARE_LOCKSTEP): generate ms a lock-step frame and wall ms of
     synthesize_batch at B 4 and 64, bf16 and int8 KV, greedy; every run's
-    codes and int16 PCM must equal the first parent run's bitwise. Each
-    child logs what ptxas said of the code-predictor kernels it built."""
+    codes and int16 PCM must equal its own side's first run's bitwise
+    (the eager recorded run's frames too), and the first change run's
+    codes the parent's up to each stream's first divergence, which must
+    be a near-tie of the last parent run's scores (margin <= LOGIT_TOL):
+    a change that reorders sums may part from the parent there. Each
+    child logs what ptxas said of every kernel it built."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     _, card = device_info()
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="q3tts_compare_")
-    first = None
+    first = {}
     try:
         for i, (name, root) in enumerate((("parent", parent),
                                           ("change", here), ("change", here),
@@ -3979,19 +4081,38 @@ def compare(parent: str) -> int:
                 f"{k} {v[0]:.4f} ms (device {v[1]:.4f})"
                 for k, v in got["times"].items()) + f" on {card}; ptxas "
                 + "; ".join(got["ptxas"]))
+            for b, ms in got["phases"].items():
+                log(f"{name} codepred {b} phase clock, ms per frame and us "
+                    f"per phase: " + phase_line(ms))
             npz = os.path.join(tmp, f"run{i}.npz")
-            rows = _child(COMPARE_LOCKSTEP, "LOCKSTEP", root, npz)
+            # the last parent run holds the first change run to near-ties
+            rows = _child(COMPARE_LOCKSTEP, "LOCKSTEP", root, npz,
+                          *([os.path.join(tmp, "run1.npz")] if i == 3
+                            else []))
             got = dict(np.load(npz))
-            first = first or got
-            same = {k: np.array_equal(got[k], first[k]) for k in first}
+            first.setdefault(name, got)
+            same = {k: np.array_equal(got[k], first[name][k])
+                    for k in first[name]}
+            gaps = {k.rsplit(" ", 1)[0]: [(int(b), int(f), int(p),
+                                           round(float(g), 4))
+                                          for b, f, p, g in v]
+                    for k, v in got.items() if k.endswith(" gaps")}
             log(f"{name} lock-step ({root}): " + ", ".join(
                 f"{k}: generate {v[0]:.3f} ms a frame ({v[2]} frames), wall "
                 f"{v[1]:.1f} ms" for k, v in rows.items())
-                + f"; codes and PCM bitwise the first parent run's: "
-                f"{all(same.values())} on {card}")
+                + f"; codes and PCM bitwise the first {name} run's: "
+                f"{all(same.values())}"
+                + (f"; the change's first divergences from the parent "
+                   f"(stream, frame, codebook, the parent's margin) {gaps} "
+                   f"(need each <= {LOGIT_TOL})" if gaps else "")
+                + f" on {card}")
             if not all(same.values()):
-                raise SystemExit(f"lock-step output differs from the parent:"
-                                 f" {[k for k, v in same.items() if not v]}")
+                raise SystemExit(f"lock-step output differs from the first "
+                                 f"{name} run's: "
+                                 f"{[k for k, v in same.items() if not v]}")
+            if any(g[3] > LOGIT_TOL for v in gaps.values() for g in v):
+                raise SystemExit("the change's lock-step codes part from the "
+                                 "parent's beyond a near-tie")
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)

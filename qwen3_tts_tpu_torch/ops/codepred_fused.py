@@ -30,7 +30,8 @@ near-ties (tests/test_codepred_fused.py says the same of the TPU kernel).
 
 The TPU kernel's batch split and its GQA head permutation exist for VMEM
 and ``pltpu.repeat`` and are not carried over; its weight-tile ring
-becomes a cp.async ring in shared memory.
+becomes a ring of TMA tiles in shared memory, each weight tile multiplied
+against every stream row of the batch (csrc/codepred.cu).
 
 ``predict_codes_fused.launches`` counts frames launched on the card, one
 cooperative kernel launch each (``kernels.codepred_launches()`` reads the
@@ -50,7 +51,10 @@ from .sampling import apply_top_k, gumbel_noise
 CTX = 16                               # positions per frame
 # dims the kernels are written for (the 0.6B code predictor)
 H, NH, NKV, D, I, V, L = 1024, 16, 8, 128, 3072, 2048, 5
-K_SPLIT = 256                          # K rows per split (csrc/codepred.cu)
+# the partial sums' floats a stream: the most any of the kernel's five
+# products writes (K / span splits of N columns; csrc/codepred.cu's
+# static_assert on PART_COLS holds the two equal)
+PART_COLS = 16 * 1024
 
 _SCRATCH: dict = {}                    # (device, B, theta) -> scratch
 # what fold_mtp adds to the code_pred tree: codec_embd and code_pred.embd
@@ -312,8 +316,8 @@ def _scratch(dev, B: int, theta: float) -> dict:
     """The kernel's scratch for batch B, allocated once per (device, B)
     and reused by every later frame (frames on one stream run in order,
     and the kernel writes every entry before it reads it): the residual
-    stream and the products' bf16 inputs, the split-K partial sums (the
-    gate/up product's 4 splits of 6,144 columns are the most), the 16-slot
+    stream and the products' bf16 inputs, the split-K partial sums
+    (PART_COLS a stream) with the grid barrier's state, the 16-slot
     K/V cache [L, B, NKV, CTX, D], and the RoPE tables."""
     key = (dev, B, theta)
     if key not in _SCRATCH:
@@ -325,7 +329,11 @@ def _scratch(dev, B: int, theta: float) -> dict:
         rope_c, rope_s = rope_tables(theta, D, dev)
         _SCRATCH[key] = dict(
             x=new(B, H), xn=new(B, H, dtype=bf), attn=new(B, NH * D, dtype=bf),
-            act=new(B, I, dtype=bf), part=new(H // K_SPLIT * 2 * I * B),
+            act=new(B, I, dtype=bf),
+            # the partial sums, then the kernel's grid-barrier word (zero
+            # before the first frame; every barrier leaves it as it was,
+            # up to its top bit)
+            part=torch.zeros(PART_COLS * B + 4, dtype=f32, device=dev),
             kc=new(L, B, NKV, CTX, D, dtype=bf),
             vc=new(L, B, NKV, CTX, D, dtype=bf), rope_c=rope_c, rope_s=rope_s)
     return _SCRATCH[key]

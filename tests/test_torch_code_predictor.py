@@ -452,15 +452,15 @@ def test_cpu_wrapper_runs_twin(tiny):
 
 def test_kernel_scratch_is_allocated_once_and_holds_every_product():
     """The kernel's per-(device, batch) scratch: the partial sums hold the
-    largest product's K splits (256-row splits; gate/up's 4 x 6,144
-    columns), the K/V cache is [L, B, NKV, CTX, D], and a second frame of
-    the same batch gets the same tensors."""
+    largest product's K splits (wo's and down's 16 x 1,024 columns, the
+    kernel's static_assert on PART_COLS) and then the grid barrier's word, zero before the first frame; the K/V
+    cache is [L, B, NKV, CTX, D], and a second frame of the same batch
+    gets the same tensors."""
     B = 3
     sc = tcf._scratch(torch.device("cpu"), B, 1e6)
-    splits = {n: k // tcf.K_SPLIT * n for k, n in (
-        (tcf.H, (tcf.NH + 2 * tcf.NKV) * tcf.D), (tcf.NH * tcf.D, tcf.H),
-        (tcf.H, 2 * tcf.I), (tcf.I, tcf.H), (tcf.H, tcf.V))}
-    assert sc["part"].numel() == max(splits.values()) * B
+    assert tcf.PART_COLS == 16384
+    assert sc["part"].numel() == tcf.PART_COLS * B + 4
+    assert not sc["part"][-4:].any()
     assert sc["kc"].shape == (tcf.L, B, tcf.NKV, tcf.CTX, tcf.D)
     assert sc["rope_c"].shape == (tcf.CTX, tcf.D)
     again = tcf._scratch(torch.device("cpu"), B, 1e6)

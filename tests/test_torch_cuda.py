@@ -62,9 +62,12 @@ def cp_weights(dev):
     return cfg, _code_pred_weights(cfg, gen, dev)
 
 
-# B = 1, 17 and 64 leave ragged 16-row MMA tiles and one or two 64-row
-# groups; B = 64 fills a group
-@pytest.mark.parametrize("B", [1, 8, 17, 64])
+# The products take each pass of at most 192 streams (rows rounded up to
+# 8) in n32 tiles split between two warpgroups, in stages of 64 K rows up
+# to 64 rows a pass, else 32: B = 1 and 17 leave ragged tiles, 64, 128
+# and 192 (the cells' batches) fill theirs, 200 takes two passes of 104
+# rows (the last tile of each unfilled), 264 two of 136
+@pytest.mark.parametrize("B", [1, 8, 17, 64, 128, 192, 200, 264])
 def test_codepred_forced_frame(dev, cp_weights, B):
     """Teacher-forced frame (spiked noise feeds fixed codes): the kernel
     returns the forced codes, and every position's logits match the twin."""
@@ -106,8 +109,8 @@ def cp17_weights(dev):
     return cfg, cf.fold_mtp(raw, cfg), raw
 
 
-# B = 192: the offline cells' batch
-@pytest.mark.parametrize("B", [1, 8, 17, 64, 192])
+# B = 128 and 192: the serving and offline cells' batches
+@pytest.mark.parametrize("B", [1, 8, 17, 64, 128, 192])
 def test_codepred_forced_frame_17b(dev, cp17_weights, B):
     """The 1.7B shape on the kernel's f32-row instantiation (position 0's
     hidden projected by the wrapper, the folded rows gathered): a
