@@ -210,6 +210,21 @@ MOE_B = (1, 8, 192)         # decode rows: one stream, a few, the cell's
 MOE_PREFILL_N = 192 * 75    # the cell's prefill: B 192 x ~75 rows
 OMNI_B = 8                  # the Omni phase's lock-step batch and slots
 OMNI_FRAMES = 80
+# latent attention's decode kernel (ops/mla.py) vs its twin, relative L2
+# over the bf16 output: both round the probabilities to bf16, the kernel
+# against each tile's running maximum and the twin against the final one,
+# and sum in other orders; a dropped rope part, a skipped tile or a missed
+# slot moves the output by O(0.1-1)
+MLA_TOL = 2e-2
+MLA_B = (1, 8, 192)         # streams: one, a few, the cell's batch
+MLA_CTX = 384               # required_ctx(10, 256): the cell's cache
+MLA_MEDIAN = 139            # the cell's median position + 1: rows counted
+# the expert-parallel MoE (LongCat-Flash's block) vs its twin: MOE_TOL over
+# the rows both route alike; a row may route apart only at a near-tie of
+# its 12th and 13th choice (p + bias) within MOE_EP_TIE
+MOE_EP_TIE = 1e-6
+LONGCAT_B = 8               # the LongCat phase's lock-step batch and slots
+LONGCAT_FRAMES = 80
 # serving phase: a 96-frame cap puts the ring at 256 - 16 slots, so it
 # wraps after 6 chunks; "h" (36-frame EOS ramp) reaches EOS by frame 72
 SERVE_SLOTS = 8
@@ -1515,6 +1530,197 @@ def check_moe(dev, gen, timed: bool = True) -> dict:
             "prefill": timing[MOE_PREFILL_N],
             "shape": f"N=192 decode rows, one layer (prefill: "
                      f"N={MOE_PREFILL_N})"}
+
+
+def _mla_inputs(B, dev, gen, mode):
+    """(q [B, 64, 576], rows [B, MLA_CTX, 576] bf16, the mode's keywords):
+    prefix mode with ragged n_valid (stream 0 empty where B > 1, stream 1
+    at the whole cache), masked mode with a random bitmask."""
+    q = torch.randn(B, 64, 576, generator=gen, device=dev).bfloat16()
+    rows = torch.randn(B, MLA_CTX, 576, generator=gen, device=dev).bfloat16()
+    if mode == "prefix":
+        n = torch.randint(1, MLA_CTX + 1, (B,), generator=gen, device=dev)
+        if B > 1:
+            n[0], n[1] = 0, MLA_CTX
+        return q, rows, dict(n_valid=n.int())
+    mask = torch.rand(B, MLA_CTX, generator=gen, device=dev) < 0.5
+    return q, rows, dict(valid_mask=mask)
+
+
+def check_mla(dev, gen, timed: bool = True) -> dict:
+    """Latent attention's decode kernel (csrc/mla_decode.cu) against its
+    twin at LongCat-Flash's widths (64 heads over 576-wide rows, values
+    512), B 1, 8 and 192, prefix and masked modes, read_ctx the cell's
+    cache and a bucket under it (rows past it NaN, never read); twice
+    each, bitwise equal. Timed at B 192 with every stream at the cell's
+    median position, beside its bound."""
+    from qwen3_tts_tpu_torch.ops import mla
+    scale = 192 ** -0.5
+    failed, worst, timing = [], 0.0, {}
+    for B in MLA_B:
+        for mode in ("prefix", "masked"):
+            for rc in (MLA_CTX, 256):
+                q, rows, kw = _mla_inputs(B, dev, gen, mode)
+                rows[:, rc:] = float("nan")
+                fn = (mla.mla_decode if mode == "prefix"
+                      else mla.mla_decode_masked)
+                arg = kw.get("n_valid", kw.get("valid_mask"))
+                got = fn(q, rows, arg, scale, 64, read_ctx=rc)
+                again = fn(q, rows, arg, scale, 64, read_ctx=rc)
+                want = mla.mla_decode_twin(q, rows, scale, 64, read_ctx=rc,
+                                           **kw)
+                err = ((got.float() - want.float()).norm()
+                       / want.float().norm().clamp_min(1e-30)).item()
+                worst = max(worst, err)
+                ok = (torch.isfinite(got).all().item() and err <= MLA_TOL
+                      and torch.equal(got, again))
+                if mode == "prefix" and B > 1:
+                    ok = ok and not got[0].any().item()
+                if not ok:
+                    failed.append((B, mode, rc))
+                log(f"mla B={B} {mode} read_ctx={rc}: rel L2 {err:.3e} "
+                    f"(need <= {MLA_TOL}), repeat bitwise "
+                    f"{torch.equal(got, again)}")
+    if failed:
+        raise AssertionError(f"mla kernel disagrees with its twin: {failed}")
+    if not timed:
+        return {}
+    B = 192
+    q, rows, _ = _mla_inputs(B, dev, gen, "prefix")
+    n = torch.full((B,), MLA_MEDIAN, dtype=torch.int32, device=dev)
+    fn = lambda: mla.mla_decode(q, rows, n, scale, 64, read_ctx=MLA_CTX)
+    moved = 2 * B * (MLA_MEDIAN * 576 + 64 * 576 + 64 * 512)
+    flops = B * 2 * 64 * (576 + 512) * MLA_MEDIAN
+    timing = {"ms": cuda_time(fn, iters=50),
+              "device_ms": device_ms(fn, 20, ("",)),
+              "plain_ms": cuda_time(lambda: mla.mla_decode_twin(
+                  q, rows, scale, 64, n_valid=n, read_ctx=MLA_CTX), iters=5),
+              **bound(moved, flops)}
+    t = timing
+    log(f"mla B={B} at {MLA_MEDIAN} rows: kernel {t['ms']:.4f} ms (device "
+        f"{t['device_ms']:.4f} ms, roofline share "
+        f"{t['bound_ms'] / t['device_ms']:.1%}), twin {t['plain_ms']:.4f} "
+        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return {"name": "mla", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/mla_decode.cu",
+            "replaces": "none: the JAX package has no latent attention",
+            "max_rel_err": worst, **timing,
+            "shape": f"B={B}, 64 heads x 576, {MLA_MEDIAN} rows a stream"}
+
+
+def _moe_ep_layer(dev, gen):
+    """One LongCat-Flash MoE at its widths (H 6144; 512 real and 256
+    identity experts, top-12, p x 6; experts of 2048), this chip's 16
+    experts [0, 16): bf16 normal(0, 0.02), the correction bias normal(0,
+    1e-3), as the benchmark's configuration draws them."""
+    from qwen3_tts_tpu_torch.config import MoEConfig
+    moe = MoEConfig(n_experts=512, top_k=12, expert_intermediate=2048,
+                    shared_intermediate=0, norm_topk_prob=False,
+                    n_zero_experts=256, routed_scaling=6.0, n_held=16)
+    H, Ie = 6144, 2048
+
+    def rn(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device=dev) * std).bfloat16()
+
+    return moe, {"w_router": rn(H, moe.router_width),
+                 "e_bias": torch.randn(moe.router_width, generator=gen,
+                                       device=dev) * 1e-3,
+                 "w_gu_e": rn(16, H, 2 * Ie), "w_down_e": rn(16, Ie, H)}
+
+
+def check_moe_ep(dev, gen, timed: bool = True) -> dict:
+    """The expert-parallel MoE path (ops/moe.py, q3_moe_ffn_ep) against its
+    twin at LongCat-Flash's widths over N = 1, 8 and 192 decode rows and
+    192 rows routed by the bias to 12 chosen ids (held, identity and
+    remote experts): the route's ids, the counts [5] and, over the rows
+    routed alike, the output within MOE_TOL, which a bf16 round trip of
+    the experts' products exceeds on the chosen ids (under the random
+    router few rows reach a held expert). Timed at N = 192 with its
+    bound."""
+    from qwen3_tts_tpu_torch.ops import moe as M
+    moe, lw = _moe_ep_layer(dev, gen)
+    chosen = (0, 3, 15, 512, 600, 767, 100, 200, 300, 400, 5, 700)
+    failed, worst, timing = [], 0.0, {}
+    for N, dom in ((1, False), (8, False), (192, False), (192, True)):
+        w = dict(lw, moe_counts=torch.zeros(5, dtype=torch.int32,
+                                            device=dev))
+        if dom:
+            w["e_bias"] = torch.zeros_like(lw["e_bias"])
+            w["e_bias"][list(chosen)] = torch.arange(
+                12, 0, -1, device=dev).float()
+        h = torch.randn(N, 6144, generator=gen, device=dev)
+        s = {}
+        got = M.moe_ffn(h, w, moe, scratch=s)
+        counts = w["moe_counts"].clone()
+        w["moe_counts"] = torch.zeros_like(counts)
+        want = M.moe_ffn_twin(h, w, moe)
+        x, et, _ = M.route_ep(h, w["w_router"], w["e_bias"], moe)
+        # the same ids; the order among the top_k may differ where two of
+        # them nearly tie, which only reorders the combine's f32 sums
+        same = (s["experts"].long().sort(-1).values
+                == et.sort(-1).values).all(-1)
+        p = torch.softmax(M.dot(x, w["w_router"]), -1) + w["e_bias"]
+        srt = p.sort(-1, descending=True).values
+        gap = srt[:, moe.top_k - 1] - srt[:, moe.top_k]
+        untied = int((~same & (gap > MOE_EP_TIE)).sum())
+        inner = M.swiglu
+        M.swiglu = lambda *a: inner(*a).to(torch.bfloat16).float()
+        try:
+            rounded = M.moe_ffn_twin(h, {k: v for k, v in w.items()
+                                         if k != "moe_counts"}, moe)
+        finally:
+            M.swiglu = inner
+
+        def rel(a):
+            a, b = a[same].double(), want[same].double()
+            return ((a - b).norm() / b.norm()).item()
+        err, seen = rel(got), rel(rounded)
+        worst = max(worst, err)
+        ok = (torch.isfinite(got).all().item() and err <= MOE_TOL
+              and untied == 0
+              and (counts.tolist() == w["moe_counts"].tolist()
+                   or not bool(same.all())))
+        if dom:
+            # 4 held experts of every row: the products weigh enough here
+            # for their bf16 round trip to show (few rows reach a held
+            # expert under the random router)
+            ok = ok and s["experts"][0].tolist() == list(chosen) \
+                and seen > MOE_TOL
+        if not ok:
+            failed.append((N, dom))
+        log(f"moe_ep N={N}{' chosen ids' if dom else ''}: rel L2 {err:.3e} "
+            f"over {int(same.sum())} rows routed alike (need <= {MOE_TOL}; "
+            f"bf16 expert products read {seen:.3e}); {int((~same).sum())} "
+            f"rows apart, {untied} without a near-tie; counts (pairs, rows, "
+            f"max, zero, remote) {counts.tolist()} against the twin's "
+            f"{w['moe_counts'].tolist()}")
+        if timed and N == 192 and not dom:
+            held = et[(et < 16)]
+            n_read = int(held.unique().numel())
+            per_expert = 3 * 6144 * 2048
+            moved = (2 * (n_read * per_expert + 6144 * 768) + 4 * 768
+                     + 2 * 4 * N * 6144)
+            flops = 2 * (held.numel() * per_expert + N * 6144 * 768)
+            fn = (lambda h=h, w=w: M.moe_ffn(h, w, moe))
+            timing = {"ms": cuda_time(fn, iters=20),
+                      "device_ms": device_ms(fn, 20, ("",)),
+                      "experts_read": n_read, **bound(moved, flops)}
+            t = timing
+            log(f"moe_ep N=192, one layer: {t['ms']:.4f} ms (device "
+                f"{t['device_ms']:.4f} ms, roofline share "
+                f"{t['bound_ms'] / t['device_ms']:.1%}), bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {n_read} experts "
+                f"read, {held.numel()} pairs)")
+        del h, got, want, rounded
+    if failed:
+        raise AssertionError(f"moe_ep disagrees with its twin: {failed}")
+    if not timed:
+        return {}
+    return {"name": "moe_ep", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/moe.cu",
+            "replaces": "none: the JAX package has no MoE talker",
+            "max_rel_err": worst, **timing,
+            "shape": "N=192 decode rows, one LongCat layer, 16 held experts"}
 
 
 def _tf_cache(L, B, kv, read_ctx, dev, gen, S=TF_S):
@@ -3218,6 +3424,87 @@ def omni_phase(tok, card, counters, dev) -> dict:
     return total
 
 
+def longcat_phase(tok, card, counters, dev) -> dict:
+    """LongCat-Flash-Omni's backbone block as a talker at its widths on the
+    normal paths: 2 double layers (MLA over the latent cache, the dense
+    SwiGLUs, the shortcut MoE of 512 + 256 identity experts with 16 held),
+    the code predictor behind its 6144 -> 1024 mtp rows, the 12 Hz
+    vocoder, random weights. ``synthesize_batch`` at B 8 (T 0.9, 80
+    frames) and an 8-slot ``ContinuousBatcher`` on 12 requests (4
+    submitted mid-run). Every request succeeds with n_frames * 1920 finite
+    samples; the MLA and MoE kernels, the code predictor and the vocoder
+    kernels launch on both paths, the megakernel and flash-decode never;
+    each chunk's talker.moe span counts identity and remote pairs.
+    Returns the launches."""
+    from qwen3_tts_tpu_torch.config import (MLAConfig, TalkerConfig,
+                                            VocoderConfig)
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.ops import mla as A
+    from qwen3_tts_tpu_torch.ops import moe as M
+    from qwen3_tts_tpu_torch.runtime.pipeline import Qwen3TTS, TTSParams
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    from qwen3_tts_tpu_torch.utils import trace
+    os.environ["QWEN3_TTS_KV"] = "bf16"
+    t_phase = time.monotonic()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    cfg = TalkerConfig(hidden_size=6144, n_layers=2, n_attention_heads=64,
+                       intermediate_size=12288)
+    moe, mla = _moe_ep_layer(dev, gen)[0], MLAConfig()
+    vcfg = VocoderConfig()
+    engine = Qwen3TTS.from_components(
+        tok, cfg, W.init_talker_weights(cfg, gen, dev, moe=moe, mla=mla),
+        vcfg, W.init_vocoder_weights(vcfg, gen, dev), dev, moe=moe, mla=mla)
+    counters = {**counters, "moe": M.moe_ffn, "mla": A.mla_decode}
+    total = dict.fromkeys(counters, 0)
+    texts = [SERVE_SHORT, SERVE_LONG] * 6
+    for what in ("lockstep", "serving"):
+        for fn in counters.values():
+            fn.launches = 0
+        trace.reset()
+        t0 = time.monotonic()
+        if what == "lockstep":
+            res = engine.synthesize_batch(texts[:LONGCAT_B], params=TTSParams(
+                max_audio_tokens=LONGCAT_FRAMES, temperature=0.9, seed=SEED,
+                print_timing=False))
+        else:
+            cb = ContinuousBatcher(engine, n_slots=LONGCAT_B,
+                                   params=TTSParams(temperature=0.9,
+                                                    seed=SEED),
+                                   max_frames=LONGCAT_FRAMES)
+            rids = [cb.submit(t) for t in texts[:8]]
+            out, n_steps = {}, 0
+            while cb.pending():
+                out.update(cb.step())
+                n_steps += 1
+                if n_steps == 2:
+                    rids += [cb.submit(t) for t in texts[8:]]
+            res = [out[r] for r in rids]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        _check_results(res, engine)
+        ran = {k: fn.launches for k, fn in counters.items()}
+        spans = [sp.attrs for sp in trace.spans() if sp.name == "talker.moe"]
+        if (min(ran["moe"], ran["mla"], ran["codepred"], ran["res_chain"],
+                ran["snake_convt"]) <= 0 or ran["talker_fused"] != 0
+                or ran["flash_decode"] != 0 or not spans
+                or not all("zero" in a and "remote" in a for a in spans)):
+            raise AssertionError(f"longcat {what}: launches {ran}, spans "
+                                 f"{spans[:2]}")
+        pairs = sum(a["pairs"] + a["zero"] + a["remote"] for a in spans)
+        total = {k: total[k] + ran[k] for k in counters}
+        frames = [r.n_frames for r in res]
+        log(f"longcat {what} ({len(res)} requests, 2 double layers, 16 of "
+            f"512 experts): frames {frames}, {sum(frames)} frames, "
+            f"{sum(len(r.audio) for r in res) / 24000:.2f} s of audio in "
+            f"{wall:.2f} s wall; launches {ran}; identity share "
+            f"{sum(a['zero'] for a in spans) / max(pairs, 1):.3f}, remote "
+            f"share {sum(a['remote'] for a in spans) / max(pairs, 1):.3f}")
+    del engine
+    torch.cuda.empty_cache()
+    log(f"longcat phase: {time.monotonic() - t_phase:.1f} s")
+    return total
+
+
 def _counters() -> dict:
     from qwen3_tts_tpu_torch.ops import codepred_fused as cf
     from qwen3_tts_tpu_torch.ops import flash_decode as fd
@@ -3922,9 +4209,20 @@ for B in cs.VOC_TIME_B:
                                           cs.device_ms(fn, 3, ("",))]
     del xs
     torch.cuda.empty_cache()
+# Qwen3-Omni's MoE layer at B = 192 from its own seed: time and the
+# output's bits, which a change that leaves that path alone keeps
+import hashlib
+from qwen3_tts_tpu_torch.ops import moe as M
+g2 = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
+moe, mlw = cs._moe_layer(dev, g2)
+h = torch.randn(192, 1024, generator=g2, device=dev)
+fn = lambda: M.moe_ffn(h, mlw, moe)
+moe_bits = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+out["moe omni B=192"] = [cs.cuda_time(fn, iters=20),
+                         cs.device_ms(fn, 20, ("",))]
 from qwen3_tts_tpu_torch import kernels
 print("COMPARE " + json.dumps({
-    "times": out, "phases": phases,
+    "times": out, "phases": phases, "moe_bits": moe_bits,
     "ptxas": cs.ptxas_summary(kernels.build_log())}), flush=True)
 """
 # (B, read_ctx) of the talker steps --compare times
@@ -4071,13 +4369,15 @@ def compare(parent: str) -> int:
     _, card = device_info()
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="q3tts_compare_")
-    first = {}
+    first, bits = {}, []
     try:
         for i, (name, root) in enumerate((("parent", parent),
                                           ("change", here), ("change", here),
                                           ("parent", parent))):
             got = _child(COMPARE_CHILD, "COMPARE", root)
-            log(f"{name} ({root}): " + ", ".join(
+            bits.append(got["moe_bits"])
+            log(f"{name} ({root}): Omni MoE output bits {got['moe_bits']}; "
+                + ", ".join(
                 f"{k} {v[0]:.4f} ms (device {v[1]:.4f})"
                 for k, v in got["times"].items()) + f" on {card}; ptxas "
                 + "; ".join(got["ptxas"]))
@@ -4116,6 +4416,10 @@ def compare(parent: str) -> int:
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
+    if len(set(bits)) != 1:
+        raise SystemExit(f"the Omni MoE layer's output differs between the "
+                         f"runs: {bits}")
+    log(f"Omni MoE output bitwise equal over the four runs: {bits[0]}")
     return 0
 
 
@@ -4164,7 +4468,9 @@ def main() -> int:
                         (check_snake_convt, (blocks, dev, gen)),
                         (check_flash_decode, (dev, gen)),
                         (check_talker_fused, (talker_w, cfg, dev, gen)),
-                        (check_moe, (dev, gen))):
+                        (check_moe, (dev, gen)),
+                        (check_mla, (dev, gen)),
+                        (check_moe_ep, (dev, gen))):
         try:
             entry = check(*args)
             if entry:
@@ -4202,6 +4508,7 @@ def main() -> int:
                             counters, dev)
     benched = bench_phase(cfg, talker_w, vcfg, voc_w, card, counters, dev)
     omni = omni_phase(tok, card, counters, dev)
+    longcat = longcat_phase(tok, card, counters, dev)
     meshed = mesh_phase(tok, cfg, talker_w, vcfg, voc_w, engine, card,
                         counters, dev)
     for entry in report:
@@ -4214,13 +4521,22 @@ def main() -> int:
             if entry["launches"] <= 0:
                 raise AssertionError("moe never ran on the Omni phase")
             continue
+        if entry["name"] in ("mla", "moe_ep"):
+            # only the LongCat phase runs its block
+            n = longcat["mla" if entry["name"] == "mla" else "moe"]
+            entry.update(launches=n, launches_longcat=n)
+            if n <= 0:
+                raise AssertionError(f"{entry['name']} never ran on the "
+                                     f"LongCat phase")
+            continue
         a, b, c, d, e, f, g, h = (
             lockstep[entry["name"]], serving[entry["name"]],
             clone[entry["name"]], graphed[entry["name"]],
             meshed[entry["name"]], converted[entry["name"]],
             piped[entry["name"]], benched[entry["name"]])
         o = omni[entry["name"]]
-        entry.update(launches=a + b + c + d + e + f + g + h + o,
+        entry.update(launches=a + b + c + d + e + f + g + h + o
+                     + longcat[entry["name"]],
                      launches_lockstep=a, launches_serving=b,
                      launches_clone=c, launches_graphs=d, launches_mesh=e,
                      launches_convert=f, launches_pipelined=g,

@@ -142,6 +142,56 @@ class MoEConfig:
     expert_intermediate: int = 384
     shared_intermediate: int = 768
     norm_topk_prob: bool = True
+    # LongCat-Flash's router (``LongcatFlashTopkRouter`` / ``LongcatFlashMoE``;
+    # a zero shared width means no shared expert, and then these apply):
+    # the router's outputs past the n_experts real ones are identity
+    # ("zero-compute") experts; the layer's leaf ``e_bias``, where it holds
+    # one, enters the choice only; the chosen probabilities are scaled by
+    # ``routed_scaling`` and, unlike Omni's, not rounded to bf16. This chip
+    # holds the real experts [expert_offset, expert_offset + n_held) of a
+    # wide expert-parallel deployment (n_held 0: all of them).
+    n_zero_experts: int = 0
+    routed_scaling: float = 1.0
+    expert_offset: int = 0
+    n_held: int = 0
+
+    @property
+    def router_width(self) -> int:
+        return self.n_experts + self.n_zero_experts
+
+    @property
+    def held(self) -> int:
+        return self.n_held or self.n_experts
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V3's, as LongCat-Flash runs it:
+    transformers' ``LongcatFlashMLA``) in a talker of LongCat-Flash double
+    layers (``LongcatFlashDecoderLayer``): two attention sublayers, two
+    dense SwiGLU FFNs of ``TalkerConfig.intermediate_size`` and one
+    shortcut MoE (a ``MoEConfig``) a layer. A port-only setting, not a
+    ``TalkerConfig`` field: the JAX package has no such talker. It rides in
+    the layers tree as its entry "mla" (models/weights.mla_layers); the
+    heads are ``TalkerConfig.n_attention_heads``. The defaults are
+    LongCat-Flash-Omni's. The query parts are scaled by sqrt(hidden /
+    q_lora_rank) and the latent by sqrt(hidden / kv_lora_rank)
+    (``mla_scale_q_lora``, ``mla_scale_kv_lora``)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def latent_width(self) -> int:
+        """Values a cached position holds a sublayer: the latent and the
+        one roped key shared by every head."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        return (self.qk_nope_head_dim + self.qk_rope_head_dim) ** -0.5
 
 
 @dataclass(frozen=True)

@@ -31,6 +31,24 @@
 // - moe_combine_kernel: y_t = sum_j w_tj out_tj (in j order) + s_t out_ts.
 //   No atomics on values: a replay is bitwise the eager call (the order of
 //   pairs inside an expert's rows may differ, which changes no value).
+//
+// The expert-parallel path (LongCat-Flash's block, no shared expert; the
+// entry q3_moe_ffn_ep) keeps the two grouped products as they are, with
+// its own router and combine around them:
+// - the router logits [N, E + Z] come from cuBLAS (ops/moe.py): at 768
+//   outputs over a hidden of 6,144 the router is a 9.4 MB product that
+//   the per-warp partial sums of moe_route_kernel (a [8][4][128] block
+//   of shared memory) cannot hold;
+// - moe_route_ep_kernel: a warp a token holds its row of logits (32 a
+//   lane, up to 1,024), softmax, the top-k of p + bias (ties: lower id)
+//   carrying p along, the weights p (renormalised if asked) times the
+//   scaling. The last CTA classifies every pair (an identity expert, a
+//   held expert, one held elsewhere), counts, and lists only the held
+//   experts' pairs and chunks, by local index: the products read only the
+//   held experts' weights;
+// - moe_combine_ep_kernel: y_t = sum_j in order of w_tj o_tj, o the held
+//   expert's row of out, bf16(h_t) for an identity expert, a pair held
+//   elsewhere skipped. No atomics on values, as above.
 
 #include <math_constants.h>
 
@@ -474,6 +492,210 @@ cudaError_t launch_gemm(dim3 grid, cudaStream_t st, const int* chunks,
   return cudaGetLastError();
 }
 
+constexpr int EP_THREADS = 256;
+constexpr int EP_TOKENS = EP_THREADS / 32;   // a warp a token
+constexpr int EP_MAX_ROUTER = 1024;          // router outputs, 32 a lane
+constexpr int EP_MAX_HELD = EP_THREADS;      // a thread a held expert
+constexpr int EP_MAX_K = 16;
+
+// grid ceil(N / 8), 256 threads; see the file comment
+__global__ void __launch_bounds__(EP_THREADS)
+moe_route_ep_kernel(const float* __restrict__ logits,
+                    const float* __restrict__ bias, int* __restrict__ experts,
+                    float* __restrict__ weights, int* __restrict__ order,
+                    int* __restrict__ chunks, int* __restrict__ n_chunks,
+                    int* __restrict__ ticket, int* __restrict__ counters,
+                    int N, int Et, int E, int e0, int held, int k, int norm,
+                    float scale) {
+  __shared__ int cnt[EP_MAX_HELD], cur[EP_MAX_HELD];
+  __shared__ int wch[EP_THREADS / 32], wrow[EP_THREADS / 32];
+  __shared__ int rows_s, most_s, zero_s, remote_s;
+  __shared__ bool last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = blockIdx.x * EP_TOKENS + warp;
+  if (t < N) {
+    const float* lg = logits + (size_t)t * Et;
+    float p[EP_MAX_ROUTER / 32], c[EP_MAX_ROUTER / 32];
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < EP_MAX_ROUTER / 32; ++i) {
+      const int e = lane + 32 * i;
+      p[i] = e < Et ? lg[e] : -CUDART_INF_F;
+      m = fmaxf(m, p[i]);
+    }
+    m = warp_max(m);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < EP_MAX_ROUTER / 32; ++i) {
+      p[i] = lane + 32 * i < Et ? expf(p[i] - m) : 0.f;
+      s += p[i];
+    }
+    s = warp_sum(s);
+#pragma unroll
+    for (int i = 0; i < EP_MAX_ROUTER / 32; ++i) {
+      const int e = lane + 32 * i;
+      p[i] /= s;
+      c[i] = e < Et ? p[i] + (bias ? bias[e] : 0.f) : -CUDART_INF_F;
+    }
+    float pw[EP_MAX_K];
+    int pe[EP_MAX_K];
+    float psum = 0.f;
+    for (int j = 0; j < k; ++j) {   // the largest choice left; ties: lower id
+      float bv = -CUDART_INF_F, bp = 0.f;
+      int be = 0x7fffffff;
+#pragma unroll
+      for (int i = 0; i < EP_MAX_ROUTER / 32; ++i) {
+        const int e = lane + 32 * i;
+        if (e < Et && (c[i] > bv || (c[i] == bv && e < be))) {
+          bv = c[i];
+          be = e;
+          bp = p[i];
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int oe = __shfl_xor_sync(0xffffffffu, be, o);
+        const float op = __shfl_xor_sync(0xffffffffu, bp, o);
+        if (ov > bv || (ov == bv && oe < be)) {
+          bv = ov;
+          be = oe;
+          bp = op;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < EP_MAX_ROUTER / 32; ++i)
+        if (be == lane + 32 * i) c[i] = -CUDART_INF_F;
+      pe[j] = be;
+      pw[j] = bp;
+      psum += bp;
+    }
+    if (lane == 0) {
+      for (int j = 0; j < k; ++j) {
+        experts[t * k + j] = pe[j];
+        weights[t * k + j] = (norm ? pw[j] / psum : pw[j]) * scale;
+      }
+    }
+  }
+
+  // the last CTA lays the held experts' pairs out and lists the chunks
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int P = N * k;
+  cnt[tid] = 0;
+  if (tid == 0) rows_s = most_s = zero_s = remote_s = 0;
+  __syncthreads();
+#pragma unroll 4
+  for (int q = tid; q < P; q += EP_THREADS) {
+    const int e = __ldcg(experts + q), le = e - e0;
+    if (e >= E)
+      atomicAdd(&zero_s, 1);
+    else if (le >= 0 && le < held)
+      atomicAdd(&cnt[le], 1);
+    else
+      atomicAdd(&remote_s, 1);
+  }
+  __syncthreads();
+  // held expert tid: its rows c at offset `off`, its chunks at `coff`
+  const int c = tid < held ? cnt[tid] : 0;
+  const int nch = (c + CH_ROWS - 1) / CH_ROWS;
+  int sc = c, sch = nch;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int a = __shfl_up_sync(0xffffffffu, sc, o);
+    const int b = __shfl_up_sync(0xffffffffu, sch, o);
+    if (lane >= o) {
+      sc += a;
+      sch += b;
+    }
+  }
+  if (lane == 31) {
+    wrow[warp] = sc;
+    wch[warp] = sch;
+  }
+  if (tid < held) {
+    atomicAdd(&rows_s, (c + M_TILE - 1) / M_TILE * M_TILE);
+    atomicMax(&most_s, c);
+  }
+  __syncthreads();
+  int off = sc - c, coff = sch - nch, nc = 0;
+  for (int w = 0; w < EP_THREADS / 32; ++w) {
+    if (w < warp) {
+      off += wrow[w];
+      coff += wch[w];
+    }
+    nc += wch[w];
+  }
+  if (tid < held) {
+    cur[tid] = off;
+    for (int r = 0, i = coff; r < c; r += CH_ROWS, ++i) {
+      chunks[3 * i] = tid;
+      chunks[3 * i + 1] = off + r;
+      chunks[3 * i + 2] = min(CH_ROWS, c - r);
+    }
+  }
+  if (tid == 0) {
+    *n_chunks = nc;
+    if (counters) {
+      atomicAdd(counters, P - zero_s - remote_s);
+      atomicAdd(counters + 1, rows_s);
+      atomicMax(counters + 2, most_s);
+      atomicAdd(counters + 3, zero_s);
+      atomicAdd(counters + 4, remote_s);
+    }
+    *ticket = 0;
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (int q = tid; q < P; q += EP_THREADS) {
+    const int le = __ldcg(experts + q) - e0;
+    if (le >= 0 && le < held)
+      order[atomicAdd(&cur[le], 1)] = q;
+  }
+}
+
+// grid N, 256 threads: y_t = sum_j in order of w_tj o_tj (file comment)
+__global__ void __launch_bounds__(256)
+moe_combine_ep_kernel(const float* __restrict__ out,
+                      const float* __restrict__ weights,
+                      const int* __restrict__ experts,
+                      const bf16* __restrict__ x, float* __restrict__ y,
+                      int N, int H, int k, int E, int e0, int held) {
+  const int t = blockIdx.x;
+  for (int c = threadIdx.x * 4; c < H; c += 256 * 4) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < k; ++j) {
+      const int e = experts[t * k + j], le = e - e0;
+      float4 o;
+      if (e >= E) {
+        const uint2 raw =
+            *reinterpret_cast<const uint2*>(x + (size_t)t * H + c);
+        const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(
+            &raw.x);
+        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(
+            &raw.y);
+        o = make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
+                        __high2float(hi));
+      } else if (le >= 0 && le < held) {
+        o = __ldcg(reinterpret_cast<const float4*>(
+            out + ((size_t)t * k + j) * H + c));
+      } else {
+        continue;
+      }
+      const float w = weights[t * k + j];
+      s.x = fmaf(w, o.x, s.x);
+      s.y = fmaf(w, o.y, s.y);
+      s.z = fmaf(w, o.z, s.z);
+      s.w = fmaf(w, o.w, s.w);
+    }
+    *reinterpret_cast<float4*>(y + (size_t)t * H + c) = s;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -523,6 +745,48 @@ int q3_moe_ffn(const float* h, const bf16* w_router, const bf16* w_sgate,
                            Is, act, ld, out);
   if (err != cudaSuccess) return (int)err;
   moe_combine_kernel<<<N, 256, 0, st>>>(out, weights, sgate, y, N, H, k);
+  return (int)cudaGetLastError();
+}
+
+// The expert-parallel path (file comment). logits [N, Et] f32 (Et = E
+// real + zero experts), bias [Et] f32 or null, x [N, H] bf16 (bf16(h));
+// the held experts' w_gu_e [held, H, 2 Ie], w_down_e [held, Ie, H] bf16.
+// Scratch: experts [N, k] int (router ids), weights [N, k] f32, order
+// [N k] int, chunks [max_chunks, 3] int, n_chunks [1], ticket [1] (0 on
+// entry, left 0), act [N k, Ie] bf16, out [N k, H] f32. y [N, H] f32;
+// counters [5] int, when given, gain (held pairs, padded rows), the max
+// rows an expert, the identity pairs and the pairs held elsewhere.
+// Requires H % 128 == 0, Ie % 64 == 0, E <= Et <= 1024, 1 <= k <= min(16,
+// Et), 1 <= held <= 256, [e0, e0 + held) inside [0, E). Four launches;
+// returns the first launch error.
+int q3_moe_ffn_ep(const float* logits, const float* bias, const bf16* x,
+                  const bf16* w_gu_e, const bf16* w_down_e, int* experts,
+                  float* weights, int* order, int* chunks, int* n_chunks,
+                  int* ticket, bf16* act, float* out, float* y, int* counters,
+                  int N, int H, int Et, int E, int e0, int held, int k,
+                  int Ie, int max_chunks, int norm, float scale,
+                  void* stream) {
+  if (H % G_NT || Ie % 64 || Et > EP_MAX_ROUTER || E > Et || held < 1 ||
+      held > EP_MAX_HELD || e0 < 0 || e0 + held > E || k < 1 ||
+      k > EP_MAX_K || k > Et || N < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  moe_route_ep_kernel<<<(N + EP_TOKENS - 1) / EP_TOKENS, EP_THREADS, 0,
+                        st>>>(logits, bias, experts, weights, order, chunks,
+                              n_chunks, ticket, counters, N, Et, E, e0, held,
+                              k, norm, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm<true>(dim3(max_chunks, Ie / 64), st, chunks, n_chunks,
+                          order, x, H, w_gu_e, nullptr, N, H, held, k, Ie,
+                          Ie, act, Ie, out);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm<false>(dim3(max_chunks, H / G_NT), st, chunks, n_chunks,
+                           order, act, Ie, w_down_e, nullptr, N, H, held, k,
+                           Ie, Ie, act, Ie, out);
+  if (err != cudaSuccess) return (int)err;
+  moe_combine_ep_kernel<<<N, 256, 0, st>>>(out, weights, experts, x, y, N, H,
+                                           k, E, e0, held);
   return (int)cudaGetLastError();
 }
 

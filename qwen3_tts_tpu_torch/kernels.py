@@ -41,6 +41,8 @@ _SIGNATURES = {
     "q3_flash_decode": (_P,) * 9 + (_I,) * 9 + (_F, _I) + (_P,) * 4,
     "q3_talker_step": (_P,) * 22 + (_I,) * 7 + (_F,) * 3,
     "q3_moe_ffn": (_P,) * 19 + (_I,) * 8,
+    "q3_moe_ffn_ep": (_P,) * 15 + (_I,) * 10 + (_F,),
+    "q3_mla_decode": (_P,) * 7 + (_I,) * 5 + (_F,),
 }
 # C functions that take no stream: name -> (argument types, result type)
 _HOST_SIGNATURES = {

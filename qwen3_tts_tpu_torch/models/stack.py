@@ -18,6 +18,17 @@ which does nothing on an unsplit stack).
 KV cache: one stacked kv-heads-major tensor [L, 2, B, n_kv, S, D] in bf16,
 or ``QuantKV`` (int8 values + f32 per-row scales). The cache is updated in
 place: the torch counterpart of JAX's donated buffers.
+
+A stack whose layers hold ``wkv_b`` is of LongCat-Flash double layers
+(models/weights.mla_layers; its entries "mla" and "moe" configure it),
+chosen here in Python, so a dense or Omni stack's step is unchanged. A
+double layer, for x:
+  y = x + MLA_0(norm_in0(x)); h1 = norm_post0(y); m = MoE(h1);
+  y = y + FFN_0(h1); y = y + MLA_1(norm_in1(y));
+  y = y + FFN_1(norm_post1(y)) + m
+(the shortcut MoE starts after the first attention and joins at the end).
+Its cache is ``LatentKV``: one bf16 row a position a sublayer
+(ops/mla.py), no per-head K or V; int8 is refused.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import mla
 from ..ops.attention import decode_attention, decode_attention_masked
 from ..ops.layers import dot, gqa_attention_prefill, rms_norm, rope_neox
 from ..ops.moe import moe_ffn
@@ -40,6 +52,11 @@ class QuantKV(NamedTuple):
     scales: torch.Tensor   # [L, 2, B, n_kv, S] f32
 
 
+class LatentKV(NamedTuple):
+    """The cache of a latent-attention stack (module docstring)."""
+    rows: torch.Tensor     # [L, 2, B, S, latent width] bf16
+
+
 def quantize_kv_rows(x: torch.Tensor):
     """[..., D] -> (int8 [..., D], f32 scale [...]): symmetric per-row
     absmax quantization, round half to even."""
@@ -50,9 +67,17 @@ def quantize_kv_rows(x: torch.Tensor):
 
 
 def init_kv_cache(n_layers: int, batch: int, max_ctx: int, n_kv: int,
-                  head_dim: int, device, quant: bool = False):
+                  head_dim: int, device, quant: bool = False,
+                  latent: int = 0):
     """Allocate the stacked decode cache on `device` (QuantKV when
-    `quant`)."""
+    `quant`; a LatentKV of `latent` values a row when `latent`, the heads
+    then unused)."""
+    if latent:
+        if quant:
+            raise ValueError("an int8 cache of a latent-attention talker is "
+                             "not built: use the bf16 latent cache")
+        return LatentKV(torch.zeros(n_layers, 2, batch, max_ctx, latent,
+                                    dtype=CACHE_DTYPE, device=device))
     shape = (n_layers, 2, batch, n_kv, max_ctx, head_dim)
     if quant:
         return QuantKV(
@@ -108,12 +133,49 @@ def _ffn(layers_w, wl, x: torch.Tensor, eps: float) -> torch.Tensor:
                   layers_w)
 
 
+def _swiglu(wl, s: int, h: torch.Tensor) -> torch.Tensor:
+    gate, up = dot(h, wl["w_gu"][s]).chunk(2, -1)
+    return dot(torch.nn.functional.silu(gate) * up, wl["w_down"][s])
+
+
+def _double_layers(layers_w, x: torch.Tensor, attend, eps: float):
+    """The double layers (module docstring) over x [..., H] f32, with
+    ``attend(wl, l, s, h)`` giving sublayer s's attention output."""
+    for l in range(n_layers(layers_w)):
+        wl = layer_weights(layers_w, l)
+        for s in (0, 1):
+            x = x + attend(wl, l, s, rms_norm(x, wl["attn_norm"][s], eps))
+            h = rms_norm(x, wl["ffn_norm"][s], eps)
+            if s == 0:
+                m = moe_ffn(h.reshape(-1, h.shape[-1]), wl,
+                            layers_w["moe"]).reshape(h.shape)
+            x = x + _swiglu(wl, s, h)
+        x = x + m
+    return x
+
+
+def _mla_prefill(layers_w, x, positions, n_heads, eps, theta):
+    cfg, rows = layers_w["mla"], []
+
+    def attend(wl, l, s, h):
+        o, r = mla.prefill_sublayer(wl, s, h, positions, n_heads, cfg, theta)
+        rows.append(r)
+        return o
+
+    y = _double_layers(layers_w, x.float(), attend, eps)
+    L = n_layers(layers_w)
+    return y, torch.stack(rows).reshape(L, 2, *rows[0].shape), None
+
+
 def stack_prefill(layers_w, x: torch.Tensor, positions: torch.Tensor, *,
                   n_heads: int, n_kv: int, head_dim: int, eps: float,
                   theta: float):
     """T-token prefill from an empty cache. x: [B, T, H]; positions: [B, T].
     Returns (y [B, T, H] f32 before the output norm, ks, vs [L, B, T, kv, D]
-    bf16)."""
+    bf16); a latent-attention stack returns (y, its cache rows [L, 2, B,
+    T, W] bf16, None)."""
+    if "wkv_b" in layers_w:
+        return _mla_prefill(layers_w, x, positions, n_heads, eps, theta)
     x = x.float()
     ks, vs = [], []
     for l in range(n_layers(layers_w)):
@@ -131,8 +193,12 @@ def stack_prefill(layers_w, x: torch.Tensor, positions: torch.Tensor, *,
 
 def write_prefill_to_cache(kv_cache, ks: torch.Tensor, vs: torch.Tensor,
                            start: int = 0):
-    """Write prefill K/V ([L, B, T, kv, D]) into the cache at `start`, in
-    place. Returns the cache."""
+    """Write prefill K/V ([L, B, T, kv, D]; a LatentKV takes stack_prefill's
+    latent rows as `ks`) into the cache at `start`, in place. Returns the
+    cache."""
+    if isinstance(kv_cache, LatentKV):
+        kv_cache.rows[:, :, :, start:start + ks.shape[3]] = ks
+        return kv_cache
     kv = torch.stack([ks, vs], dim=1).transpose(3, 4)    # [L,2,B,kv,T,D]
     T = kv.shape[4]
     if isinstance(kv_cache, QuantKV):
@@ -214,6 +280,10 @@ def stack_step(layers_w, x: torch.Tensor, positions: torch.Tensor, kv_cache,
     each stream's valid slots to [0, prefill_len) U [lo, hi) so that the
     kernel skips the other blocks. Returns (y [B, H] f32 before the
     output norm, kv_cache)."""
+    if "wkv_b" in layers_w:
+        return _mla_step(layers_w, x, positions, kv_cache, write_idx,
+                         n_valid, valid_mask, read_ctx, n_heads, eps, theta)
+
     def attend(q, k, v, k_scale, v_scale):
         if valid_mask is not None:
             return decode_attention_masked(
@@ -226,3 +296,21 @@ def stack_step(layers_w, x: torch.Tensor, positions: torch.Tensor, kv_cache,
     return decode_layers(layers_w, x, positions, kv_cache, write_idx, attend,
                          n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
                          eps=eps, theta=theta)
+
+
+def _mla_step(layers_w, x, positions, cache, write_idx, n_valid, valid_mask,
+              read_ctx, n_heads, eps, theta):
+    """stack_step of a latent-attention stack: each sublayer's row goes
+    into slot `write_idx` of its LatentKV rows, then absorbed decode
+    attention (ops/mla.py) in prefix or ring mode."""
+    idx = (write_idx.to(torch.long).reshape(1)
+           if isinstance(write_idx, torch.Tensor) else
+           torch.full((1,), write_idx, dtype=torch.long, device=x.device))
+    cfg = layers_w["mla"]
+
+    def attend(wl, l, s, h):
+        return mla.decode_sublayer(
+            wl, s, h, positions, cache.rows[l, s], idx, n_heads, cfg, theta,
+            n_valid=n_valid, valid_mask=valid_mask, read_ctx=read_ctx)
+
+    return _double_layers(layers_w, x.float(), attend, eps), cache

@@ -22,7 +22,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..config import Code2WavConfig, MoEConfig, TalkerConfig, VocoderConfig
+from ..config import (Code2WavConfig, MLAConfig, MoEConfig, TalkerConfig,
+                      VocoderConfig)
 
 MATMUL_DTYPE = torch.bfloat16
 NORM_DTYPE = torch.float32
@@ -178,15 +179,50 @@ def moe_layers(rn, n_layers: int, hidden: int, moe: MoEConfig
     }
 
 
+def mla_layers(rn, norm, zeros, cfg: TalkerConfig, mla: MLAConfig,
+               moe: MoEConfig) -> dict[str, Any]:
+    """The leaves of a talker of LongCat-Flash double layers (ops/mla.py,
+    models/stack.py), stacked over the L double layers and, where a leaf
+    has one a sublayer, over its two sublayers: norms ``attn_norm`` /
+    ``ffn_norm`` [L, 2, H]; latent attention ``wq_a`` [L, 2, H, Rq],
+    ``q_a_norm`` [L, 2, Rq], ``wq_b`` [L, 2, Rq, n (dn + dr)], ``wkv_a``
+    [L, 2, H, R + dr], ``kv_a_norm`` [L, 2, R], ``wkv_b`` [L, 2, R,
+    n (dn + dv)], ``wo`` [L, 2, n dv, H]; the dense SwiGLUs ``w_gu`` [L, 2,
+    H, 2 I] / ``w_down`` [L, 2, I, H]; the shortcut MoE's router
+    ``w_router`` [L, H, E + Z], correction bias ``e_bias`` [L, E + Z] f32
+    and the held experts ``w_gu_e`` [L, held, H, 2 Ie] / ``w_down_e`` [L,
+    held, Ie, H]. ``mla`` and ``moe`` ride along as non-tensor entries."""
+    L, H, n = cfg.n_layers, cfg.hidden_size, cfg.n_attention_heads
+    dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    Rq, R, I = mla.q_lora_rank, mla.kv_lora_rank, cfg.intermediate_size
+    Ie = moe.expert_intermediate
+    return {
+        "attn_norm": norm(L, 2, H), "ffn_norm": norm(L, 2, H),
+        "wq_a": rn(L, 2, H, Rq), "q_a_norm": norm(L, 2, Rq),
+        "wq_b": rn(L, 2, Rq, n * (dn + dr)),
+        "wkv_a": rn(L, 2, H, R + dr), "kv_a_norm": norm(L, 2, R),
+        "wkv_b": rn(L, 2, R, n * (dn + dv)), "wo": rn(L, 2, n * dv, H),
+        "w_gu": rn(L, 2, H, 2 * I), "w_down": rn(L, 2, I, H),
+        "w_router": rn(L, H, moe.router_width),
+        "e_bias": zeros(L, moe.router_width),
+        "w_gu_e": rn(L, moe.held, H, 2 * Ie),
+        "w_down_e": rn(L, moe.held, Ie, H),
+        "mla": mla, "moe": moe,
+    }
+
+
 def init_talker_weights(cfg: TalkerConfig, generator: torch.Generator,
                         device, scale: float = 0.02,
-                        moe: MoEConfig | None = None) -> dict[str, Any]:
+                        moe: MoEConfig | None = None,
+                        mla: MLAConfig | None = None) -> dict[str, Any]:
     """Random talker + code-predictor weights: normal(0, scale) matmul
     weights in bf16 and zero biases, as the JAX package draws them
     (weights.py:119-170). Norm weights are 1 + normal(0, 0.1) where the JAX
     init has ones, so that a kernel that skips one is seen. With `moe`,
     every talker layer holds ``moe_layers``' leaves in place of the dense
-    FFN (``cfg.intermediate_size`` then unused)."""
+    FFN (``cfg.intermediate_size`` then unused); with `mla` too, the
+    talker is of LongCat-Flash double layers (``mla_layers``; the
+    correction bias zero)."""
     def rn(*shape):
         t = torch.randn(shape, generator=generator, device=device)
         return (t * scale).to(MATMUL_DTYPE)
@@ -202,6 +238,8 @@ def init_talker_weights(cfg: TalkerConfig, generator: torch.Generator,
     has_mtp = cfg.code_pred_hidden_size != cfg.hidden_size
 
     def talker_layers():
+        if mla is not None:
+            return mla_layers(rn, norm, zeros, cfg, mla, moe)
         layers = _decoder_stack(
             rn, norm, cfg.n_layers, cfg.hidden_size, cfg.n_attention_heads,
             cfg.n_key_value_heads, cfg.head_dim,

@@ -59,6 +59,19 @@ def rope_neox(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def rope_interleave(x: torch.Tensor, positions: torch.Tensor,
+                    theta: float) -> torch.Tensor:
+    """DeepSeek-V3's interleaved rotary embedding (transformers'
+    ``apply_rotary_pos_emb_interleave``): the dims are de-interleaved
+    (evens, then odds) and then rotated as NEOX pairs (i, i + D/2), so the
+    result is laid out de-interleaved; a query and a key rotated alike give
+    the interleaved form's scores. x: [..., T, n_heads, D]; positions:
+    broadcastable to [..., T]."""
+    d = x.shape[-1]
+    x = x.reshape(*x.shape[:-1], d // 2, 2).transpose(-1, -2)
+    return rope_neox(x.reshape(*x.shape[:-2], d), positions, theta)
+
+
 def gqa_attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           n_past: int = 0) -> torch.Tensor:
     """Batched causal GQA. q: [B, T, n_heads, D]; k, v: [B, S, n_kv, D];

@@ -42,12 +42,34 @@ once for all rows routed to it:
 4. ``moe_combine``: y_t in the order above, no atomics: deterministic,
    so a graph replay is bitwise the eager call.
 
+LongCat-Flash's block (``LongcatFlashMoE``; a config.MoEConfig with no
+shared expert) takes the expert-parallel path, whose router, chunk list
+and combine are their own kernels around the same grouped product:
+
+- x = bf16(h); logits x @ w_router in f32 over the router's n_experts +
+  n_zero_experts outputs (cuBLAS: bf16 operands, f32 sums, as ``dot``);
+  p = softmax(logits) in f32; the top_k of p + e_bias (the layer's
+  correction bias, where it holds one; ties to the lower id) are chosen,
+  and weighted by p (renormalised when ``norm_topk_prob``) times
+  ``routed_scaling``, in f32;
+- a chosen id from n_experts up is an identity expert: o_tj = x_t; a real
+  expert held here ([expert_offset, + held)) gives the SwiGLU above over
+  its local leaves ``w_gu_e`` / ``w_down_e`` [held, ...]; a real expert
+  held elsewhere is skipped: what its chip would add is not this chip's
+  part of the result;
+- y_t = sum over j in order of w_tj o_tj (skipped pairs left out), in f32.
+  The route kernel (one warp a token) writes the ids and weights; its
+  last CTA lists the held experts' pairs and chunks as ``moe_route`` does.
+
 A CPU tensor runs the twin; a CUDA tensor launches the kernels or raises.
 ``moe_ffn.launches`` counts calls that launched. Where the layer's leaves
-hold ``moe_counts`` (int32 [3], the layer's row of the engine's counters,
-runtime/pipeline.py), every call adds to it: the (token, expert) pairs
-routed, the rows the grouped product computed (pairs padded to its m16
-tiles, per expert) and the most rows one expert got in one call (a max).
+hold ``moe_counts`` (int32 [3], or [5] on the expert-parallel path: the
+layer's row of the engine's counters, runtime/pipeline.py), every call
+adds to it: the (token, expert) pairs that the grouped product computed
+(every routed pair, on the other path: those of held experts), the rows
+it computed (pairs padded to its m16 tiles, per expert), the most rows
+one expert got in one call (a max), then the pairs routed to identity
+experts and those routed to real experts held elsewhere.
 """
 
 from __future__ import annotations
@@ -56,6 +78,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .layers import dot
 
 CHUNK_ROWS = 64        # rows a work chunk of the grouped product
 M_TILE = 16            # rows of an mma tile: the padding unit of `rows`
@@ -63,6 +86,9 @@ GU_COLS = 64           # intermediate columns a gate/up CTA (each of g, u)
 DOWN_COLS = 128        # output columns a down CTA
 MAX_EXPERTS = 128      # router: experts a warp holds (4 a lane)
 MAX_TOP_K = 8
+EP_MAX_ROUTER = 1024   # expert-parallel router: outputs a warp holds
+EP_MAX_TOP_K = 16
+EP_MAX_HELD = 256      # held experts: one thread each in the chunk list
 
 _TICKETS: dict = {}    # device -> the route kernel's ticket (int32 [1])
 
@@ -97,10 +123,64 @@ def _count(cnt: torch.Tensor, e: torch.Tensor, n_experts: int) -> None:
     cnt[2] = torch.maximum(cnt[2], rows.max().to(cnt.dtype))
 
 
+def expert_parallel(moe) -> bool:
+    """Whether `moe` takes the expert-parallel path (no shared expert)."""
+    return moe.shared_intermediate == 0
+
+
+def route_ep(h: torch.Tensor, w_router: torch.Tensor,
+             e_bias: torch.Tensor | None, moe):
+    """(x = bf16(h) [N, H], router ids [N, k] int64, weights [N, k] f32) of
+    the expert-parallel path (module docstring)."""
+    x = h.to(torch.bfloat16)
+    p = torch.softmax(x.float() @ w_router.float(), dim=-1)
+    choice = p if e_bias is None else p + e_bias.float()
+    e = torch.sort(choice, dim=-1, descending=True,
+                   stable=True).indices[:, :moe.top_k]
+    w = p.gather(1, e)
+    if moe.norm_topk_prob:
+        w = w / w.sum(dim=-1, keepdim=True)
+    return x, e, w * moe.routed_scaling
+
+
+def _count_ep(cnt: torch.Tensor, e: torch.Tensor, moe) -> None:
+    """Add one expert-parallel call's counts (module docstring) to cnt [5]."""
+    local = e - moe.expert_offset
+    held = (local >= 0) & (local < moe.held)
+    rows = torch.bincount(local[held], minlength=moe.held)
+    padded = (rows + M_TILE - 1) // M_TILE * M_TILE
+    zero = int((e >= moe.n_experts).sum())
+    cnt[0] += int(held.sum())
+    cnt[1] += padded.sum().to(cnt.dtype)
+    cnt[2] = torch.maximum(cnt[2], rows.max().to(cnt.dtype))
+    cnt[3] += zero
+    cnt[4] += e.numel() - int(held.sum()) - zero
+
+
+def _moe_ffn_ep_twin(h: torch.Tensor, wl: dict, moe) -> torch.Tensor:
+    x, e, w = route_ep(h, wl["w_router"], wl.get("e_bias"), moe)
+    N, H = h.shape
+    local = e - moe.expert_offset
+    held = (local >= 0) & (local < moe.held)
+    out = x.float()[:, None, :].expand(N, moe.top_k, H).clone()
+    for ex in local[held].unique().tolist():
+        t, j = ((local == ex) & held).nonzero(as_tuple=True)
+        out[t, j] = swiglu(x[t], wl["w_gu_e"][ex], wl["w_down_e"][ex])
+    counted = (held | (e >= moe.n_experts))[..., None]
+    y = torch.zeros(N, H, dtype=torch.float32, device=h.device)
+    for j in range(moe.top_k):
+        y = y + torch.where(counted[:, j], w[:, j, None] * out[:, j], 0.0)
+    if "moe_counts" in wl:
+        _count_ep(wl["moe_counts"], e, moe)
+    return y
+
+
 def moe_ffn_twin(h: torch.Tensor, wl: dict, moe) -> torch.Tensor:
     """Plain torch version of the module docstring's semantics: each
     expert over the pairs routed to it, by indexing. h [N, H] f32 ->
     [N, H] f32."""
+    if expert_parallel(moe):
+        return _moe_ffn_ep_twin(h, wl, moe)
     x, e, w, s = route(h, wl["w_router"], wl["w_sgate"], moe.top_k,
                        moe.norm_topk_prob)
     N, H = h.shape
@@ -147,6 +227,23 @@ def supported(H: int, moe) -> str | None:
     """Why the kernel cannot serve these widths (None: it can)."""
     if H % DOWN_COLS:
         return f"hidden {H} not a multiple of {DOWN_COLS}"
+    if expert_parallel(moe):
+        if moe.expert_intermediate % GU_COLS:
+            return (f"expert width {moe.expert_intermediate} not a multiple "
+                    f"of {GU_COLS}")
+        if not 1 <= moe.top_k <= min(EP_MAX_TOP_K, moe.router_width):
+            return f"top_k {moe.top_k} outside 1..{EP_MAX_TOP_K}"
+        if moe.router_width > EP_MAX_ROUTER:
+            return (f"{moe.router_width} router outputs: more than "
+                    f"{EP_MAX_ROUTER}")
+        if not (1 <= moe.held <= EP_MAX_HELD and moe.expert_offset >= 0
+                and moe.expert_offset + moe.held <= moe.n_experts):
+            return (f"held experts [{moe.expert_offset}, +{moe.held}) not "
+                    f"inside 0..{moe.n_experts}, at most {EP_MAX_HELD}")
+        return None
+    if (moe.n_zero_experts or moe.routed_scaling != 1.0 or moe.expert_offset
+            or moe.n_held not in (0, moe.n_experts)):
+        return "a shared-expert block with LongCat's router settings"
     for name, n in (("expert", moe.expert_intermediate),
                     ("shared", moe.shared_intermediate)):
         if n % GU_COLS:
@@ -171,6 +268,8 @@ def moe_ffn(h: torch.Tensor, wl: dict, moe,
     why = supported(H, moe)
     if why is not None:
         raise ValueError(f"moe kernel: {why}")
+    if expert_parallel(moe):
+        return _moe_ffn_ep(h, wl, moe, scratch)
     E, k = moe.n_experts, moe.top_k
     Ie, Is = moe.expert_intermediate, moe.shared_intermediate
     req = kernels.require
@@ -204,6 +303,61 @@ def moe_ffn(h: torch.Tensor, wl: dict, moe,
         "q3_moe_ffn")
     moe_ffn.launches += 1
     return y
+
+
+def _moe_ffn_ep(h: torch.Tensor, wl: dict, moe,
+                scratch: dict | None) -> torch.Tensor:
+    """The expert-parallel path on the card (module docstring): the router
+    product by cuBLAS, then route, gate/up, down and combine kernels."""
+    N, H = h.shape
+    Et, k, held, Ie = moe.router_width, moe.top_k, moe.held, \
+        moe.expert_intermediate
+    req = kernels.require
+    req(h, "h", torch.float32, (N, H))
+    bf = torch.bfloat16
+    req(wl["w_router"], "w_router", bf, (H, Et))
+    req(wl["w_gu_e"], "w_gu_e", bf, (held, H, 2 * Ie))
+    req(wl["w_down_e"], "w_down_e", bf, (held, Ie, H))
+    bias = wl.get("e_bias")
+    if bias is not None:
+        req(bias, "e_bias", torch.float32, (Et,))
+    cnt = wl.get("moe_counts")
+    if cnt is not None:
+        req(cnt, "moe_counts", torch.int32, (5,))
+    dev = h.device
+    if dev not in _TICKETS:
+        _TICKETS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    x = h.to(bf)
+    logits = dot(x, wl["w_router"])
+    n_ch = -(-N * k // CHUNK_ROWS) + held
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    s = dict(x=x, logits=logits, experts=empty(N, k),
+             weights=empty(N, k, dtype=torch.float32), order=empty(N * k),
+             chunks=empty(n_ch, 3), n_chunks=empty(1), ticket=_TICKETS[dev],
+             act=empty(N * k, Ie, dtype=bf),
+             out=empty(N * k, H, dtype=torch.float32))
+    if scratch is not None:
+        scratch.update(s)
+    y = torch.empty(N, H, dtype=torch.float32, device=dev)
+    kernels.check(kernels.lib().q3_moe_ffn_ep(
+        logits.data_ptr(), None if bias is None else bias.data_ptr(),
+        x.data_ptr(), wl["w_gu_e"].data_ptr(), wl["w_down_e"].data_ptr(),
+        s["experts"].data_ptr(), s["weights"].data_ptr(),
+        s["order"].data_ptr(), s["chunks"].data_ptr(),
+        s["n_chunks"].data_ptr(), s["ticket"].data_ptr(),
+        s["act"].data_ptr(), s["out"].data_ptr(), y.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), N, H, Et, moe.n_experts,
+        moe.expert_offset, held, k, Ie, n_ch, int(moe.norm_topk_prob),
+        float(moe.routed_scaling), kernels.stream(dev)), "q3_moe_ffn_ep")
+    moe_ffn.launches += 1
+    return y
+
+
+def n_counts(moe) -> int:
+    """Columns of a layer's counters (module docstring)."""
+    return 5 if expert_parallel(moe) else 3
 
 
 moe_ffn.launches = 0

@@ -102,9 +102,10 @@ def supported(cfg, B: int, w, kv_cache, write_idx, valid_mask,
     cache's width, read_ctx <= S. On the card the kernel also needs head
     dim 128 and a hidden size that its 256-row product tiles divide. A
     sparse-MoE talker (``w_router``, ops/moe.py) is never supported: the
-    kernel's FFN is the dense SwiGLU."""
+    kernel's FFN is the dense SwiGLU; nor is a latent-attention one
+    (``wkv_b``, ops/mla.py): its attention is grouped-query."""
     lw = w["layers"] if "layers" in w else w
-    if "w_router" in lw:
+    if "w_router" in lw or "wkv_b" in lw:
         return False
     vals = kv_cache.values if isinstance(kv_cache, QuantKV) else kv_cache
     S = vals.shape[4]

@@ -35,8 +35,8 @@ import torch
 
 from ..config import TalkerConfig
 from ..models import code_predictor, talker
-from ..models.stack import (QuantKV, init_kv_cache, quantize_kv_rows,
-                            stack_prefill)
+from ..models.stack import (LatentKV, QuantKV, init_kv_cache,
+                            quantize_kv_rows, stack_prefill)
 from ..ops.sampling import sample_cb0
 from ..parallel.mesh import tp_size
 
@@ -54,7 +54,8 @@ def kv_quant_enabled() -> bool:
 
 @dataclass
 class GenState:
-    kv_cache: object              # [L, 2, B, kv, S, D] bf16 or QuantKV
+    kv_cache: object              # [L, 2, B, kv, S, D] bf16, QuantKV or
+    #                               LatentKV (a latent-attention talker)
     n_past: torch.Tensor          # [B] int32 per-stream position
     frame_idx: torch.Tensor       # [B] int32 frames generated
     last_hidden: torch.Tensor     # [B, H] f32
@@ -91,15 +92,18 @@ def init_state(w, cfg: TalkerConfig, prefill: talker.PrefillInputs,
     batches); the others start done. into: a state of the same shapes
     whose buffers are cleared and refilled in place (and returned), the
     generator included; None allocates a new one. A tp-split `w` holds
-    n_kv / tp KV heads, and so does its cache."""
+    n_kv / tp KV heads, and so does its cache. A latent-attention talker
+    (its layers' entry "mla") gets a LatentKV; kv_quant then raises."""
     B, P, _ = prefill.prefill_embd.shape
     dev = prefill.prefill_embd.device
+    mla = w["layers"].get("mla")
     if into is None:
         into = GenState(
             kv_cache=init_kv_cache(cfg.n_layers, B, max_ctx,
                                    cfg.n_key_value_heads
                                    // tp_size(w["layers"]), cfg.head_dim,
-                                   quant=kv_quant, device=dev),
+                                   quant=kv_quant, device=dev,
+                                   latent=mla.latent_width if mla else 0),
             n_past=torch.empty(B, dtype=torch.int32, device=dev),
             frame_idx=torch.empty(B, dtype=torch.int32, device=dev),
             last_hidden=torch.empty(B, cfg.hidden_size, device=dev),
@@ -113,7 +117,8 @@ def init_state(w, cfg: TalkerConfig, prefill: talker.PrefillInputs,
             ring_lo=torch.empty(B, dtype=torch.int32, device=dev))
     else:
         cache = into.kv_cache
-        have = (cache.values if isinstance(cache, QuantKV) else cache).shape
+        have = (cache.values if isinstance(cache, QuantKV) else
+                cache.rows if isinstance(cache, LatentKV) else cache).shape
         if (isinstance(cache, QuantKV) != kv_quant
                 or tuple(into.valid_mask.shape) != (B, max_ctx)
                 or have[0] != cfg.n_layers):
@@ -124,6 +129,8 @@ def init_state(w, cfg: TalkerConfig, prefill: talker.PrefillInputs,
         if isinstance(cache, QuantKV):
             cache.values.zero_()
             cache.scales.fill_(1e-8 / 127.0)     # init_kv_cache's
+        elif isinstance(cache, LatentKV):
+            cache.rows.zero_()
         else:
             cache.zero_()
         into.generator = generator
@@ -307,14 +314,17 @@ def admit_slots(w, cfg: TalkerConfig, state: GenState, consts: GenConsts,
     k_idx = torch.arange(K, device=dev)
     last = torch.where(slots[:, None] == slots[None, :], k_idx[None, :],
                        -1).amax(dim=1)
-    kv = torch.stack([ks, vs], dim=1).transpose(3, 4)[:, :, last]
-    cache = state.kv_cache                       # kv: [L, 2, K, kv, P, D]
-    if isinstance(cache, QuantKV):
-        qv, qs = quantize_kv_rows(kv)
-        cache.values[:, :, slots, :, :P] = qv
-        cache.scales[:, :, slots, :, :P] = qs
-    else:
-        cache[:, :, slots, :, :P] = kv.to(cache.dtype)
+    cache = state.kv_cache
+    if isinstance(cache, LatentKV):              # ks: [L, 2, K, P, W]
+        cache.rows[:, :, slots, :P] = ks[:, :, last]
+    else:                                        # kv: [L, 2, K, kv, P, D]
+        kv = torch.stack([ks, vs], dim=1).transpose(3, 4)[:, :, last]
+        if isinstance(cache, QuantKV):
+            qv, qs = quantize_kv_rows(kv)
+            cache.values[:, :, slots, :, :P] = qv
+            cache.scales[:, :, slots, :, :P] = qs
+        else:
+            cache[:, :, slots, :, :P] = kv.to(cache.dtype)
 
     S = state.valid_mask.shape[1]
     state.n_past[slots] = P

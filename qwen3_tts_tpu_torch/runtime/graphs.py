@@ -67,7 +67,8 @@ from typing import Callable
 import torch
 
 from .. import kernels
-from ..ops import codepred_fused, flash_decode, talker_fused, vocoder_fused
+from ..ops import (codepred_fused, flash_decode, mla, moe, talker_fused,
+                   vocoder_fused)
 from ..utils import trace
 
 _BUFFER_IDS = itertools.count(1)
@@ -140,7 +141,7 @@ def voc_key(*, model_tag: str, n: int, frames: int, sub: int | None,
 _COUNTED = (codepred_fused.predict_codes_fused,
             talker_fused.talker_step_fused, flash_decode.flash_decode,
             vocoder_fused.fused_residual_chain,
-            vocoder_fused.fused_snake_convt)
+            vocoder_fused.fused_snake_convt, moe.moe_ffn, mla.mla_decode)
 
 
 def _counts() -> tuple:

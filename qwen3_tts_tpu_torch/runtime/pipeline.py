@@ -67,15 +67,15 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..config import (MoEConfig, SpeakerEncoderConfig, TalkerConfig,
-                      VocoderConfig)
+from ..config import (MLAConfig, MoEConfig, SpeakerEncoderConfig,
+                      TalkerConfig, VocoderConfig)
 from ..io.gguf import GGUFReader, HostStager
 from ..models import code_predictor
 from ..models import speaker_encoder as spk
 from ..models import talker, vocoder
 from ..models import weights as W
 from ..models.stack import QuantKV
-from ..ops import codepred_fused
+from ..ops import codepred_fused, mla as mla_op, moe as moe_op
 from ..ops.attention import get_decode_attention_impl
 from ..parallel.mesh import (dp_rows, gather_chunk, gather_objects,
                              graphs_allowed, mesh_dims, rank_seed,
@@ -208,7 +208,8 @@ class Qwen3TTS:
     @classmethod
     def from_components(cls, tokenizer, talker_cfg, talker_w, voc_cfg, voc_w,
                         device, spk_cfg=None, spk_w=None,
-                        moe: MoEConfig | None = None) -> "Qwen3TTS":
+                        moe: MoEConfig | None = None,
+                        mla: MLAConfig | None = None) -> "Qwen3TTS":
         """Assemble an engine from in-memory components whose tensors
         already live on `device`; the vocoder kernels' parameters are
         packed here, once. voc_w=None: an engine without a vocoder
@@ -216,7 +217,14 @@ class Qwen3TTS:
         its layers hold the MoE leaves (models/weights.moe_layers); they
         ride in the layers tree as its entry "moe", which a tree from
         ``init_talker_weights(..., moe=)`` carries already, beside the
-        engine's counters ``moe_counts`` [L, 3] int32 (module docstring)."""
+        engine's counters ``moe_counts`` [L, 3] int32 ([L, 5] on the
+        expert-parallel path, ops/moe.py; module docstring). mla: the
+        settings of a talker of LongCat-Flash double layers, whose layers
+        hold ``wkv_b`` (models/weights.mla_layers), ridden in as the entry
+        "mla" the same way; the engine adds each sublayer's absorbed
+        ``w_uk`` / ``w_uv`` (ops/mla.absorbed_weights) for decoding."""
+        if talker_w is not None:
+            talker_w = cls._with_mla(talker_w, talker_cfg, mla)
         if talker_w is not None and "w_router" in talker_w["layers"]:
             layers = talker_w["layers"]
             have = layers.get("moe")
@@ -226,7 +234,8 @@ class Qwen3TTS:
             if moe is not None and have not in (None, moe):
                 raise ValueError(f"moe={moe} differs from the talker "
                                  f"tree's {have}")
-            counts = torch.zeros(layers["w_router"].shape[0], 3,
+            counts = torch.zeros(layers["w_router"].shape[0],
+                                 moe_op.n_counts(moe or have),
                                  dtype=torch.int32, device=device)
             talker_w = {**talker_w, "layers": {
                 **layers, "moe": moe or have, "moe_counts": counts}}
@@ -237,6 +246,29 @@ class Qwen3TTS:
             voc_w = vocoder.pack_kernel_weights(voc_w)
         return cls(tokenizer, talker_cfg, talker_w, voc_cfg, voc_w, device,
                    spk_cfg, spk_w)
+
+    @staticmethod
+    def _with_mla(talker_w, talker_cfg, mla):
+        """The talker tree with its "mla" entry and absorbed leaves, where
+        its layers hold ``wkv_b`` (from_components)."""
+        layers = talker_w["layers"]
+        if "wkv_b" not in layers:
+            if mla is not None:
+                raise ValueError("mla given, but the talker's layers hold "
+                                 "no wkv_b")
+            return talker_w
+        have = layers.get("mla")
+        if mla is None and have is None:
+            raise ValueError("a latent-attention talker needs its MLAConfig "
+                             "(from_components(..., mla=))")
+        if mla is not None and have not in (None, mla):
+            raise ValueError(f"mla={mla} differs from the talker tree's "
+                             f"{have}")
+        mla = mla or have
+        w_uk, w_uv = mla_op.absorbed_weights(
+            layers["wkv_b"], talker_cfg.n_attention_heads, mla)
+        return {**talker_w, "layers": {**layers, "mla": mla, "w_uk": w_uk,
+                                       "w_uv": w_uv}}
 
     def shard(self, mesh) -> "Qwen3TTS":
         """Shard the engine over a dp x tp mesh (``parallel.make_mesh``;
@@ -250,6 +282,10 @@ class Qwen3TTS:
         if torch.device(mesh.device_type).type != self.device.type:
             raise ValueError(f"a {mesh.device_type} mesh cannot shard an "
                              f"engine on {self.device}")
+        if "mla" in self.talker_w["layers"] and mesh_dims(mesh)[1] > 1:
+            raise ValueError("tp > 1 on a latent-attention talker: its "
+                             "heads and its experts are not split; shard it "
+                             "over dp only")
         if self._moe_counts() is not None and mesh_dims(mesh)[1] > 1:
             raise ValueError("tp > 1 on a sparse-MoE talker: its experts "
                              "are not split (no expert parallelism); shard "

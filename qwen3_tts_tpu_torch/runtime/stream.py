@@ -70,15 +70,24 @@ class ChunkCopies:
     def take(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host (codes, valid, done), waited for; MoE counters become the
         span ``talker.moe`` (pairs and rows summed over the layers,
-        max_rows their max) and the counters ``moe.pairs`` / ``moe.rows``."""
+        max_rows their max; on the expert-parallel path also ``zero``, the
+        pairs routed to identity experts, and ``remote``, those routed to
+        experts held elsewhere) and the counters ``moe.pairs`` /
+        ``moe.rows`` (and ``moe.zero_pairs`` / ``moe.remote_pairs``)."""
         out = tuple(r.result() for r in (self.codes, self.valid, self.done))
         if self.moe is not None:
             c = self.moe.result()
-            pairs, rows = int(c[:, 0].sum()), int(c[:, 1].sum())
+            sums = dict(pairs=int(c[:, 0].sum()), rows=int(c[:, 1].sum()))
+            if c.shape[1] > 3:
+                sums.update(zero=int(c[:, 3].sum()),
+                            remote=int(c[:, 4].sum()))
             trace.add("talker.moe", self.t0, time.monotonic_ns(),
-                      pairs=pairs, rows=rows, max_rows=int(c[:, 2].max()))
-            trace.count("moe.pairs", pairs)
-            trace.count("moe.rows", rows)
+                      max_rows=int(c[:, 2].max()), **sums)
+            for name, counter in (("pairs", "moe.pairs"), ("rows", "moe.rows"),
+                                  ("zero", "moe.zero_pairs"),
+                                  ("remote", "moe.remote_pairs")):
+                if name in sums:
+                    trace.count(counter, sums[name])
         return out
 
 

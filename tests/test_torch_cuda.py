@@ -1770,3 +1770,150 @@ def test_moe_engine_lockstep_and_serving_on_card(dev):
         a = sp.attrs
         assert a["pairs"] > 0 and a["rows"] >= a["pairs"]
         assert 1 <= a["max_rows"] <= a["pairs"]
+
+
+# -- LongCat-Flash's block: latent attention, the expert-parallel MoE ------
+
+@pytest.mark.parametrize("mode", ["prefix", "masked"])
+@pytest.mark.parametrize("B", [1, 8, 192])
+def test_mla_kernel_matches_twin(dev, B, mode):
+    """The latent decode kernel at LongCat's widths (64 heads over 576-wide
+    rows) against its twin, read_ctx under the cache with NaN past it:
+    within chip_smoke.MLA_TOL (bf16 probabilities rounded against a
+    running maximum, other sum orders), an empty stream 0, and a second
+    call bitwise the first."""
+    from qwen3_tts_tpu_torch.ops import mla
+    gen = torch.Generator(device=dev).manual_seed(90 + B)
+    q, rows, kw = chip_smoke._mla_inputs(B, dev, gen, mode)
+    rows[:, 256:] = float("nan")
+    fn = mla.mla_decode if mode == "prefix" else mla.mla_decode_masked
+    arg = kw.get("n_valid", kw.get("valid_mask"))
+    before = mla.mla_decode.launches
+    got = fn(q, rows, arg, 192 ** -0.5, 64, read_ctx=256)
+    again = fn(q, rows, arg, 192 ** -0.5, 64, read_ctx=256)
+    torch.cuda.synchronize()
+    assert mla.mla_decode.launches == before + 2
+    want = mla.mla_decode_twin(q, rows, 192 ** -0.5, 64, read_ctx=256, **kw)
+    err = ((got.float() - want.float()).norm()
+           / want.float().norm()).item()
+    assert torch.isfinite(got).all() and err <= chip_smoke.MLA_TOL, err
+    assert torch.equal(got, again)
+    if mode == "prefix" and B > 1:
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("B", [8, 192])
+def test_mla_graph_replay_bitwise(dev, B):
+    """The decode kernel captured in a CUDA graph (B 8: split tiles and
+    the merge; B 192: one CTA a stream) replays bitwise the eager call,
+    and follows new lengths written in place."""
+    from qwen3_tts_tpu_torch.ops import mla
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, rows, kw = chip_smoke._mla_inputs(B, dev, gen, "prefix")
+    n = kw["n_valid"]
+    eager = mla.mla_decode(q, rows, n, 0.07, 64, read_ctx=384)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        mla.mla_decode(q, rows, n, 0.07, 64, read_ctx=384)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = mla.mla_decode(q, rows, n, 0.07, 64, read_ctx=384)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    n.copy_(torch.randint(1, 384, (B,), generator=gen, device=dev).int())
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, mla.mla_decode(q, rows, n, 0.07, 64,
+                                           read_ctx=384))
+
+
+def test_moe_ep_route_matches_twin(dev):
+    """The expert-parallel route at 768 router outputs and top-12 with the
+    correction bias (LongCat's widths, 16 held experts) at B = 192: the
+    twin's ids wherever the 12th and 13th choices do not nearly tie, the
+    counts [5], the output within MOE_TOL over the rows routed alike, and
+    a graph replay bitwise the eager call."""
+    from qwen3_tts_tpu_torch.ops import moe as M
+    gen = torch.Generator(device=dev).manual_seed(31)
+    moe, lw = chip_smoke._moe_ep_layer(dev, gen)
+    h = torch.randn(192, 6144, generator=gen, device=dev)
+    cnt = lw["moe_counts"] = torch.zeros(5, dtype=torch.int32, device=dev)
+    s: dict = {}
+    got = M.moe_ffn(h, lw, moe, scratch=s)
+    torch.cuda.synchronize()
+    counts = cnt.tolist()
+    x, e, _ = M.route_ep(h, lw["w_router"], lw["e_bias"], moe)
+    p = torch.softmax(M.dot(x, lw["w_router"]), -1) + lw["e_bias"]
+    srt = p.sort(-1, descending=True).values
+    tie = (srt[:, 11] - srt[:, 12]) <= chip_smoke.MOE_EP_TIE
+    same = (s["experts"].long().sort(-1).values
+            == e.sort(-1).values).all(-1)
+    assert (same | tie).all()
+    cnt.zero_()
+    want = M.moe_ffn_twin(h, lw, moe)
+    if same.all():
+        assert counts == cnt.tolist()
+    assert counts[0] + counts[3] + counts[4] == 192 * 12
+    err = ((got[same] - want[same]).double().norm()
+           / want[same].double().norm()).item()
+    assert err <= MOE_TOL, err
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        M.moe_ffn(h, lw, moe)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = M.moe_ffn(h, lw, moe)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+def test_longcat_engine_lockstep_and_serving_on_card(dev):
+    """One LongCat double layer at its widths through the normal paths on
+    the card: lock-step synthesis and ContinuousBatcher, the latent
+    decode kernel and the expert-parallel MoE launching, flash-decode and
+    the megakernel never; each chunk's talker.moe span counts identity
+    and remote pairs."""
+    from qwen3_tts_tpu_torch.config import MLAConfig
+    from qwen3_tts_tpu_torch.ops import flash_decode as fd
+    from qwen3_tts_tpu_torch.ops import mla
+    from qwen3_tts_tpu_torch.ops import moe as M
+    from qwen3_tts_tpu_torch.ops import talker_fused as tf
+    from qwen3_tts_tpu_torch.runtime.serve import ContinuousBatcher
+    from qwen3_tts_tpu_torch.utils import trace
+    base = _engine(dev, 5)
+    cfg = TalkerConfig(hidden_size=6144, n_layers=1, n_attention_heads=64,
+                       intermediate_size=12288)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    moe = chip_smoke._moe_ep_layer(dev, gen)[0]
+    w = W.init_talker_weights(cfg, gen, dev, moe=moe, mla=MLAConfig())
+    eng = Qwen3TTS.from_components(base.tokenizer, cfg, w, base.voc_cfg,
+                                   base.voc_w, dev, moe=moe, mla=MLAConfig())
+    trace.reset()
+    before = (mla.mla_decode.launches, M.moe_ffn.launches,
+              fd.flash_decode.launches, tf.talker_step_fused.launches)
+    res = eng.synthesize_batch(["hello.", "world.", "hello world."],
+                               params=TTSParams(max_audio_tokens=48,
+                                                temperature=0.9, seed=0,
+                                                print_timing=False))
+    _check_results(res, eng)
+    cb = ContinuousBatcher(eng, n_slots=2,
+                           params=TTSParams(temperature=0.9, seed=1),
+                           max_frames=48)
+    rids = [cb.submit(t) for t in ("hello.", "world.", "he")]
+    results = cb.run_all()
+    _check_results([results[r] for r in rids], eng)
+    assert mla.mla_decode.launches > before[0]
+    assert M.moe_ffn.launches > before[1]
+    assert fd.flash_decode.launches == before[2]
+    assert tf.talker_step_fused.launches == before[3]
+    spans = [s.attrs for s in trace.spans() if s.name == "talker.moe"]
+    assert len(spans) >= 3
+    for a in spans:
+        assert a["pairs"] + a["zero"] + a["remote"] > 0
+        assert a["rows"] >= a["pairs"]
